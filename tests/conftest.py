@@ -30,6 +30,11 @@ def run_sub(code: str, devices: int = 8, timeout: int = 420) -> str:
     return out.stdout
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one")
+
+
 @pytest.fixture(name="run_sub")
 def run_sub_fixture():
     """Fixture handle on :func:`run_sub` for mesh subprocess tests."""
