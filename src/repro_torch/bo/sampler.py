@@ -1,10 +1,21 @@
 """GPSampler-style Bayesian-optimization controller (ask/tell).
 
-Counterpart of ``repro/bo/sampler.py``, host pipeline.  Each ``ask`` after
-the startup trials standardizes y, fits a Matérn-5/2 GP by multi-start
-MAP, materializes K⁻¹ for the fused posterior, draws restart points (the
-incumbent plus B−1 uniform draws from the same numpy stream as the
-reference), and maximizes LogEI with the chosen MSO strategy.
+Counterpart of ``repro/bo/sampler.py``.  Two suggest pipelines sit behind
+``ask()``:
+
+* the **host pipeline** (scipy strategies ``seq``/``cbe``/``dbe``, and
+  ``dbe_vec`` with ``fused=False``): from-scratch ``fit_gp``, K⁻¹ for the
+  fused posterior, restart points (the incumbent plus B−1 uniform draws),
+  ``maximize_acqf``;
+* the **fused pipeline** (default for ``dbe_vec``): the
+  :class:`~repro_torch.engine.ask.AskEngine`, whose state stays on the
+  device, with rank-one GP updates between full MAP refits.
+
+The scipy strategies draw restart points from the same numpy stream as
+the reference.  ``dbe_vec`` (both pipelines) draws them from a
+``torch.Generator`` seeded from ``(seed, len(trials))`` on the CPU, so the
+card and the CPU get the same restarts and an undone ask recomputes the
+same point (the reference's ``fold_in(PRNGKey(seed), len(trials))``).
 
 The sampler runs on the card unless the caller asks for the CPU
 (``device="cpu"``); without CUDA, the default raises.
@@ -21,13 +32,30 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.bo.space import BoxSpace
 from repro_torch.core.acquisition import logei_acq
+from repro_torch.core.lbfgsb import LbfgsbOptions
 from repro_torch.core.mso import STRATEGIES, MsoOptions, MsoResult, \
     maximize_acqf
+from repro_torch.engine.ask import AskConfig, AskEngine
+from repro_torch.engine.cache import merge_retrace_reports
 from repro_torch.engine.engine import EvalEngine
 from repro_torch.engine.posterior import fused_logei_acq, resolve_backend
-from repro_torch.gp.fit import fit_gp, standardize
+from repro_torch.gp.fit import (fit_gp, pad_bucket_for, standardize,
+                                standardize_masked, theta_init_grid)
 from repro_torch.gp.gpr import with_kinv
 from repro_torch.obs import trace as obs
+
+
+def _standardize_bucketed(y: torch.Tensor, pad: int) -> torch.Tensor:
+    """Standardize ``y`` with the moments computed over a pad-bucketed
+    masked reduction: bitwise the fused ask's ``standardize_masked``,
+    sliced back to the live entries."""
+    n = y.shape[0]
+    b = pad_bucket_for(n, pad)
+    y_pad = torch.zeros((b,), dtype=y.dtype, device=y.device)
+    y_pad[:n] = y
+    y_std, _, _ = standardize_masked(
+        y_pad, torch.arange(b, device=y.device) < n)
+    return y_std[:n]
 
 
 @dataclass
@@ -58,9 +86,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class GPSampler:
     """Ask/tell BO over a box space; strategy selects the MSO scheme.
 
-    ``theta_init`` (optional) maps a fit seed to the (gp_fit_restarts, P)
-    θ inits of that trial's MAP fit, in place of ``theta_init_grid``'s
-    ``torch.Generator`` draws; the parity tests hand in the reference's.
+    Two hooks replace the sampler's own random streams, so the parity
+    tests can hand in the reference's numbers:
+
+    * ``theta_draws`` maps a fit seed to the (gp_fit_restarts − 1, P)
+      U[−1, 1) jitter of that trial's MAP multi-start θ grid (the base θ
+      stays the sampler's: the default, or its previous fit under
+      ``warm_start``);
+    * ``restart_draws`` (``dbe_vec``) maps the trial count to the
+      (n_restarts − 1, D) U[0, 1) restart points beside the incumbent.
     """
 
     def __init__(
@@ -76,16 +110,20 @@ class GPSampler:
         gp_fit_restarts: int = 2,
         posterior_backend: str = "auto",
         fused: Optional[bool] = None,
+        refit_interval: int = 8,
+        warm_start: bool = True,
         device=None,
-        theta_init: Optional[Callable[[int], np.ndarray]] = None,
+        theta_draws: Optional[Callable[[int], np.ndarray]] = None,
+        restart_draws: Optional[Callable[[int], np.ndarray]] = None,
     ):
-        if strategy == "dbe_vec":
-            raise _not_ported("strategy 'dbe_vec'", "queue A item 5")
         if strategy not in STRATEGIES:
             raise ValueError(f"strategy must be one of {STRATEGIES}")
-        if fused:
-            raise _not_ported("the fused one-program ask()",
-                              "queue A item 8")
+        # fused ask(): default for the device-resident strategy; the scipy
+        # strategies drive scipy from the host
+        self.fused = (strategy == "dbe_vec") if fused is None else bool(fused)
+        if self.fused and strategy != "dbe_vec":
+            raise ValueError("fused ask() requires strategy='dbe_vec'; "
+                             f"got {strategy!r}")
         self.device = resolve_device(device)
         self.space = space
         self.strategy = strategy
@@ -97,17 +135,23 @@ class GPSampler:
         self.seed = seed
         self.pad_multiple = pad_multiple
         self.gp_fit_restarts = gp_fit_restarts
-        self.theta_init = theta_init
+        self.refit_interval = refit_interval
+        self.warm_start = warm_start
+        self.theta_draws = theta_draws
+        self.restart_draws = restart_draws
         self.posterior_backend = resolve_backend(posterior_backend,
                                                  self.device)
         # ONE evaluation engine for the whole BO run
         self._acq_fn = (logei_acq if self.posterior_backend == "cholesky"
                         else fused_logei_acq(self.posterior_backend))
         self.engine = EvalEngine(self._acq_fn, device=self.device)
+        self._ask: Optional[AskEngine] = None       # fused pipeline state
+        self._observed_ids: set = set()             # trials in the ask GP
         self.trials: List[Trial] = []
         self.stats = SamplerStats()
         self.last_mso: Optional[MsoResult] = None
-        self.last_acq_state = None       # (GPState, best) of last ask
+        self.last_acq_state = None       # (GPState, best) of last host ask
+        self.last_ask_info = None        # SuggestInfo of last fused ask
 
     # ----------------------------------------------------------------- api
     def ask(self) -> Trial:
@@ -173,7 +217,26 @@ class GPSampler:
         y = np.array([t.y for t in done])
         return X, y
 
+    def _restart_draws(self) -> torch.Tensor:
+        """(B−1, D) U[0, 1) restart points of this trial (``dbe_vec``),
+        drawn on the CPU from a generator seeded by (seed, len(trials))."""
+        n = len(self.trials)
+        if self.restart_draws is not None:
+            return torch.tensor(np.asarray(self.restart_draws(n),
+                                           np.float64))
+        key = np.random.SeedSequence([self.seed, n]).generate_state(
+            1, np.uint64)[0]
+        gen = torch.Generator(device="cpu").manual_seed(int(key))
+        return torch.rand((self.B - 1, self.space.dim), generator=gen,
+                          dtype=torch.float64)
+
+    def _theta_draws(self, fit_seed: int) -> Optional[np.ndarray]:
+        return None if self.theta_draws is None else \
+            np.array(self.theta_draws(fit_seed), np.float64)
+
     def _suggest(self) -> np.ndarray:
+        if self.fused:
+            return self._suggest_fused()
         X, y = self._observations()
         U = self.space.to_unit(X)
         dev = self.device
@@ -181,12 +244,20 @@ class GPSampler:
         # minimize y == maximize -y (standardized)
         t0 = time.perf_counter()
         with obs.span("ask.phase.standardize", n=len(y)):
-            y_std, _, _ = standardize(torch.as_tensor(-y).to(dev))
+            y_neg = torch.as_tensor(-y).to(dev)
+            if self.strategy == "dbe_vec":
+                # the fused program's padded masked reduction: reduction
+                # shape changes the last-ulp rounding, and the MAP fit
+                # amplifies a 1-ulp y_std difference
+                y_std = _standardize_bucketed(y_neg, self.pad_multiple)
+            else:
+                y_std, _, _ = standardize(y_neg)
         with obs.span("ask.phase.refit", n=len(y)):
-            thetas = (None if self.theta_init is None else torch.tensor(
-                np.asarray(self.theta_init(fit_seed), np.float64)))
+            thetas = theta_init_grid(self.space.dim, torch.float64,
+                                     self.gp_fit_restarts, fit_seed,
+                                     draws=self._theta_draws(fit_seed))
             gp = fit_gp(torch.as_tensor(U).to(dev), y_std,
-                        n_restarts=self.gp_fit_restarts, seed=fit_seed,
+                        n_restarts=self.gp_fit_restarts,
                         pad_bucket=self.pad_multiple, thetas=thetas)
             if self.posterior_backend == "fused":
                 gp = with_kinv(gp)  # fused quadratic-form posterior input
@@ -198,7 +269,11 @@ class GPSampler:
         # restart points: incumbent + (B-1) uniform (GPSampler-style)
         with obs.span("ask.phase.restart_sampling", B=self.B):
             inc = U[int(np.argmin(y))]
-            rand = self.rng.uniform(0.0, 1.0, (self.B - 1, self.space.dim))
+            if self.strategy == "dbe_vec":
+                rand = self._restart_draws().numpy()
+            else:
+                rand = self.rng.uniform(0.0, 1.0,
+                                        (self.B - 1, self.space.dim))
             x0 = np.concatenate([inc[None], rand], 0)
 
         t0 = time.perf_counter()
@@ -214,6 +289,55 @@ class GPSampler:
         self.stats.engine = res.engine_stats
         self.last_mso = res
         return self.space.from_unit(np.clip(res.best_x, 0.0, 1.0))
+
+    # ------------------------------------------------------- fused path
+    def _suggest_fused(self) -> np.ndarray:
+        done = [t for t in self.trials if t.state == "complete"]
+        if self._ask is None:
+            o = self.mso_options
+            self._ask = AskEngine(self.engine, AskConfig(
+                dim=self.space.dim, n_restarts=self.B,
+                backend=self.posterior_backend,
+                pad_bucket=self.pad_multiple,
+                refit_interval=self.refit_interval,
+                warm_start=self.warm_start,
+                gp_fit_restarts=self.gp_fit_restarts,
+                mso=LbfgsbOptions(m=o.m, maxiter=o.maxiter, pgtol=o.pgtol,
+                                  ftol=o.ftol, maxls=o.maxls)))
+        ask = self._ask
+        # lazy observation sync, keyed by trial id, not list position:
+        # out-of-order tells must not duplicate or drop observations
+        for t in done:
+            if t.trial_id not in self._observed_ids:
+                ask.observe(self.space.to_unit(t.x), t.y)
+                self._observed_ids.add(t.trial_id)
+
+        fit_seed = self.seed + len(self.trials)
+        t0 = time.perf_counter()
+        best_x, info = ask.suggest(self._restart_draws(), fit_seed,
+                                   theta_draws=self._theta_draws(fit_seed))
+        wall = time.perf_counter() - t0
+        eng, ak = self.engine.stats_snapshot(), ask.stats_snapshot()
+        return self._record_fused_suggest(
+            best_x, info, wall,
+            {**eng, **ak,
+             "retraces": merge_retrace_reports(eng["retraces"],
+                                               ak["retraces"])})
+
+    def _record_fused_suggest(self, best_x, info, wall, snapshot):
+        """Stats tail of the fused suggest path.  Per-restart state stays
+        on the device; only the suggestion and scalar diagnostics reach
+        the host."""
+        if info.kind != "incremental":
+            self.stats.n_gp_fits += 1
+        self.stats.fit_time += info.fit_ms / 1e3
+        self.stats.acqf_time += wall - info.fit_ms / 1e3
+        self.stats.acqf_iters.append(float(np.median(info.n_iters.cpu())))
+        self.stats.acqf_rounds.append(int(info.rounds))
+        self.stats.engine = snapshot
+        self.last_mso = None
+        self.last_ask_info = info
+        return self.space.from_unit(np.clip(best_x, 0.0, 1.0))
 
 
 class FleetSampler:

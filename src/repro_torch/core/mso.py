@@ -7,12 +7,13 @@ Counterpart of ``repro/core/mso.py`` for the scipy-driven strategies:
              objective (off-diagonal artifacts).
 * ``dbe``  — D-BE (paper): coroutine-decoupled scipy workers + batched
              evaluation, shrinking active set.
+* ``dbe_vec`` — D-BE vectorized: the batched L-BFGS-B of ``core.lbfgsb``
+             on the device, all restarts in one lockstep loop.
 
 All strategies *maximize* the acquisition (internally minimizing its
 negation) and route every evaluation through one
 :class:`~repro_torch.engine.engine.EvalEngine`; they differ only in who
-drives the quasi-Newton updates.  The lockstep ``dbe_vec`` comes with a
-later slice.
+drives the quasi-Newton updates.
 """
 from __future__ import annotations
 
@@ -24,10 +25,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import coroutine as co
+from repro_torch.core.lbfgsb import LbfgsbOptions
 from repro_torch.engine.engine import EvalEngine
 from repro_torch.engine.plan import EvalPlan
 
-STRATEGIES = ("seq", "cbe", "dbe")
+STRATEGIES = ("seq", "cbe", "dbe", "dbe_vec")
 
 # acq_fn(state, X:(k,D)|(k,q,D)) -> (k,) acquisition values (max scale)
 AcqStateFn = Callable[[Any, torch.Tensor], torch.Tensor]
@@ -70,6 +72,21 @@ def _state_device(state) -> Optional[torch.device]:
     return None
 
 
+def mso_result_from_lockstep(res, x0_shape, wall: float, *, q: int = 1,
+                             engine_stats: Optional[dict] = None
+                             ) -> MsoResult:
+    """Materialize a device ``LbfgsbResult`` into an :class:`MsoResult`
+    (the ``dbe_vec`` branch of :func:`maximize_acqf`)."""
+    acq = -res.f.cpu().numpy()
+    best = int(np.argmax(acq))
+    xs = res.x.cpu().numpy().reshape(x0_shape)
+    return MsoResult(x=xs, acq=acq, best_x=xs[best],
+                     best_acq=float(acq[best]), n_iters=res.k.cpu().numpy(),
+                     n_evals=res.n_evals.cpu().numpy(),
+                     n_rounds=int(res.rounds), wall_time=wall,
+                     strategy="dbe_vec", q=q, engine_stats=engine_stats)
+
+
 def maximize_acqf(
     acq_fn: AcqStateFn,
     x0: np.ndarray,
@@ -89,10 +106,6 @@ def maximize_acqf(
     one per run); by default a fresh one on the device of ``acq_state``'s
     tensors.
     """
-    if strategy == "dbe_vec":
-        raise NotImplementedError(
-            "strategy 'dbe_vec' (device lockstep solve) is not ported yet: "
-            "ROADMAP queue A item 5")
     if strategy not in STRATEGIES:
         raise ValueError(f"strategy must be one of {STRATEGIES}")
     options = options if options is not None else MsoOptions()
@@ -121,6 +134,22 @@ def maximize_acqf(
     upper = np.broadcast_to(np.asarray(upper, np.float64), (D,))
     lowf = np.tile(lower, q)
     upf = np.tile(upper, q)
+
+    if strategy == "dbe_vec":
+        opts = LbfgsbOptions(m=options.m, maxiter=options.maxiter,
+                             pgtol=options.pgtol, ftol=options.ftol,
+                             maxls=options.maxls)
+
+        def dev(a):
+            return torch.tensor(np.broadcast_to(a, x0f.shape),
+                                dtype=torch.float64).to(engine.device)
+
+        t0 = time.perf_counter()
+        res = engine.run_lockstep(acq_state, dev(x0f), dev(lowf), dev(upf),
+                                  opts, plan)
+        wall = time.perf_counter() - t0
+        return mso_result_from_lockstep(res, x0.shape, wall, q=q,
+                                        engine_stats=engine.stats_snapshot())
 
     batch_eval = engine.evaluator(acq_state, plan)
     kw = dict(m=options.m, maxiter=options.maxiter, pgtol=options.pgtol,

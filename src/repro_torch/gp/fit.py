@@ -14,9 +14,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.lbfgsb import LbfgsbOptions, lbfgsb_minimize
-from repro_torch.gp.gpr import (GPState, _cho_solve,
-                                log_marginal_likelihood_masked)
-from repro_torch.gp.kernels import KernelParams, gram
+from repro_torch.gp.gpr import (GPState, _cho_solve, cholesky_update,
+                                kinv_update, log_marginal_likelihood_masked)
+from repro_torch.gp.kernels import KERNELS, KernelParams, gram
 
 Tensor = torch.Tensor
 
@@ -51,12 +51,9 @@ def _neg_map_objective(theta: Tensor, x: Tensor, y: Tensor, valid: Tensor,
                        dim: int, kernel: str) -> Tensor:
     """Negative log posterior of θ, (R,) for a (R, P) batch of θ rows."""
     p = unpack_theta(theta, dim)
-    # one gram per row: lengthscales broadcast as (R, 1, D), scalars as
-    # (R, 1, 1) against the shared (n, D) training set
-    pb = KernelParams(log_lengthscale=p.log_lengthscale[:, None, :],
-                      log_amplitude=p.log_amplitude[:, None, None],
-                      log_noise=p.log_noise[:, None, None])
-    lml = log_marginal_likelihood_masked(x, y, valid, pb, kernel)
+    # one (n, n) gram per θ row: on the card one K3 launch for all R rows
+    # forward, one K4 launch backward
+    lml = log_marginal_likelihood_masked(x, y, valid, p, kernel)
     # weak log-normal priors keep the fit away from degenerate corners
     prior = (-0.5 * ((p.log_lengthscale / 2.0) ** 2).sum(-1)
              - 0.5 * (p.log_amplitude / 2.0) ** 2
@@ -68,7 +65,9 @@ def fit_padded_core(x, y, valid, thetas, lower, upper, *, dim: int,
                     kernel: str, opts: LbfgsbOptions):
     """Multi-start MAP fit on a padded/masked training set.
 
-    Returns ``(theta_best, chol, alpha, iterations)``.
+    Returns ``(theta_best, chol, alpha, iterations, rounds)``: ``rounds``
+    is the number of batched objective evaluations (one value-and-gradient
+    over all restarts each), a count the reference does not return.
     """
     def value_and_grad(tb: Tensor) -> Tuple[Tensor, Tensor]:
         with torch.enable_grad():
@@ -87,7 +86,7 @@ def fit_padded_core(x, y, valid, thetas, lower, upper, *, dim: int,
     K = K * (v[:, None] * v[None, :]) + torch.diag(1.0 - v)
     L = torch.linalg.cholesky(K)
     alpha = _cho_solve(L, y * v)
-    return theta_best, L, alpha, res.k
+    return theta_best, L, alpha, res.k, res.rounds
 
 
 def theta_bounds(dim: int, dtype=torch.float64,
@@ -168,7 +167,7 @@ def fit_gp(
     lower, upper = theta_bounds(dim, dt, dev)
 
     opts = FIT_OPTS._replace(maxiter=maxiter)
-    theta_best, L, alpha, _ = fit_padded_core(
+    theta_best, L, alpha, _, _ = fit_padded_core(
         x, y, valid, thetas, lower.expand(thetas.shape),
         upper.expand(thetas.shape), dim=dim, kernel=kernel, opts=opts)
 
@@ -192,3 +191,43 @@ def standardize_masked(y: Tensor, valid: Tensor
     mu = (y * v).sum() / n
     sd = torch.clamp(torch.sqrt(((y - mu) ** 2 * v).sum() / n), min=1e-10)
     return torch.where(valid, (y - mu) / sd, 0.0), mu, sd
+
+
+def incremental_update(
+    x: Tensor,
+    y_std: Tensor,
+    n_valid: int,
+    params: KernelParams,
+    chol: Tensor,
+    kinv: Optional[Tensor] = None,
+    *,
+    kernel: str = "matern52",
+    jitter: float = 1e-8,
+) -> Tuple[Tensor, Tensor, Optional[Tensor], Tensor]:
+    """O(n²) trial-to-trial GP refit: fixed θ, one appended observation.
+
+    ``chol`` (and optionally ``kinv``) describe the previous trial's
+    padded fit over the first ``n_valid − 1`` rows of ``x``; the new
+    observation sits at row ``n_valid − 1`` (inside the same pad bucket).
+    Rank-one-updates the Cholesky factor / K⁻¹ and re-solves α for the
+    (re-standardized) targets: no refactorization, no MAP optimization.
+    The cross column k(x_new, X) is one K3 launch on the card.
+
+    Returns ``(chol, alpha, kinv, ok)`` (new tensors; the inputs are left
+    as they were).  ``ok`` (a bool tensor) is False for a numerically
+    impossible Schur complement: callers must then fall back to a full
+    refit.
+    """
+    b = x.shape[0]
+    idx = n_valid - 1
+    dt = x.dtype
+    valid_old = (torch.arange(b, device=x.device) < idx).to(dt)
+    k_col = KERNELS[kernel](x[idx:idx + 1], x, params)[0] * valid_old
+    k_diag = params.amplitude + params.noise + jitter
+    chol_new, s = cholesky_update(chol, k_col, k_diag, idx)
+    ok = torch.isfinite(s) & (s > 1e-12 * k_diag)
+    # y re-standardizes every trial (mean/std shift), so α is fresh either
+    # way, but the solve on the updated factor is O(n²), not O(n³)
+    alpha = _cho_solve(chol_new, y_std)
+    kinv_new = None if kinv is None else kinv_update(kinv, k_col, s, idx)
+    return chol_new, alpha, kinv_new, ok

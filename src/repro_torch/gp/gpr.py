@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.gp.kernels import KERNELS, KernelParams, gram
+from repro_torch.gp.kernels import PLAIN_KERNELS, KernelParams, gram
 
 Tensor = torch.Tensor
 
@@ -77,6 +77,57 @@ def with_kinv(gp: GPState) -> GPState:
                    kinv=kinv)
 
 
+def _one_hot(idx: int, n: int, like: Tensor) -> Tensor:
+    e = torch.zeros((n,), dtype=like.dtype, device=like.device)
+    e[idx] = 1.0
+    return e
+
+
+def cholesky_update(chol: Tensor, k_col: Tensor, k_diag: Tensor,
+                    idx: int) -> Tuple[Tensor, Tensor]:
+    """Rank-one *append* update of a padded Cholesky factor, O(n²).
+
+    ``chol`` is the (b, b) lower factor of ``blockdiag(K_n, I_pad)`` (the
+    padded-fit layout: identity rows for pad slots).  A new observation
+    enters at row ``idx`` (== n, the first pad slot); ``k_col`` is its
+    masked cross-covariance against the b rows (zero at slots ≥ idx) and
+    ``k_diag`` its prior variance + noise + jitter.  The bordered update
+
+        l₁₂ = L⁻¹ k,   l₂₂ = √(k_diag − ‖l₁₂‖²)
+
+    replaces the identity row at ``idx``, so the result is again
+    blockdiag-padded.  Functional: ``chol`` is left as it was.
+
+    Returns ``(chol_new, s)`` with ``s = k_diag − ‖l₁₂‖²`` the Schur
+    complement: ``s ≤ 0`` (numerically impossible K) signals the caller
+    to fall back to a full refit.
+    """
+    z = torch.linalg.solve_triangular(chol, k_col[:, None], upper=False)[:, 0]
+    s = k_diag - z @ z
+    l22 = torch.sqrt(torch.clamp(s, min=1e-300))
+    e = _one_hot(idx, chol.shape[0], chol)
+    # z is zero at idx (masked k_col ⇒ identity block solves to 0), so the
+    # new row is z with l22 dropped onto the diagonal
+    row = z + l22 * e
+    chol_new = chol * (1.0 - e)[:, None] + e[:, None] * row[None, :]
+    return chol_new, s
+
+
+def kinv_update(kinv: Tensor, k_col: Tensor, s: Tensor, idx: int) -> Tensor:
+    """Bordered-inverse append matching :func:`cholesky_update`, O(n²).
+
+    With ``w = K⁻¹k`` (padded: zero at slots ≥ idx) and Schur complement
+    ``s``, the blockwise inverse of the grown matrix, in the padded layout
+    (identity at pad slots, including the old entry at ``idx``), is one
+    symmetric rank-one correction: ``K⁻¹ + (w−e)(w−e)ᵀ/s − eeᵀ``.
+    Functional, and row-major like :func:`with_kinv`'s.
+    """
+    w = kinv @ k_col
+    e = _one_hot(idx, kinv.shape[0], kinv)
+    t = w - e
+    return kinv + torch.outer(t, t) / s - torch.outer(e, e)
+
+
 def predict(gp: GPState, x_query: Tensor) -> Tuple[Tensor, Tensor]:
     """Posterior mean and variance at (q, D) query points → ((q,), (q,)).
 
@@ -84,7 +135,8 @@ def predict(gp: GPState, x_query: Tensor) -> Tuple[Tensor, Tensor]:
     Algorithm 1.  The cross gram (q, n) is built once and the triangular
     solve batches over q.
     """
-    kfn = KERNELS[gp.kernel]
+    # plain torch: autograd differentiates it in the queries
+    kfn = PLAIN_KERNELS[gp.kernel]
     k_star = kfn(x_query, gp.x_train, gp.params)          # (q, n)
     mean = k_star @ gp.alpha                              # O(q·n)
     v = torch.linalg.solve_triangular(gp.chol, k_star.T, upper=False)

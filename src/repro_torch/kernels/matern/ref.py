@@ -18,20 +18,46 @@ VAR_FLOOR = 1e-16          # matches gpr.predict's posterior-variance clamp
 
 
 def _scaled_sq_dists(xq: Tensor, xt: Tensor, inv_lengthscale: Tensor):
-    a = xq * inv_lengthscale
-    b = xt * inv_lengthscale
-    d2 = ((a * a).sum(-1)[:, None] + (b * b).sum(-1)[None, :]
-          - 2.0 * (a @ b.T))
+    """(a, b, d²) with a leading θ batch from ``inv_lengthscale`` (..., D):
+    a (..., q, D), b (..., n, D), d² (..., q, n), clamped at 0."""
+    a = xq * inv_lengthscale[..., None, :]
+    b = xt * inv_lengthscale[..., None, :]
+    d2 = ((a * a).sum(-1)[..., :, None] + (b * b).sum(-1)[..., None, :]
+          - 2.0 * (a @ b.transpose(-1, -2)))
     return a, b, torch.clamp(d2, min=0.0)
 
 
 def matern52_gram_ref(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
                       amplitude: Tensor) -> Tensor:
-    """k(x1, x2): (n1, n2).  x*: (n*, D); inv_lengthscale: (D,); amplitude: ()."""
+    """k(x1, x2): (..., n1, n2).  x*: (n*, D); inv_lengthscale: (..., D);
+    amplitude: (...), one gram per θ row (plain version of kernel K3)."""
     _, _, d2 = _scaled_sq_dists(x1, x2, inv_lengthscale)
     r = torch.sqrt(d2 + 1e-36)
-    return amplitude * (1.0 + SQRT5 * r + (5.0 / 3.0) * d2) * \
-        torch.exp(-SQRT5 * r)
+    return amplitude[..., None, None] * \
+        (1.0 + SQRT5 * r + (5.0 / 3.0) * d2) * torch.exp(-SQRT5 * r)
+
+
+def matern52_gram_bwd_theta_ref(x1: Tensor, x2: Tensor,
+                                inv_lengthscale: Tensor, amplitude: Tensor,
+                                g: Tensor) -> Tuple[Tensor, Tensor]:
+    """Plain version of kernel K4: the gradient of Σ g ⊙ k in (1/ℓ, σ_f²).
+
+        ∂/∂(1/ℓ_rd) = −(5/3)·σ_f²_r·(1/ℓ_rd)
+                      · Σ_ij g_rij (1+√5ρ) e^{−√5ρ} (x1_id − x2_jd)²
+        ∂/∂σ_f²_r   = Σ_ij g_rij k_rij / σ_f²_r
+
+    x1 (n1, D), x2 (n2, D), inv_lengthscale (R, D), amplitude (R,),
+    g (R, n1, n2) → ((R, D), (R,)).  The squared differences are taken in
+    the unscaled coordinates, one dimension at a time.
+    """
+    _, _, d2 = _scaled_sq_dists(x1, x2, inv_lengthscale)
+    r = torch.sqrt(d2 + 1e-36)
+    e = torch.exp(-SQRT5 * r)
+    d_amp = (g * (1.0 + SQRT5 * r + (5.0 / 3.0) * d2) * e).sum((-1, -2))
+    c = g * (1.0 + SQRT5 * r) * e
+    s = torch.stack([(c * (x1[:, k, None] - x2[None, :, k]) ** 2
+                      ).sum((-1, -2)) for k in range(x1.shape[1])], -1)
+    return -(5.0 / 3.0) * amplitude[:, None] * inv_lengthscale * s, d_amp
 
 
 def matern52_posterior_fwd_ref(xq: Tensor, xt: Tensor, alpha: Tensor,

@@ -1,5 +1,5 @@
-"""Host-side span tracer (copied from ``repro/obs/trace.py``; span and
-instant events only, device-program timing comes with a later slice).
+"""Host-side span tracer (copied from ``repro/obs/trace.py``): span and
+instant events, and :class:`ProgramTimer` for device programs.
 
 One process-global :class:`Tracer` holds a bounded ring of finished
 events in Chrome-trace form (``ph="X"`` complete spans with microsecond
@@ -119,3 +119,52 @@ def instant(name: str, **attrs: Any) -> None:
     tr = _TRACER
     if tr is not None:
         tr.record_instant(name, **attrs)
+
+
+def _sync_devices() -> None:
+    """Wait for the card (JAX's ``block_until_ready``); nothing when CUDA
+    was never initialized in this process."""
+    import torch
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def synced_now_us() -> Optional[float]:
+    """The tracer's clock once the card's queued work has finished (the
+    rule :class:`ProgramTimer` times by); ``None``, with no
+    synchronization, when tracing is off."""
+    tr = _TRACER
+    if tr is None:
+        return None
+    _sync_devices()
+    return tr.now_us()
+
+
+class ProgramTimer:
+    """Wrap a ``CountingJit``-like program with device-completion timing.
+
+    With the tracer enabled, each call records a span whose duration runs
+    to ``torch.cuda.synchronize()`` after the call, and notes
+    whether the call was a new program signature (``compiled``) via the
+    wrapped counter.  Disabled: straight passthrough, no synchronization.
+    Attribute access forwards to the inner program.
+    """
+
+    def __init__(self, inner, name: str):
+        self._inner = inner
+        self._name = name
+
+    def __call__(self, *args: Any, **kwargs: Any):
+        tr = _TRACER
+        if tr is None:
+            return self._inner(*args, **kwargs)
+        c0 = getattr(self._inner, "n_compiles", 0)
+        t0 = tr.now_us()
+        out = self._inner(*args, **kwargs)
+        _sync_devices()
+        tr.record_span(self._name, t0, tr.now_us() - t0,
+                       compiled=getattr(self._inner, "n_compiles", 0) > c0)
+        return out
+
+    def __getattr__(self, name: str):
+        return getattr(self._inner, name)

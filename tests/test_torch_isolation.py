@@ -24,13 +24,16 @@ def _sources():
 
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
-    code = textwrap.dedent("""
+    code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
+        REPO = {REPO!r}
         import repro_torch
         names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
+        sys.path.insert(0, REPO)
+        import chip_smoke  # noqa: F401
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))

@@ -5,12 +5,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.bo.objectives import make_objective  # noqa: E402
 from repro.bo.sampler import GPSampler as JSampler  # noqa: E402
 from repro.bo.space import BoxSpace as JBox  # noqa: E402
-from repro.gp.fit import theta_init_grid  # noqa: E402
 from repro_torch.bo.sampler import FleetSampler, GPSampler  # noqa: E402
 from repro_torch.bo.space import BoxSpace  # noqa: E402
 from repro_torch.engine.plan import EvalPlan  # noqa: E402
@@ -18,9 +18,12 @@ from repro_torch.engine.plan import EvalPlan  # noqa: E402
 D, N_STARTUP, N_BO, FIT_RESTARTS = 3, 8, 3, 2
 
 
-def reference_thetas(seed):
-    """The JAX sampler's θ inits for the fit with this seed."""
-    return np.asarray(theta_init_grid(D, jnp.float64, FIT_RESTARTS, seed))
+def reference_theta_draws(seed):
+    """The JAX sampler's θ-grid jitter for the fit with this seed
+    (``repro.gp.fit.theta_init_grid``)."""
+    return np.asarray(jax.random.uniform(
+        jax.random.PRNGKey(seed), (FIT_RESTARTS - 1, D + 2), jnp.float64,
+        minval=-1.0, maxval=1.0))
 
 
 def run(sampler, obj, n):
@@ -45,7 +48,7 @@ def runs():
                        n_startup_trials=N_STARTUP, seed=0,
                        gp_fit_restarts=FIT_RESTARTS,
                        posterior_backend=backend, device="cpu",
-                       theta_init=reference_thetas)
+                       theta_draws=reference_theta_draws)
         out[backend] = run(ts, obj, n)
         out[backend + "_sampler"] = ts
     return out
@@ -83,18 +86,21 @@ def test_device_rules():
     space = BoxSpace.cube(2, 0.0, 1.0)
     if not torch.cuda.is_available():
         # entry points run on the card unless the caller asks for the CPU
-        with pytest.raises(RuntimeError, match="CUDA"):
-            GPSampler(space)
+        for strategy in ("dbe", "dbe_vec"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                GPSampler(space, strategy=strategy)
     s = GPSampler(space, device="cpu")
     assert s.device.type == "cpu" and s.posterior_backend == "cholesky"
+    # dbe_vec takes the fused ask by default, the host pipeline on request
+    assert GPSampler(space, strategy="dbe_vec", device="cpu").fused
+    assert not GPSampler(space, strategy="dbe_vec", device="cpu",
+                         fused=False).fused
 
 
 def test_unported_options_raise_naming_the_roadmap():
     space = BoxSpace.cube(2, 0.0, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="dbe_vec"):
         GPSampler(space, device="cpu", fused=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPSampler(space, device="cpu", strategy="dbe_vec")
     s = GPSampler(space, device="cpu")
     for call in (lambda: s.attach_fleet(None), lambda: s.save("x"),
                  lambda: GPSampler.load("x"), lambda: FleetSampler()):
