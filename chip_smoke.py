@@ -30,13 +30,39 @@ Phases (any failure exits nonzero; nothing is caught):
               one more host-path ask, and of one fused full and one fused
               incremental ask, by kernel (torch.profiler), with the idle
               share
-  6. timing   CUDA-event times of K1–K4 and their plain versions beside
-              the least time the card could take (bound)
-Then it prints the card, a "kernels" JSON line, and the result line.
+  6. timing   device times (profiler; CUDA events where a trace is
+              short, marked "events") and CUDA-event call times of K1–K4
+              and their plain versions beside the least time the card
+              could take (bound)
+Slice 3 adds, in the same run:
+  - build     the flash (K6) and kvp (K5) sources join the one library
+  - kernels   K6 flash_attention_fwd against its plain version on the
+              Pallas test cases (through flash_attention), GQA decode
+              (B=8, NH=24, KH=8, hd=128, Sk ∈ {512, 4096}, ragged
+              positions, empty slots, a trash slot, an idle row), a
+              windowed prefill chunk over a cache and a causal prefill
+              through flash_attention_bhsd (H=24, hd=128: S=512 in f32,
+              S=2048 in bf16), with row independence bitwise; bf16
+              within one bf16 ulp of each entry; K5 kvp_fwd at the
+              Pallas test shapes, (10, 544, 20) and (1000, 2048, 20)
+  - kvp       gp_mean_kvp on the fused ask's fitted state (K5 launches)
+  - serve     ServeEngine on llama3.2-3b at full width (bf16, weights
+              drawn on the card from the seed), 8 slots, max_len 512, 16
+              requests with 16–128-token prompts and 32 new tokens: K6
+              launches = 28 × steps, one program, tokens/s, ms per step,
+              parameter GB, cache MB, K6 device time per step and the idle
+              share; staggered and chunked prefill bitwise equal to solo
+              runs; decode vs forward logits over 64 tokens; the card
+              against the CPU on the reduced config in f32
+  - timing    K5/K6 and their plain versions beside their bounds, and
+              scaled_dot_product_attention at K6's shapes (timed only)
+Then it prints the card, a "kernels" JSON line (each "ms" with its
+source, "ms_from"), and the result line.
 Exits with 2, printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -136,28 +162,71 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+PAD_KERNEL = "spin_kernel"        # torch.cuda._sleep's kernel
+PAD_S = 0.02                      # host seconds of padding a trace starts with
+
+
 def _device_us(ev) -> float:
+    """Device µs of a trace's event; 0 for card_trace's padding."""
+    if PAD_KERNEL in ev.key:
+        return 0.0
     return float(getattr(ev, "self_device_time_total", 0.0) or
                  getattr(ev, "self_cuda_time_total", 0.0) or 0.0)
 
 
-def device_time_ms(fn, iters: int) -> float:
-    """Device time per call: the sum of every kernel and copy the call
-    runs on the card, from a torch.profiler trace of ``iters`` calls.
-    Unlike an event pair around back-to-back calls, it leaves out the gaps
-    while the card waits for the host to launch the next call."""
+@contextlib.contextmanager
+def card_trace():
+    """A torch.profiler trace of the card.  A trace can miss the first
+    few launches after it starts (1–5 of them on the H100: 0.5–50 % of a
+    short trace's device time), so the trace starts with PAD_S seconds of
+    short spin kernels, each waited for, to take that loss, and ends
+    with a few more; ``_device_us`` leaves the padding out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
+
+    def pad(seconds):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad(PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        pad(PAD_S / 4)
+
+
+def _trace(fn, iters: int):
+    """{kernel or copy: (launches, device µs)} over ``iters`` calls, from
+    a card_trace."""
+    import torch
+    for _ in range(3):
+        fn()
+    with card_trace() as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(_device_us(ev) for ev in prof.key_averages())
-    check(total_us > 0, "profiler recorded no device time")
-    return total_us / 1e3 / iters
+    return {ev.key: (ev.count, _device_us(ev)) for ev in prof.key_averages()
+            if _device_us(ev) > 0}
+
+
+def device_ms(fn, iters: int):
+    """(ms per call, source).  The source is "profiler": the sum of every
+    kernel and copy the call runs on the card, from a trace of ``iters``
+    calls, which leaves out the gaps while the card waits for the host.
+    A call launches the same kernels each time, so a complete trace holds
+    each of them a multiple of ``iters`` times.  Where a trace is short
+    all the same, the source is "events": a CUDA-event pair around
+    back-to-back calls, launch gaps included."""
+    trace = _trace(fn, iters)
+    if trace and all(n % iters == 0 for n, _ in trace.values()):
+        return sum(us for _, us in trace.values()) / 1e3 / iters, "profiler"
+    log(f"[timing] profiler trace incomplete over {iters} calls "
+        f"(launches {json.dumps({k[:48]: n for k, (n, _) in trace.items()})}"
+        f"); timing with CUDA events")
+    return cuda_time_ms(fn, iters), "events"
 
 
 def fwd_cost(q, n, d):
@@ -203,11 +272,13 @@ def bound_ms(nbytes, mma_ops, ops):
 
 # ---------------------------------------------------------------- phases
 def phase_build():
-    from repro_torch.kernels.matern import kernel as K
+    from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    path = K.build(verbose=True)
-    K._lib()
-    log(f"[build] {os.path.relpath(path, ROOT)} in "
+    path = _build.build(verbose=True)
+    _build.lib()
+    log(f"[build] {len(_build.SOURCES)} sources "
+        f"({', '.join(s.name for s in _build.SOURCES)}) → "
+        f"{os.path.relpath(path, ROOT)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -574,7 +645,6 @@ def phase_fit_census(dev):
     against each other."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.gp import kernels as gk
     from repro_torch.gp.fit import _neg_map_objective, theta_init_grid
 
@@ -600,8 +670,7 @@ def phase_fit_census(dev):
             gk.KERNELS["matern52"] = (on_path if mode == "kernels"
                                       else gk.matern52_plain)
             results[mode] = evaluate()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with card_trace() as prof:
                 for _ in range(iters):
                     evaluate()
                 torch.cuda.synchronize()
@@ -850,10 +919,8 @@ def traced_ask(s, obj, untraced_ms):
     bound; ``untraced_ms`` (an ask of the same kind and n bucket, not
     traced) gives the estimate 1 − busy / untraced wall."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fit0, mso0 = s.stats.fit_time, s.stats.acqf_time
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with card_trace() as prof:
         t0 = time.perf_counter()
         t = s.ask()
         torch.cuda.synchronize()
@@ -938,7 +1005,7 @@ def phase_timing(dev, state):
         for key, fn in calls.items():
             # device time per call, and event time per call (which also
             # counts the card waiting on the host between calls)
-            row[f"{key}_ms"] = device_time_ms(fn, iters)
+            row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(fn, iters)
             row[f"{key}_call_ms"] = cuda_time_ms(fn, iters)
         fb, fby = bound_ms(*fwd_cost(q, n, d))
         bb, bby = bound_ms(*bwd_cost(q, n, d))
@@ -967,12 +1034,594 @@ def phase_gram_timing(dev):
                 x1, x2, ils, amp, g)}
         row = dict(n=n, D=20, R=2)
         for key, fn in calls.items():
-            row[f"{key}_ms"] = device_time_ms(fn, iters)
+            row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(fn, iters)
             row[f"{key}_call_ms"] = cuda_time_ms(fn, iters)
         fb, fby = bound_ms(*gram_cost(2, n, n, 20, False))
         bb, bby = bound_ms(*gram_cost(2, n, n, 20, True))
         row.update(gram_fwd_bound_ms=fb, gram_fwd_bound_by=fby,
                    gram_bwd_bound_ms=bb, gram_bwd_bound_by=bby)
+        rows.append(row)
+        log("[timing] " + json.dumps(row))
+    return rows
+
+
+# ------------------------------------- slice 3: flash attention K6, kvp K5
+BF16_FLOP_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+F32_FLOP_PER_S = 67e12            # f32 outside the tensor cores
+FLASH_CASES = [                   # tests/test_kernels_pallas.py:49-56
+    (256, 256, 64, True, None, "float32"),
+    (256, 256, 64, False, None, "float32"),
+    (128, 384, 64, True, None, "float32"),
+    (300, 300, 32, True, 128, "float32"),
+    (1, 513, 64, True, None, "float32"),
+    (128, 128, 64, True, None, "bfloat16"),
+]
+FLASH_F32_TOL = 2e-5
+
+
+def flash_tol(ref):
+    """Elementwise limit of K6 against its plain version.  Both keep every
+    sum in float32 and round the output to q's dtype once; float32 sums
+    in another order differ by far less than FLASH_F32_TOL.  In bfloat16
+    the two roundings may then land on neighbouring values, which are one
+    ulp apart, at most 2⁻⁷·|ref|."""
+    import torch
+    if ref.dtype == torch.bfloat16:
+        return FLASH_F32_TOL + 2.0 ** -7 * ref.float().abs()
+    return FLASH_F32_TOL
+
+
+def flash_err(out, ref, where=None):
+    """(max |Δ|, whether every entry is within flash_tol) over ``where``
+    (a mask over the leading dimensions), or over all entries."""
+    import torch
+    d = (out.float() - ref.float()).abs()
+    ok = d <= torch.as_tensor(flash_tol(ref), device=d.device)
+    if where is not None:
+        d, ok = d[where], ok[where]
+    return float(d.max()), bool(ok.all())
+
+
+def flash_cost(q, k, q_pos, kv_pos, causal=True, window=0):
+    """(bytes, operations, peak rate) K6 needs on these inputs: q, out and
+    the positions once, and the K/V rows some query of their batch row
+    sees, once; two products (q·kᵀ, p·v) of 2·hd operations per visible
+    (query head, key) pair, at the tensor-core bf16 rate or the CUDA-core
+    f32 rate."""
+    import torch
+    from repro_torch.kernels.flash.ref import position_mask
+    b, sq, nh, hd = q.shape
+    kh, es = k.shape[2], q.element_size()
+    mask = position_mask(q_pos, kv_pos, causal, window)      # (B, Sq, Sk)
+    pairs = int(mask.sum())
+    keys = int(mask.any(1).sum())
+    nbytes = (2 * b * sq * nh * hd * es + 2 * keys * kh * hd * es
+              + 4 * (q_pos.numel() + kv_pos.numel()))
+    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    return nbytes, 4 * pairs * nh * hd, rate
+
+
+def flash_bound_ms(nbytes, ops, rate):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def decode_inputs(dev, b, sk, nh, kh, hd, dtype, seed, idle=True):
+    """One decode step's attention inputs as the serving engine leaves
+    them: row r has written positions 0..len_r−1 into slots 0..len_r−1 of
+    its cache (ragged lengths), the rest of its slots are empty (−1); the
+    trash slot Sk−1 holds an idle row's write (finite values, position
+    −1); with ``idle`` the last row is idle (query position −1).  The
+    cache values are random everywhere, so a mask that leaked would
+    show."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    kv_pos = np.full((b, sk), -1, np.int32)
+    q_pos = np.full((b, 1), -1, np.int32)
+    for r in range(b - 1 if idle else b):
+        n = int(rng.integers(sk // 4, sk - 1))
+        kv_pos[r, :n] = np.arange(n)
+        q_pos[r, 0] = n - 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(sh, generator=g, device=dev).to(dtype)
+               for sh in ((b, 1, nh, hd), (b, sk, kh, hd), (b, sk, kh, hd)))
+    return (q, k, v, torch.from_numpy(q_pos).to(dev),
+            torch.from_numpy(kv_pos).to(dev))
+
+
+def full_cache_inputs(dev, b, sk, nh, kh, hd, dtype, seed):
+    """A decode step over a full cache: every slot valid, every row at
+    position Sk−1 (the timing shape; every key is read)."""
+    import torch
+    q, k, v, _, _ = decode_inputs(dev, b, sk, nh, kh, hd, dtype, seed)
+    q_pos = torch.full((b, 1), sk - 1, dtype=torch.int32, device=dev)
+    kv_pos = torch.arange(sk, dtype=torch.int32,
+                          device=dev).expand(b, sk).contiguous()
+    return q, k, v, q_pos, kv_pos
+
+
+def check_flash(tag, inputs, err, causal=True, window=0):
+    """K6 against its plain version on the same CUDA tensors; live rows
+    within flash_tol, rows with no visible key exactly 0; row independence
+    (row 0 alone is bitwise row 0 of the batch)."""
+    import torch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash.ref import (flash_attention_fwd_ref,
+                                               position_mask)
+    q, k, v, q_pos, kv_pos = inputs
+    out = FK.flash_attention_fwd(q, k, v, q_pos, kv_pos, causal=causal,
+                                 window=window)
+    ref = flash_attention_fwd_ref(q, k, v, q_pos, kv_pos, causal=causal,
+                                  window=window)
+    alone = FK.flash_attention_fwd(*(t[:1].contiguous() for t in inputs),
+                                   causal=causal, window=window)
+    torch.cuda.synchronize()
+    seen = position_mask(q_pos, kv_pos, causal, window).any(-1)  # (B, Sq)
+    e, ok = flash_err(out, ref, seen)
+    check(ok, f"{tag}: K6 err {e} over its limit")
+    check(not bool(out[~seen].any()), f"{tag}: a row with no visible key "
+          f"is not 0")
+    check(bool(torch.isfinite(out.float()).all()), f"{tag}: K6 not finite")
+    check(torch.equal(alone[0], out[0]), f"{tag}: row 0 differs alone")
+    err["flash"] = max(err["flash"], e)
+    log(f"[kernels] {tag}: K6 |Δ| {e:.3e} (within {FLASH_F32_TOL:g}"
+        f"{' + 2^-7·|ref|' if q.dtype == torch.bfloat16 else ''}), "
+        f"{int((~seen).sum())} rows with no visible key = 0, row 0 alone "
+        f"bitwise")
+
+
+def phase_flash_kernels(dev, err):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash.ref import flash_attention_fwd_ref
+    err["flash"] = 0.0
+    for sq, sk, h, causal, window, dt in FLASH_CASES:
+        rng = np.random.default_rng(sq + sk)
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.from_numpy(rng.standard_normal((s, h)).astype(
+            np.float32)).to(dev).to(dtype) for s in (sq, sk, sk))
+        out = FK.flash_attention(q, k, v, causal=causal, window=window)
+        # the plain version through the same suffix-aligned positions
+        qp = torch.arange(sk - sq, sk, dtype=torch.int32, device=dev)[None]
+        kp = torch.arange(sk, dtype=torch.int32, device=dev)[None]
+        ref = flash_attention_fwd_ref(q[None, :, None], k[None, :, None],
+                                      v[None, :, None], qp, kp, causal=causal,
+                                      window=window)[0, :, 0]
+        torch.cuda.synchronize()
+        e, ok = flash_err(out, ref)
+        case = (sq, sk, h, causal, window, dt)
+        check(ok, f"flash case {case}: err {e} over its limit")
+        err["flash"] = max(err["flash"], e)
+    log(f"[kernels] flash_attention on the Pallas test cases: within "
+        f"{FLASH_F32_TOL:g} (f32) / {FLASH_F32_TOL:g} + 2^-7·|ref| (bf16)")
+    for sk in (512, 4096):
+        for dt in ("bfloat16", "float32"):
+            check_flash(f"decode B=8 NH=24 KH=8 hd=128 Sk={sk} {dt}",
+                        decode_inputs(dev, 8, sk, 24, 8, 128,
+                                      getattr(torch, dt), seed=sk), err)
+    # local window and a chunk of queries continuing a cache, reduced widths
+    q, k, v, _, kv_pos = decode_inputs(dev, 4, 256, 4, 2, 32, torch.float32,
+                                       seed=9, idle=False)
+    q_pos = torch.stack([torch.arange(40, 56, dtype=torch.int32, device=dev)]
+                        * 4)
+    qc = torch.randn((4, 16, 4, 32), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(10))
+    check_flash("prefill chunk Sq=16 over a cache, window 24",
+                (qc, k, v, q_pos, kv_pos), err, window=24)
+    # causal prefill: 16 rows a block, the causal tile skip and hd=128
+    for s_len, dt in ((512, torch.float32), (2048, torch.bfloat16)):
+        g = torch.Generator(device=dev).manual_seed(2)
+        qb, kb, vb = (torch.randn((1, 24, s_len, 128), generator=g,
+                                  device=dev).to(dt) for _ in range(3))
+        out = FK.flash_attention_bhsd(qb, kb, vb, causal=True)
+        pos = torch.arange(s_len, dtype=torch.int32, device=dev)[None]
+        ref = flash_attention_fwd_ref(qb.transpose(1, 2), kb.transpose(1, 2),
+                                      vb.transpose(1, 2), pos,
+                                      pos).transpose(1, 2)
+        torch.cuda.synchronize()
+        e, ok = flash_err(out, ref)
+        tag = f"causal prefill S={s_len} H=24 {str(dt)[6:]}"
+        check(ok, f"{tag}: err {e} over its limit")
+        err["flash"] = max(err["flash"], e)
+        log(f"[kernels] {tag} hd=128 via flash_attention_bhsd: |Δ| {e:.3e}")
+
+
+def kvp_inputs(q, n, d, dev, far=0, seed=0):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + q + n)
+    xq = rng.uniform(0, 1, (q, d))
+    xt = rng.uniform(0, 1, (n, d))
+    al = rng.standard_normal(n)
+    if far:
+        xt[-far:] = 1e6 + np.arange(far)[:, None]
+        al[-far:] = 0.0
+    ils = np.exp(rng.uniform(-1.0, 2.0, d))
+    return tuple(torch.tensor(a, device=dev)
+                 for a in (xq, xt, al, ils, np.float64(1.7)))
+
+
+def check_kvp(tag, inputs, err):
+    """K5 against its plain version: each row within 1e-12 of its
+    Σ_j |k_ij α_j|; row 0 alone is bitwise row 0 of the batch."""
+    import torch
+    from repro_torch.kernels.kvp import kernel as VK
+    from repro_torch.kernels.kvp.ref import kvp_ref
+    from repro_torch.kernels.matern.ref import matern52_gram_ref
+    xq, xt, al, ils, amp = inputs
+    out = VK.kvp_fwd(xq, xt, al, ils, amp)
+    ref = kvp_ref(xq, xt, al, ils, amp)
+    alone = VK.kvp_fwd(xq[:1].contiguous(), xt, al, ils, amp)
+    torch.cuda.synchronize()
+    scale = matern52_gram_ref(xq, xt, ils, amp).abs() @ al.abs()
+    e = (out - ref).abs()
+    check(bool(torch.isfinite(out).all()), f"{tag}: K5 not finite")
+    check(bool((e <= 1e-12 * scale).all()), f"{tag}: K5 err "
+          f"{float(e.max())} over 1e-12·Σ|terms|")
+    check(torch.equal(alone[0], out[0]), f"{tag}: K5 row 0 differs alone")
+    err["kvp"] = max(err["kvp"], float(e.max()))
+    return float(e.max())
+
+
+def phase_kvp_kernels(dev, err):
+    err["kvp"] = 0.0
+    for q, n, d in ((10, 50, 5), (128, 256, 16), (77, 500, 40), (1, 130, 8),
+                    (10, 544, 20), (1000, 2048, 20)):
+        far = 32 if n >= 544 else 0
+        check_kvp(f"kvp q={q} n={n} D={d}", kvp_inputs(q, n, d, dev, far),
+                  err)
+    log(f"[kernels] kvp at the Pallas test shapes, (10, 544, 20) and "
+        f"(1000, 2048, 20): max |Δ| {err['kvp']:.3e} (≤1e-12·Σ|terms|), "
+        f"row 0 alone bitwise")
+
+
+def phase_kvp_path(s, err):
+    """The kvp path: ``gp_mean_kvp`` (backend "auto") for the posterior
+    mean of the fused ask's fitted GP at a restart batch (q = B = 10),
+    after the ask phase; K5 launches counted around it alone, the result
+    held against the plain version."""
+    import torch
+    from repro_torch.kernels.kvp import kernel as VK
+    from repro_torch.kernels.kvp.ops import gp_mean_kvp
+    gp = s._ask.gp_state()
+    n = s._ask.n_obs
+    xt, alpha = gp.x_train.contiguous(), gp.alpha.contiguous()
+    ils = torch.exp(-gp.params.log_lengthscale).contiguous()
+    amp = gp.params.amplitude.contiguous()
+    g = torch.Generator(device="cpu").manual_seed(n)
+    xq = torch.rand((10, xt.shape[1]), generator=g,
+                    dtype=torch.float64).to(xt.device)
+    VK.reset_launch_counts()
+    mean = gp_mean_kvp(xq, xt, alpha, ils, amp, backend="auto")
+    launches = VK.launch_counts()["kvp_fwd"]
+    check(launches == 1, f"kvp path: {launches} K5 launches")
+    e = check_kvp(f"kvp path n={n} bucket {xt.shape[0]}",
+                  (xq, xt, alpha, ils, amp), err)
+    log(f"[kvp] gp_mean_kvp on the ask state (n={n}, bucket "
+        f"{xt.shape[0]}, q=10): K5 launches {launches}, |Δ| {e:.3e}, "
+        f"mean in [{float(mean.min()):.3f}, {float(mean.max()):.3f}]")
+    return launches
+
+
+# ---------------------------------------------------- slice 3: LM serving
+SERVE_ARCH = "llama3.2-3b"
+SERVE_SEED = 0
+
+
+GEMM_KEYS = ("gemm", "xmma", "cutlass", "nvjet", "sm90")
+
+
+def serve_device_us(prof):
+    """Device µs of one trace: K6, the matrix products (cuBLAS kernels, by
+    name) and everything."""
+    k6 = gemm = busy = 0.0
+    for ev in prof.key_averages():
+        us = _device_us(ev)
+        busy += us
+        if "flash_fwd_kernel" in ev.key:
+            k6 += us
+        elif any(k in ev.key.lower() for k in GEMM_KEYS):
+            gemm += us
+    return k6, gemm, busy
+
+
+def serve_requests(rng, vocab, n, lo, hi, new):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    return [Request(uid=i, prompt=rng.integers(0, vocab, int(
+        rng.integers(lo, hi + 1))).astype(np.int32), max_new_tokens=new)
+        for i in range(n)]
+
+
+def solo_and_shared(params, cfg, slots, max_len):
+    """Staggered admission and chunked prefill decode bitwise what each
+    request decodes alone, with the same slot count."""
+    import numpy as np
+    from repro_torch.serve.engine import Request, ServeEngine
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    pa = rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+    pb = rng.integers(0, cfg.vocab_size, 23).astype(np.int32)
+    solo = {}
+    for uid, prompt in ((0, pa), (1, pb)):
+        e = ServeEngine(params, cfg, slots=slots, max_len=max_len)
+        e.submit(Request(uid=uid, prompt=prompt, max_new_tokens=12))
+        solo[uid] = e.run_until_drained()[0].out_tokens
+    e = ServeEngine(params, cfg, slots=slots, max_len=max_len)
+    e.submit(Request(uid=0, prompt=pa, max_new_tokens=12))
+    for _ in range(3):
+        e.step()
+    e.submit(Request(uid=1, prompt=pb, max_new_tokens=12))
+    stag = {r.uid: r.out_tokens for r in e.run_until_drained()}
+    check(stag == solo, f"staggered admission differs from solo: {stag} "
+          f"vs {solo}")
+    e = ServeEngine(params, cfg, slots=slots, max_len=max_len,
+                    prefill_chunk=4)
+    e.submit(Request(uid=0, prompt=pa, max_new_tokens=12))
+    e.step()
+    check(e._prefilling == {0} and e.positions[0] == 4,
+          "chunked prefill did not stop after 4 steps")
+    e.submit(Request(uid=1, prompt=pb, max_new_tokens=12))
+    chunk = {r.uid: r.out_tokens for r in e.run_until_drained()}
+    check(chunk == solo, f"chunked prefill differs from solo: {chunk} vs "
+          f"{solo}")
+    check(e.stats["compiles"] == 1, "chunked engine: more than one program")
+    log(f"[serve] staggered admission and chunked prefill (chunk 4) decode "
+        f"bitwise what each request decodes alone ({slots} slots; prompts "
+        f"40 and 23 tokens, 12 new)")
+
+
+def decode_vs_forward(params, cfg, dev, s=64):
+    """Step-by-step decode logits against teacher-forced forward logits
+    over ``s`` tokens, two rows, at full width in bf16; and the greedy
+    choices of the two."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 2)
+    toks = torch.randint(0, cfg.vocab_size, (2, s), generator=g, device=dev)
+    with torch.no_grad():
+        hid, _ = lm.forward(params, cfg, toks)
+        ref = L.lm_logits(params["embed"], cfg, hid).float()
+        cache = lm.init_cache(cfg, 2, s, device=dev)
+        outs = []
+        for i in range(s):
+            lg, cache = lm.decode_step(params, cfg, toks[:, i:i + 1], cache,
+                                       torch.full((2,), i, dtype=torch.int32,
+                                                  device=dev))
+            outs.append(lg.float())
+    dec = torch.stack(outs, 1)
+    rel = float((dec - ref).abs().max() / ref.abs().max())
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(dec).all()), "decode logits not finite")
+    check(rel <= 5e-2, f"decode vs forward logits: rel {rel} > 5e-2")
+    log(f"[serve] decode vs forward logits over {s} tokens (bf16, full "
+        f"width): max |Δ| / max |logit| {rel:.3e} (≤5e-2); greedy agree "
+        f"{agree:.3f}")
+    return rel, agree
+
+
+def card_vs_cpu(dev):
+    """The port on the card against the port on the CPU, reduced
+    llama3.2-3b in f32 (TF32 off): forward logits within 1e-5 of
+    max|logit|, and a ServeEngine's greedy tokens equal, with K6 launched
+    n_layers times a step on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config(SERVE_ARCH).reduced().replace(dtype="float32")
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(SERVE_SEED))
+
+    def to(node, d):
+        if isinstance(node, dict):
+            return {k: to(v, d) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to(v, d) for v in node]
+        return node.to(d)
+
+    card = to(cpu, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48),
+                         generator=torch.Generator().manual_seed(7))
+    out = {}
+    for name, p, d in (("cpu", cpu, "cpu"), ("cuda", card, dev)):
+        with torch.no_grad():
+            hid, _ = lm.forward(p, cfg, toks.to(d))
+            out[name] = L.lm_logits(p["embed"], cfg, hid).cpu()
+    rel = float((out["cuda"] - out["cpu"]).abs().max()
+                / out["cpu"].abs().max())
+    check(rel <= 1e-5, f"card vs CPU forward logits: rel {rel} > 1e-5")
+    tokens = {}
+    for name, p in (("cpu", cpu), ("cuda", card)):
+        e = ServeEngine(p, cfg, slots=3, max_len=64)
+        for r in serve_requests(np.random.default_rng(3), cfg.vocab_size, 7,
+                                4, 12, 6):
+            e.submit(r)
+        before = FK.LAUNCHES["flash_attention_fwd"]
+        tokens[name] = {r.uid: r.out_tokens for r in e.run_until_drained()}
+        launched = FK.LAUNCHES["flash_attention_fwd"] - before
+        want = cfg.n_layers * e.stats["steps"] if name == "cuda" else 0
+        check(launched == want == e.stats["flash_launches"],
+              f"reduced engine on {name}: {launched} K6 launches, want "
+              f"{want}")
+    check(tokens["cuda"] == tokens["cpu"], "card and CPU engines decode "
+          "different tokens")
+    log(f"[serve] card vs CPU, reduced {SERVE_ARCH} f32: forward logits rel "
+        f"{rel:.3e} (≤1e-5); ServeEngine greedy tokens equal (7 requests, "
+        f"3 slots)")
+    return rel
+
+
+def phase_serve(dev):
+    """ServeEngine on llama3.2-3b at full width (bf16, 28 layers, weights
+    drawn on the card from the seed), 8 slots, max_len 512: 16 requests,
+    prompts of 16–128 tokens, 32 new tokens each, the queue refilling
+    slots as requests finish.  K6 launches = 28 × steps, one program."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.models import lm
+    from repro_torch.models.config import param_counts
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(SERVE_ARCH)
+    slots, max_len = 8, 512
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_bytes(params) // 2
+    want = param_counts(cfg)["total"] + (2 * cfg.n_layers + 1) * cfg.d_model
+    check(n_params == want, f"{n_params} parameters, want {want}")
+    eng = ServeEngine(params, cfg, slots=slots, max_len=max_len)
+    cache_mb = sum(t.numel() * t.element_size()
+                   for t in eng.cache.values()) / 1e6
+    reqs = serve_requests(np.random.default_rng(SERVE_SEED), cfg.vocab_size,
+                          16, 16, 128, 32)
+    for r in reqs:
+        eng.submit(r)
+
+    FK.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FK.launch_counts()["flash_attention_fwd"]
+    st = dict(eng.stats)
+    check(len(done) == 16 and all(len(r.out_tokens) == 32 for r in done),
+          "not every request decoded 32 tokens")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens),
+          "a token id out of the vocabulary")
+    check(launches == cfg.n_layers * st["steps"] == st["flash_launches"],
+          f"K6 launches {launches} != {cfg.n_layers} × {st['steps']} steps")
+    check(st["compiles"] == 1, f"{st['compiles']} decode programs")
+    row = dict(arch=cfg.name, slots=slots, max_len=max_len, requests=16,
+               prompt_lens=[len(r.prompt) for r in reqs],
+               steps=st["steps"], tokens=st["tokens"], wall_s=wall,
+               tokens_per_s=st["tokens"] / wall,
+               ms_per_step=wall / st["steps"] * 1e3,
+               param_gb=lm.param_bytes(params) / 1e9, n_params=n_params,
+               cache_mb=cache_mb, init_s=init_s, k6_launches=launches,
+               compiles=st["compiles"])
+    log("[serve] " + json.dumps(row))
+
+    # device time of steady decode steps: 8 slots decoding (prompts of 64)
+    rng = np.random.default_rng(SERVE_SEED + 3)
+    for r in serve_requests(rng, cfg.vocab_size, 8, 64, 64, 200):
+        eng.submit(r)
+    while eng._prefilling or eng.queue or not eng.stats["tokens"] > \
+            st["tokens"]:
+        eng.step()
+    steps0 = eng.stats["steps"]
+    with card_trace() as prof:
+        t0 = time.perf_counter()
+        for _ in range(20):
+            eng.step()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    n = eng.stats["steps"] - steps0
+    k6_us, gemm_us, busy_us = serve_device_us(prof)
+    check(k6_us > 0 and busy_us > 0, "profiler saw no K6 device time")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        eng.step()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+    brk = dict(steps=n, k6_device_ms_per_step=k6_us / 1e3 / n,
+               gemm_device_ms_per_step=gemm_us / 1e3 / n,
+               device_busy_ms_per_step=busy_us / 1e3 / n,
+               traced_ms_per_step=traced_ms / n,
+               untraced_ms_per_step=untraced_ms / 20,
+               idle_share_est=max(0.0, 1.0 - busy_us / 1e3 / untraced_ms
+                                  * 20 / n),
+               positions=[int(p) for p in eng.positions])
+    log("[serve] steady decode, 8 slots at positions ~64-104: "
+        + json.dumps(brk))
+    row.update(steady=brk)
+    del eng
+    solo_and_shared(params, cfg, slots, max_len)
+    row["decode_vs_forward_rel"], row["decode_vs_forward_greedy_agree"] = \
+        decode_vs_forward(params, cfg, dev)
+    del params
+    torch.cuda.empty_cache()
+    row["card_vs_cpu_rel"] = card_vs_cpu(dev)
+    return row, launches
+
+
+def phase_slice3_timing(dev):
+    """CUDA-event and profiler times of K6 at the decode shapes (B=8,
+    NH=24, KH=8, hd=128, bf16, full cache Sk ∈ {512, 4096}) and the causal
+    prefill (B=1, H=24, S=2048), and of K5 at (10, 544, 20) and (1000,
+    2048, 20); their plain versions; SDPA at K6's shapes as the library
+    yardstick (decode: boolean mask, enable_gqa; prefill: is_causal).
+    SDPA is timed only."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash.ref import (flash_attention_fwd_ref,
+                                               position_mask)
+    from repro_torch.kernels.kvp import kernel as VK
+    from repro_torch.kernels.kvp.ref import kvp_ref
+    rows = []
+    for sk in (512, 4096):
+        q, k, v, qp, kp = full_cache_inputs(dev, 8, sk, 24, 8, 128,
+                                            torch.bfloat16, seed=sk)
+        mask = position_mask(qp, kp, True, 0)[:, None]       # (B,1,1,Sk)
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        calls = {
+            "flash": lambda: FK.flash_attention_fwd(q, k, v, qp, kp),
+            "flash_plain": lambda: flash_attention_fwd_ref(q, k, v, qp, kp),
+            "flash_sdpa": lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)}
+        row = dict(shape=f"decode B=8 Sk={sk}")
+        for key, fn in calls.items():
+            row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(
+                fn, 50)
+            row[f"{key}_call_ms"] = cuda_time_ms(fn, 50)
+        row["flash_bound_ms"], row["flash_bound_by"] = flash_bound_ms(
+            *flash_cost(q, k, qp, kp))
+        rows.append(row)
+        log("[timing] " + json.dumps(row))
+    g = torch.Generator(device=dev).manual_seed(4)
+    qb, kb, vb = (torch.randn((1, 24, 2048, 128), generator=g,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(3))
+    pos = torch.arange(2048, dtype=torch.int32, device=dev)[None]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qb, kb, vb))
+    calls = {
+        "flash": lambda: FK.flash_attention_fwd(qt, kt, vt, pos, pos),
+        "flash_plain": lambda: flash_attention_fwd_ref(qt, kt, vt, pos, pos),
+        "flash_sdpa": lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, is_causal=True)}
+    row = dict(shape="causal prefill B=1 H=24 S=2048")
+    for key, fn in calls.items():
+        row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(fn, 10)
+        row[f"{key}_call_ms"] = cuda_time_ms(fn, 10)
+    row["flash_bound_ms"], row["flash_bound_by"] = flash_bound_ms(
+        *flash_cost(qt, kt, pos, pos))
+    rows.append(row)
+    log("[timing] " + json.dumps(row))
+    for q, n, d, iters in ((10, 544, 20, 200), (1000, 2048, 20, 20)):
+        xq, xt, al, ils, amp = kvp_inputs(q, n, d, dev, far=32)
+        calls = {"kvp": lambda: VK.kvp_fwd(xq, xt, al, ils, amp),
+                 "kvp_plain": lambda: kvp_ref(xq, xt, al, ils, amp)}
+        row = dict(shape=f"kvp q={q} n={n} D={d}")
+        for key, fn in calls.items():
+            row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(
+                fn, iters)
+            row[f"{key}_call_ms"] = cuda_time_ms(fn, iters)
+        nbytes = 8 * (q * d + n * d + n + d + 1 + q)
+        row["kvp_bound_ms"], row["kvp_bound_by"] = bound_ms(
+            nbytes, 2 * q * n * d, 15 * q * n)
         rows.append(row)
         log("[timing] " + json.dumps(row))
     return rows
@@ -995,6 +1644,8 @@ def main() -> int:
     phase_build()
     err = phase_kernels(dev)
     phase_gram_kernels(dev, err)
+    phase_flash_kernels(dev, err)
+    phase_kvp_kernels(dev, err)
     sampler, obj, launches1, per_ask, c3, state = phase_main(dev)
     from repro_torch.engine.plan import EvalPlan
     plan = EvalPlan.for_batch(sampler.B, sampler.space.dim,
@@ -1002,11 +1653,14 @@ def main() -> int:
     phase_main_shapes(state, plan.buckets, err)
     asker, obj2, launches, ask_rows, _ = phase_ask(dev)
     phase_ask_shapes(asker, err)
+    launches["kvp_fwd"] = phase_kvp_path(asker, err)
     phase_fit_census(dev)
     phase_breakdown(sampler, obj)
     phase_ask_breakdown(asker, obj2, ask_rows)
     timing = phase_timing(dev, state)
     gram_timing = phase_gram_timing(dev)
+    serve_row, launches["flash_attention_fwd"] = phase_serve(dev)
+    timing3 = phase_slice3_timing(dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1037,7 +1691,29 @@ def main() -> int:
             "max_abs_err": err[key], "ms": row[f"{key}_ms"],
             "plain_ms": row[f"{key}_plain_ms"],
             "bound_ms": row[f"{key}_bound_ms"],
-            "bound_by": row[f"{key}_bound_by"], "library_ms": None})
+            "bound_by": row[f"{key}_bound_by"], "library_ms": None,
+            "ms_from": row[f"{key}_ms_from"]})
+    # the serving path's shape: decode, 8 slots, a 512-slot cache, bf16;
+    # the kvp path's: q = B = 10 at n = 544, D = 20
+    for name, key, row, src, replaces, lib in (
+            ("kvp_fwd", "kvp", timing3[3],
+             "src/repro_torch/kernels/kvp/csrc/kvp.cu",
+             "src/repro/kernels/kvp/kernel.py:47", None),
+            ("flash_attention_fwd", "flash", timing3[0],
+             "src/repro_torch/kernels/flash/csrc/flash.cu",
+             "src/repro/kernels/flash/kernel.py:82", "flash_sdpa")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err[key], "ms": row[f"{key}_ms"],
+            "plain_ms": row[f"{key}_plain_ms"],
+            "bound_ms": row[f"{key}_bound_ms"],
+            "bound_by": row[f"{key}_bound_by"],
+            "library_ms": row[f"{lib}_ms"] if lib else None,
+            # "events" where the trace held no device time: back-to-back
+            # calls, launch gaps included
+            "ms_from": row[f"{key}_ms_from"],
+            "library_ms_from": row[f"{lib}_ms_from"] if lib else None})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,11 @@
+"""chatglm3-6b [dense]: RoPE 2d (half-dim rotary), GQA kv=2.
+28L d_model=4096 32H d_ff=13696 vocab=65024.  [arXiv:2406.12793; hf]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="chatglm3-6b", family="dense",
+    n_layers=28, d_model=4096, n_heads=32, n_kv_heads=2,
+    d_ff=13696, vocab_size=65024, head_dim=128,
+    rope_fraction=0.5, norm="rmsnorm", activation="swiglu",
+    sub_quadratic=False,
+)

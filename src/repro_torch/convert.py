@@ -1,8 +1,8 @@
-"""Build the port's GP and fused-ask state from numpy arrays.
+"""Build the port's GP, fused-ask and LM state from numpy arrays.
 
-Lets both packages compute on one fitted GP, or take one incremental ask
-step from one state: the caller turns the other package's state into
-numpy arrays (``np.asarray``) and hands them here.
+Lets both packages compute on one fitted GP, take one incremental ask
+step from one state, or run one LM's weights: the caller turns the other
+package's state into numpy arrays (``np.asarray``) and hands them here.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from repro_torch.engine.ask import AskConfig, AskEngine
 from repro_torch.engine.engine import EvalEngine
 from repro_torch.gp.gpr import GPState
 from repro_torch.gp.kernels import KernelParams
+from repro_torch.models.lm import unstack_layers
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
@@ -58,3 +59,33 @@ def ask_engine_from_numpy(engine: EvalEngine, cfg: AskConfig, *, x, y, n: int,
     ask._alpha = _tensor(alpha, dev)
     ask._kinv = None if kinv is None else _tensor(kinv, dev)
     return ask
+
+
+def _lm_tensor(a, dev: torch.device) -> torch.Tensor:
+    """A tensor of ``a``'s values and dtype; a bfloat16 array (numpy
+    through ml_dtypes) is carried over bit for bit."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(dev)
+
+
+def lm_params_from_numpy(tree, device=None):
+    """The port's LM parameters from the JAX package's unboxed parameter
+    tree as numpy arrays (``{"embed", "final_norm", "blocks"}``, the blocks
+    stacked over layers); ``blocks`` becomes one dictionary per layer of
+    views.  On ``device`` (default CPU)."""
+    dev = torch.device("cpu" if device is None else device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _lm_tensor(node, dev)
+
+    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
+    blocks = conv(tree["blocks"])
+    n = next(iter(next(iter(blocks.values())).values())).shape[0]
+    out["blocks"] = unstack_layers(blocks, n)
+    return out

@@ -1,0 +1,158 @@
+"""CUDA flash attention (forward): build, binding, wrappers.
+
+``csrc/flash.cu`` holds K6 ``flash_attention_fwd`` (see its header for
+what it replaces, what bounds it and why it looks as it does).  It is
+built with the port's other kernels into one library at first use
+(``kernels/_build.py``); nothing is built at import.
+
+* :func:`flash_attention_fwd` — the wrapper: position-masked GQA attention
+  over (B, S, heads, hd) tensors.  It takes the plain version (``ref.py``)
+  for tensors on the CPU, and only for those.  For CUDA tensors it checks
+  device, dtype, shape, contiguity and alignment, allocates the output,
+  launches on the current stream, raises if the launch fails, and adds one
+  to its launch count.
+* :func:`attention` — the same function as an autograd op whose backward
+  raises (training is a later slice of the port, ROADMAP A12): the LM's
+  attention, with and without its KV cache.
+* :func:`flash_attention` and :func:`flash_attention_bhsd` — the JAX
+  package's single-head and (B, H, S, D) entry points, with the Pallas
+  kernel's suffix-aligned causal semantics, through the same kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels._build import (check_launch, check_tensor, declare,
+                                        on_cpu)
+from repro_torch.kernels._build import lib as _lib
+from repro_torch.kernels.flash.ref import flash_attention_fwd_ref
+
+Tensor = torch.Tensor
+
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches of K6; read and reset by callers that must show the main path
+# went through the kernel (chip_smoke.py, ServeEngine stats)
+LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+declare("flash_attention_fwd",
+        [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P], _I)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                        kv_pos: Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None) -> Tensor:
+    """K6: q (B, Sq, NH, hd), k/v (B, Sk, KH, hd), q_pos (B, Sq) and
+    kv_pos (B, Sk) int32 → (B, Sq, NH, hd) in q's dtype.
+
+    ``window`` ≤ 0 or None means no window.
+    """
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError("flash attention takes q (B, Sq, NH, hd) and k/v "
+                         "(B, Sk, KH, hd)")
+    b, sq, nh, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if kh < 1 or nh % kh:
+        raise ValueError(f"{nh} query heads do not group over {kh} KV heads")
+    if on_cpu(q):
+        return flash_attention_fwd_ref(q, k, v, q_pos, kv_pos, causal=causal,
+                                       window=window, scale=scale)
+    dev = q.device
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    for name, x, shape, dtype in (
+            ("q", q, (b, sq, nh, hd), q.dtype),
+            ("k", k, (b, sk, kh, hd), q.dtype),
+            ("v", v, (b, sk, kh, hd), q.dtype),
+            ("q_pos", q_pos, (b, sq), torch.int32),
+            ("kv_pos", kv_pos, (b, sk), torch.int32)):
+        check_tensor(name, x, shape, dtype, dev)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    scale = hd ** -0.5 if scale is None else float(scale)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _lib().flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), out.data_ptr(), b, sq, sk, nh, kh, hd,
+            _DTYPES[q.dtype], int(causal), int(window or 0), scale, stream)
+    check_launch("flash_attention_fwd", err)
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out
+
+
+class _FlashFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, scale):
+        return flash_attention_fwd(q, k, v, q_pos, kv_pos, causal=causal,
+                                   window=window, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "flash attention has no backward yet: training is a later "
+            "slice of the port (ROADMAP A12)")
+
+
+def attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+              kv_pos: Tensor, *, causal: bool = True,
+              window: Optional[int] = None,
+              scale: Optional[float] = None) -> Tensor:
+    """Position-masked GQA attention (the LM's): K6 on CUDA tensors, the
+    plain version on CPU tensors; the backward raises."""
+    return _FlashFn.apply(q, k, v, q_pos, kv_pos, causal, window, scale)
+
+
+def _suffix_positions(b: int, sq: int, sk: int, device) -> tuple:
+    """The Pallas kernel's positions: query i at Sk − Sq + i, key j at j."""
+    q_pos = torch.arange(sk - sq, sk, dtype=torch.int32, device=device)
+    kv_pos = torch.arange(sk, dtype=torch.int32, device=device)
+    return (q_pos.expand(b, sq).contiguous(),
+            kv_pos.expand(b, sk).contiguous())
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> Tensor:
+    """Single-head attention, q (Sq, H), k/v (Sk, H) → (Sq, H), with the
+    Pallas kernel's semantics: suffix-aligned queries, optional causal mask
+    and local window (i − window, i], fully masked rows → 0."""
+    sq, h = q.shape
+    sk = k.shape[0]
+    q_pos, kv_pos = _suffix_positions(1, sq, sk, q.device)
+    return flash_attention_fwd(q.reshape(1, sq, 1, h), k.reshape(1, sk, 1, h),
+                               v.reshape(1, sk, 1, h), q_pos, kv_pos,
+                               causal=causal, window=window,
+                               scale=scale).reshape(sq, h)
+
+
+def flash_attention_bhsd(q: Tensor, k: Tensor, v: Tensor, **kw) -> Tensor:
+    """(B, H, S, D) layout: every (batch, head) pair is one single-head
+    :func:`flash_attention`, in one launch."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    q_pos, kv_pos = _suffix_positions(b, sq, sk, q.device)
+    out = flash_attention_fwd(q.transpose(1, 2).contiguous(),
+                              k.transpose(1, 2).contiguous(),
+                              v.transpose(1, 2).contiguous(), q_pos, kv_pos,
+                              **kw)
+    return out.transpose(1, 2)

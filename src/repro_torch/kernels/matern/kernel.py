@@ -12,11 +12,8 @@ the kernels replace, what bounds them and why they look as they do):
 * :func:`matern52_gram_fwd` (K3): the (R, n1, n2) cross-gram for R θ rows;
 * :func:`matern52_gram_bwd_theta` (K4): its gradient in (1/ℓ, σ_f²).
 
-At first use each source is compiled with its own ``nvcc`` (both run at
-once) and the objects are linked into one shared library with a plain C
-interface, in ``build/kernels/`` at the repository root, loaded with
-``ctypes``.
-Nothing is built or imported at module import.
+Both sources are built with the port's other kernels into one library
+at first use (``kernels/_build.py``); nothing is built at import.
 
 Each wrapper takes the plain version (``ref.py``) for tensors on the CPU,
 and only for those.  For CUDA tensors it checks device, dtype (float64),
@@ -26,30 +23,19 @@ stream, raises if the launch fails, and adds one to its launch count.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels._build import (MAX_SMEM, check_launch,
+                                        check_tensor, declare, on_cpu)
+from repro_torch.kernels._build import lib as _lib
 from repro_torch.kernels.matern.ref import (matern52_gram_bwd_theta_ref,
                                             matern52_gram_ref,
                                             matern52_posterior_bwd_ref,
                                             matern52_posterior_fwd_ref)
 
 Tensor = torch.Tensor
-
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "posterior.cu", CSRC / "gram.cu")
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
-
-MAX_SMEM = 232448                 # dynamic shared memory a block may use
 
 # launches of each kernel; read and reset by callers that must show the
 # main path went through the kernels (chip_smoke.py, EvalEngine stats)
@@ -58,8 +44,13 @@ LAUNCHES: Dict[str, int] = {"matern52_posterior_fwd": 0,
                             "matern52_gram_fwd": 0,
                             "matern52_gram_bwd_theta": 0}
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
+_P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+declare("matern52_posterior_fwd", [_P] * 9 + [_I] * 4 + [_P], _I)
+declare("matern52_posterior_bwd_xq", [_P] * 10 + [_I] * 3 + [_P], _I)
+declare("matern52_gram_smem_bytes", [_I, _I], _Z)
+declare("matern52_gram_bwd_scratch", [_I] * 4, _Z)
+declare("matern52_gram_fwd", [_P] * 5 + [_I] * 4 + [_P], _I)
+declare("matern52_gram_bwd_theta", [_P] * 8 + [_I] * 4 + [_P], _I)
 
 
 def reset_launch_counts() -> None:
@@ -69,108 +60,6 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); "
-                           "the CUDA kernels cannot be built")
-    return path
-
-
-def _lib_path() -> Path:
-    """The library's file; its name carries a hash of the sources and
-    flags, so an edited source is rebuilt."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libmatern_{h.hexdigest()[:16]}.so"
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile each source to an object, one ``nvcc`` each, all started
-    together, and link the objects into one shared library (if not built
-    yet); return its path."""
-    out = _lib_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stem = f"{out.stem}.{os.getpid()}"
-    procs = []
-    for src in SOURCES:
-        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for src, _, proc in procs:
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc {src.name} failed ({proc.returncode}):\n"
-                          f"{stdout}\n{stderr}")
-        elif verbose and stderr:
-            print(stderr)
-    objs = [str(obj) for _, obj, _ in procs]
-    if not failed:
-        tmp = BUILD_DIR / f"{stem}.so"
-        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *objs],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            failed.append(f"nvcc link failed ({link.returncode}):\n"
-                          f"{link.stdout}\n{link.stderr}")
-        else:
-            os.replace(tmp, out)
-    for obj in objs:
-        Path(obj).unlink(missing_ok=True)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-            lib.matern52_posterior_fwd.argtypes = [p] * 9 + [i] * 4 + [p]
-            lib.matern52_posterior_fwd.restype = i
-            lib.matern52_posterior_bwd_xq.argtypes = [p] * 10 + [i] * 3 + [p]
-            lib.matern52_posterior_bwd_xq.restype = i
-            lib.matern52_gram_smem_bytes.argtypes = [i, i]
-            lib.matern52_gram_smem_bytes.restype = z
-            lib.matern52_gram_bwd_scratch.argtypes = [i] * 4
-            lib.matern52_gram_bwd_scratch.restype = z
-            lib.matern52_gram_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
-            lib.matern52_gram_fwd.restype = i
-            lib.matern52_gram_bwd_theta.argtypes = [p] * 8 + [i] * 4 + [p]
-            lib.matern52_gram_bwd_theta.restype = i
-            _LIB = lib
-    return _LIB
-
-
-def _check(name: str, x: Tensor, shape: Tuple[int, ...],
-           device: torch.device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.float64:
-        raise TypeError(f"{name} must be float64, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                         f"expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _on_cpu(x: Tensor) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    return False
 
 
 def rows_per_block(q: int, n: int, d: int, n_sm: int) -> int:
@@ -193,7 +82,7 @@ def matern52_posterior_fwd(xq: Tensor, xt: Tensor, alpha: Tensor,
                            amplitude: Tensor
                            ) -> Tuple[Tensor, Tensor, Tensor]:
     """K1: ((q,) mean, (q,) var, (q, n) t = k* K⁻¹)."""
-    if _on_cpu(xq):
+    if on_cpu(xq):
         return matern52_posterior_fwd_ref(xq, xt, alpha, kinv,
                                           inv_lengthscale, amplitude)
     q, d = xq.shape
@@ -203,7 +92,7 @@ def matern52_posterior_fwd(xq: Tensor, xt: Tensor, alpha: Tensor,
                            ("alpha", alpha, (n,)), ("kinv", kinv, (n, n)),
                            ("inv_lengthscale", inv_lengthscale, (d,)),
                            ("amplitude", amplitude, ())):
-        _check(name, x, shape, dev)
+        check_tensor(name, x, shape, torch.float64, dev)
     if q < 1 or n < 1:
         raise ValueError(f"empty posterior input (q={q}, n={n})")
     rows = rows_per_block(
@@ -218,9 +107,7 @@ def matern52_posterior_fwd(xq: Tensor, xt: Tensor, alpha: Tensor,
             inv_lengthscale.data_ptr(), amplitude.data_ptr(),
             mean.data_ptr(), var.data_ptr(), t.data_ptr(), q, n, d, rows,
             stream)
-    if err != 0:
-        raise RuntimeError(f"matern52_posterior_fwd launch failed: "
-                           f"cudaError {err}")
+    check_launch("matern52_posterior_fwd", err)
     LAUNCHES["matern52_posterior_fwd"] += 1
     return mean, var, t
 
@@ -230,7 +117,7 @@ def matern52_posterior_bwd_xq(xq: Tensor, xt: Tensor, alpha: Tensor,
                               inv_lengthscale: Tensor, amplitude: Tensor,
                               g_mean: Tensor, g_var: Tensor) -> Tensor:
     """K2: ∂(ḡm·mean + ḡv·var)/∂xq, (q, D)."""
-    if _on_cpu(xq):
+    if on_cpu(xq):
         return matern52_posterior_bwd_ref(xq, xt, alpha, t, var,
                                           inv_lengthscale, amplitude,
                                           g_mean, g_var)
@@ -243,7 +130,7 @@ def matern52_posterior_bwd_xq(xq: Tensor, xt: Tensor, alpha: Tensor,
                            ("inv_lengthscale", inv_lengthscale, (d,)),
                            ("amplitude", amplitude, ()),
                            ("g_mean", g_mean, (q,)), ("g_var", g_var, (q,))):
-        _check(name, x, shape, dev)
+        check_tensor(name, x, shape, torch.float64, dev)
     if 8 * (n + d + 9) > MAX_SMEM:
         raise ValueError(f"n={n} training points do not fit the backward "
                          f"kernel's shared memory")
@@ -255,9 +142,7 @@ def matern52_posterior_bwd_xq(xq: Tensor, xt: Tensor, alpha: Tensor,
             var.data_ptr(), inv_lengthscale.data_ptr(), amplitude.data_ptr(),
             g_mean.data_ptr(), g_var.data_ptr(), dxq.data_ptr(), q, n, d,
             stream)
-    if err != 0:
-        raise RuntimeError(f"matern52_posterior_bwd_xq launch failed: "
-                           f"cudaError {err}")
+    check_launch("matern52_posterior_bwd_xq", err)
     LAUNCHES["matern52_posterior_bwd_xq"] += 1
     return dxq
 
@@ -273,7 +158,7 @@ def _gram_dims(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
     for name, x, shape in (("x1", x1, (n1, d)), ("x2", x2, (n2, d)),
                            ("inv_lengthscale", inv_lengthscale, (r, d)),
                            ("amplitude", amplitude, (r,))):
-        _check(name, x, shape, dev)
+        check_tensor(name, x, shape, torch.float64, dev)
     if min(r, n1, n2, d) < 1:
         raise ValueError(f"empty gram input (R={r}, n1={n1}, n2={n2}, D={d})")
     return r, n1, n2, d
@@ -289,7 +174,7 @@ def _gram_smem(d: int, backward: bool) -> None:
 def matern52_gram_fwd(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
                       amplitude: Tensor) -> Tensor:
     """K3: k(x1, x2) for each of R θ rows, (R, n1, n2)."""
-    if _on_cpu(x1):
+    if on_cpu(x1):
         return matern52_gram_ref(x1, x2, inv_lengthscale, amplitude)
     r, n1, n2, d = _gram_dims(x1, x2, inv_lengthscale, amplitude)
     _gram_smem(d, backward=False)
@@ -300,9 +185,7 @@ def matern52_gram_fwd(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
         err = _lib().matern52_gram_fwd(
             x1.data_ptr(), x2.data_ptr(), inv_lengthscale.data_ptr(),
             amplitude.data_ptr(), out.data_ptr(), r, n1, n2, d, stream)
-    if err != 0:
-        raise RuntimeError(f"matern52_gram_fwd launch failed: "
-                           f"cudaError {err}")
+    check_launch("matern52_gram_fwd", err)
     LAUNCHES["matern52_gram_fwd"] += 1
     return out
 
@@ -311,12 +194,12 @@ def matern52_gram_bwd_theta(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
                             amplitude: Tensor, g: Tensor
                             ) -> Tuple[Tensor, Tensor]:
     """K4: (∂/∂(1/ℓ) (R, D), ∂/∂σ_f² (R,)) of Σ g ⊙ K3(x1, x2, 1/ℓ, σ_f²)."""
-    if _on_cpu(x1):
+    if on_cpu(x1):
         return matern52_gram_bwd_theta_ref(x1, x2, inv_lengthscale,
                                            amplitude, g)
     r, n1, n2, d = _gram_dims(x1, x2, inv_lengthscale, amplitude)
     dev = x1.device
-    _check("g", g, (r, n1, n2), dev)
+    check_tensor("g", g, (r, n1, n2), torch.float64, dev)
     _gram_smem(d, backward=True)
     lib = _lib()
     partial = torch.empty((lib.matern52_gram_bwd_scratch(r, n1, n2, d),),
@@ -329,8 +212,6 @@ def matern52_gram_bwd_theta(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
             x1.data_ptr(), x2.data_ptr(), inv_lengthscale.data_ptr(),
             amplitude.data_ptr(), g.data_ptr(), partial.data_ptr(),
             d_inv.data_ptr(), d_amp.data_ptr(), r, n1, n2, d, stream)
-    if err != 0:
-        raise RuntimeError(f"matern52_gram_bwd_theta launch failed: "
-                           f"cudaError {err}")
+    check_launch("matern52_gram_bwd_theta", err)
     LAUNCHES["matern52_gram_bwd_theta"] += 1
     return d_inv, d_amp

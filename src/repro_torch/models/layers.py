@@ -1,0 +1,259 @@
+"""Transformer building blocks of the dense LM: norms, RoPE, GQA attention,
+MLP, embeddings.
+
+Counterpart of the dense subset of ``repro/models/layers.py``.  Parameters
+are plain dictionaries of tensors with the JAX package's names and layouts
+(``wq`` (d, heads, hd), ``wo`` (heads, hd, d), ...), drawn from an explicit
+``torch.Generator`` on its device with the JAX package's distributions.
+The projections and the vocabulary head are plain ``torch.matmul``, as
+JAX leaves them to XLA; the attention is the flash kernel K6 on CUDA
+tensors and its plain version on CPU tensors
+(``repro_torch.kernels.flash.kernel.attention``), with and without the KV
+cache.  Cache writes happen in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash.kernel import attention
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+Params = Dict[str, Tensor]
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def _normal(gen: torch.Generator, shape, dtype) -> Tensor:
+    return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
+
+
+def _dense_init(gen: torch.Generator, shape, dtype, in_axis_size: int
+                ) -> Tensor:
+    """normal · fan_in^−½, the product taken in ``dtype`` (as JAX's)."""
+    scale = torch.tensor(in_axis_size ** -0.5, dtype=dtype, device=gen.device)
+    return _normal(gen, shape, dtype) * scale
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def init_norm(gen: torch.Generator, cfg: ModelConfig, dtype,
+              lead: Tuple[int, ...] = ()) -> Params:
+    dev = gen.device
+    p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=dev)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype,
+                                device=dev)
+    return p
+
+
+def apply_norm(p: Params, x: Tensor, kind: str, eps: float = 1e-6) -> Tensor:
+    """Statistics in float32, products in x's dtype."""
+    if kind == "rmsnorm":
+        ms = x.float().square().mean(-1, keepdim=True)
+        inv = torch.rsqrt(ms + eps).to(x.dtype)
+        out = x * inv * p["scale"]
+    else:
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, unbiased=False, keepdim=True)
+        inv = torch.rsqrt(var + eps)
+        out = (x - mu.to(x.dtype)) * inv.to(x.dtype) * p["scale"]
+    if "bias" in p:
+        out = out + p["bias"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (full or partial / "2d" fraction)
+# ---------------------------------------------------------------------------
+
+RopeTables = Tuple[int, Optional[Tensor], Optional[Tensor]]
+
+
+def rope_tables(positions: Tensor, head_dim: int, theta: float,
+                fraction: float) -> RopeTables:
+    """(rotated width, cos, sin) for positions (B, S); cos/sin are
+    (B, S, 1, rot/2) float32.  Shared by every layer of a step."""
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    if rot == 0:
+        return 0, None, None
+    half = rot // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[:, :, None, None] * freqs
+    return rot, torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: Tensor, tables: RopeTables) -> Tensor:
+    """x: (B, S, H, hd) rotated by precomputed :func:`rope_tables`."""
+    rot, cos, sin = tables
+    if rot == 0:
+        return x
+    half = rot // 2
+    x1 = x[..., :half].float()
+    x2 = x[..., half:rot].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    if rot == x.shape[-1]:
+        return out.to(x.dtype)
+    return torch.cat([out.to(x.dtype), x[..., rot:]], -1)
+
+
+def rope(x: Tensor, positions: Tensor, theta: float, fraction: float
+         ) -> Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int."""
+    return apply_rope(x, rope_tables(positions, x.shape[-1], theta,
+                                     fraction))
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
+                   lead: Tuple[int, ...] = ()) -> Params:
+    d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": _dense_init(gen, lead + (d, nh, hd), dtype, d),
+        "wk": _dense_init(gen, lead + (d, nkv, hd), dtype, d),
+        "wv": _dense_init(gen, lead + (d, nkv, hd), dtype, d),
+        "wo": _dense_init(gen, lead + (nh, hd, d), dtype, nh * hd),
+    }
+    return p
+
+
+def _project(x: Tensor, w: Tensor) -> Tensor:
+    """(B, S, d) @ (d, heads, hd) → (B, S, heads, hd), one matmul."""
+    b, s, _ = x.shape
+    return (x @ w.reshape(w.shape[0], -1)).view(b, s, w.shape[1], w.shape[2])
+
+
+def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
+                    *, cache: Optional[Params] = None,
+                    cache_index: Optional[Tensor] = None,
+                    tables: Optional[RopeTables] = None
+                    ) -> Tuple[Tensor, Optional[Params]]:
+    """Causal attention sublayer of the dense LM.  x: (B, S, D); positions:
+    (B, S) int32.
+
+    Without ``cache``: prefill / teacher-forced self-attention.  With
+    ``cache`` (``k``/``v`` (B, L, KH, hd), ``pos`` (B, L)): write this
+    step's K/V at ``cache_index`` in place and attend over the cache.  A
+    0-dim ``cache_index`` writes every row at that slot; a (B,) one writes
+    row b at its own slot (S must be 1), and a row with index < 0 is idle:
+    it writes into the trash slot L−1 with position −1, which no query
+    sees.  ``tables``: this step's rope tables (computed here if None).
+    (The local-window ring cache of the hybrid family waits for ROADMAP
+    A12.)
+    """
+    b, s, _ = x.shape
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if tables is None:
+        tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                             cfg.rope_fraction)
+    q = apply_rope(q, tables).contiguous()
+    k = apply_rope(k, tables).contiguous()
+    v = v.contiguous()
+
+    if cache is None:
+        out = attention(q, k, v, positions, positions)
+    else:
+        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+        length = ck.shape[1]
+        idx = cache_index
+        if not torch.is_tensor(idx) or idx.ndim == 0:
+            # uniform write index, clamped as lax.dynamic_update_slice does
+            slot = min(max(int(idx), 0), length - s)
+            ck[:, slot:slot + s] = k.to(ck.dtype)
+            cv[:, slot:slot + s] = v.to(cv.dtype)
+            cpos[:, slot:slot + s] = positions
+        else:
+            if s != 1:
+                raise ValueError("a per-row cache_index needs single-token "
+                                 "steps")
+            slot = torch.where(idx >= 0, idx, length - 1)
+            rows = torch.arange(b, device=x.device)
+            ck[rows, slot] = k[:, 0].to(ck.dtype)
+            cv[rows, slot] = v[:, 0].to(cv.dtype)
+            cpos[rows, slot] = positions[:, 0]
+        out = attention(q, ck, cv, positions, cpos)
+        cache = {"k": ck, "v": cv, "pos": cpos}
+
+    wo = p["wo"]
+    y = out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    return y, cache
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                    lead: Tuple[int, ...] = (), device=None) -> Params:
+    """Preallocated KV cache; ``pos`` holds each slot's absolute position
+    (−1 = empty)."""
+    shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full(lead + (batch, max_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype,
+             lead: Tuple[int, ...] = ()) -> Params:
+    d, ff = cfg.d_model, cfg.d_ff
+    p = {
+        "w_up": _dense_init(gen, lead + (d, ff), dtype, d),
+        "w_down": _dense_init(gen, lead + (ff, d), dtype, ff),
+    }
+    if cfg.activation in ("swiglu", "geglu"):
+        p["w_gate"] = _dense_init(gen, lead + (d, ff), dtype, d)
+    return p
+
+
+def _gelu(x: Tensor) -> Tensor:
+    return F.gelu(x, approximate="tanh")        # jax.nn.gelu's default
+
+
+def apply_mlp(p: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    h = x @ p["w_up"]
+    if cfg.activation in ("swiglu", "geglu"):
+        g = x @ p["w_gate"]
+        h = (F.silu(g) if cfg.activation == "swiglu" else _gelu(g)) * h
+    else:
+        h = _gelu(h)
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+
+def init_embedding(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    scale = torch.tensor(0.02, dtype=dtype, device=gen.device)
+    p = {"tok": _normal(gen, (cfg.vocab_size, cfg.d_model), dtype) * scale}
+    if not cfg.tie_embeddings:
+        p["head"] = _dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
+                                cfg.d_model)
+    return p
+
+
+def embed_tokens(p: Params, tokens: Tensor) -> Tensor:
+    return p["tok"][tokens]
+
+
+def lm_logits(p: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    return x @ w

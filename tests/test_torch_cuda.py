@@ -1,4 +1,5 @@
-"""Card-only tests of the CUDA kernels K1–K4 and of the fused ask on the card
+"""Card-only tests of the CUDA kernels K1–K6, of the fused ask and of the
+serving engine on the card
 (no CPU mode exists for a CUDA kernel, so they skip without a card).  The file imports neither jax nor
 the JAX package, so it also runs where only PyTorch is installed:
 
@@ -249,3 +250,181 @@ def test_fused_ask_launches_and_equals_host_on_card(cuda):
             out.append(tr.x)
         xs.append(np.array(out))
     np.testing.assert_array_equal(xs[0], xs[1])
+
+
+# ------------------------------------------- slice 3: K6 flash, K5 kvp, serve
+from repro_torch.kernels.flash import kernel as FK  # noqa: E402
+from repro_torch.kernels.flash.ref import (flash_attention_fwd_ref,  # noqa: E402,E501
+                                           position_mask)
+from repro_torch.kernels.kvp import kernel as VK  # noqa: E402
+from repro_torch.kernels.kvp.ref import kvp_ref  # noqa: E402
+
+
+def serving_inputs(b, sk, nh, kh, hd, dtype, device, seed=0):
+    """A decode step's attention inputs as the serving engine leaves them:
+    ragged per-row positions, empty slots (−1), the trash slot Sk−1 (−1),
+    and an idle last row (query position −1)."""
+    rng = np.random.default_rng(seed)
+    kv_pos = np.full((b, sk), -1, np.int32)
+    q_pos = np.full((b, 1), -1, np.int32)
+    for r in range(b - 1):
+        n = int(rng.integers(1, sk - 1))
+        kv_pos[r, :n] = np.arange(n)
+        q_pos[r, 0] = n - 1
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(sh, generator=g, device=device).to(dtype)
+               for sh in ((b, 1, nh, hd), (b, sk, kh, hd), (b, sk, kh, hd)))
+    return (q, k, v, torch.tensor(q_pos, device=device),
+            torch.tensor(kv_pos, device=device))
+
+
+def assert_flash_close(out, ref):
+    """K6 and its plain version both sum in float32 and round the output
+    once: within 2e-5 in float32; in bfloat16 the two roundings may also
+    land on neighbouring values, one ulp (at most 2⁻⁷·|ref|) apart."""
+    tol = 2e-5 + (2.0 ** -7 * ref.float().abs()
+                  if ref.dtype == torch.bfloat16 else 0.0)
+    assert bool(((out.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sk,nh,kh,hd,dtype", [
+    (4, 300, 6, 2, 32, torch.float32), (8, 512, 24, 8, 128, torch.bfloat16),
+    (3, 97, 4, 4, 64, torch.float32), (2, 64, 8, 1, 128, torch.bfloat16)])
+def test_flash_kernel_matches_plain_version_on_card(cuda, b, sk, nh, kh, hd,
+                                                    dtype):
+    inputs = serving_inputs(b, sk, nh, kh, hd, dtype, cuda, seed=sk)
+    FK.reset_launch_counts()
+    out = FK.flash_attention_fwd(*inputs)
+    ref = flash_attention_fwd_ref(*inputs)
+    alone = FK.flash_attention_fwd(*(t[:1].contiguous() for t in inputs))
+    torch.cuda.synchronize()
+    assert FK.launch_counts() == {"flash_attention_fwd": 2}
+    seen = position_mask(inputs[3], inputs[4], True, None).any(-1)
+    assert_flash_close(out[seen], ref[seen])
+    assert not out[~seen].any()                       # no visible key → 0
+    assert torch.equal(alone[0], out[0])              # row independence
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,dtype", [(512, torch.float32),
+                                     (1024, torch.bfloat16)])
+def test_causal_prefill_flash_matches_plain_on_card(cuda, s, dtype):
+    """Many rows a block, the causal tile skip and hd=128 at llama's 24
+    heads."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn((1, 24, s, 128), generator=g, device=cuda).to(
+        dtype) for _ in range(3))
+    out = FK.flash_attention_bhsd(q, k, v, causal=True)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)[None]
+    ref = flash_attention_fwd_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), pos, pos).transpose(1, 2)
+    assert_flash_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,h,causal,window", [
+    (256, 256, 64, True, None), (128, 384, 64, True, None),
+    (300, 300, 32, True, 128), (1, 513, 64, True, None),
+    (200, 200, 128, False, None)])
+def test_single_head_flash_matches_plain_on_card(cuda, sq, sk, h, causal,
+                                                 window):
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q, k, v = (torch.randn((s, h), generator=g, device=cuda)
+               for s in (sq, sk, sk))
+    out = FK.flash_attention(q, k, v, causal=causal, window=window)
+    qp = torch.arange(sk - sq, sk, dtype=torch.int32, device=cuda)[None]
+    kp = torch.arange(sk, dtype=torch.int32, device=cuda)[None]
+    ref = flash_attention_fwd_ref(q[None, :, None], k[None, :, None],
+                                  v[None, :, None], qp, kp, causal=causal,
+                                  window=window)[0, :, 0]
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    bh = FK.flash_attention_bhsd(q[None, None], k[None, None], v[None, None],
+                                 causal=causal, window=window)
+    assert torch.equal(bh[0, 0], out)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v, qp, kp = serving_inputs(2, 64, 4, 2, 32, torch.float32, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FK.flash_attention_fwd(q.double(), k.double(), v.double(), qp, kp)
+    with pytest.raises(TypeError, match="int32"):
+        FK.flash_attention_fwd(q, k, v, qp.long(), kp)
+    with pytest.raises(ValueError, match="head_dim"):
+        FK.flash_attention_fwd(q[..., :16].contiguous(),
+                               k[..., :16].contiguous(),
+                               v[..., :16].contiguous(), qp, kp)
+    with pytest.raises(ValueError, match="contiguous"):
+        FK.flash_attention_fwd(q, k.transpose(0, 1).contiguous().transpose(
+            0, 1), v, qp, kp)
+    with pytest.raises(ValueError, match="shape"):
+        FK.flash_attention_fwd(q, k, v[:, :-1].contiguous(), qp, kp)
+    with pytest.raises(NotImplementedError, match="A12"):
+        FK.attention(q.clone().requires_grad_(True), k, v, qp,
+                     kp).sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,d", [(10, 50, 5), (77, 500, 40), (10, 544, 20),
+                                   (1000, 2048, 20)])
+def test_kvp_kernel_matches_plain_version_on_card(cuda, q, n, d):
+    rng = np.random.default_rng(q + n)
+    xq, xt = rng.uniform(0, 1, (q, d)), rng.uniform(0, 1, (n, d))
+    al = rng.standard_normal(n)
+    xt[-3:] = 1e6 + np.arange(3)[:, None]              # _FAR rows
+    al[-3:] = 0.0
+    ils = np.exp(rng.uniform(-1.0, 2.0, d))
+    args = tuple(torch.tensor(a, device=cuda)
+                 for a in (xq, xt, al, ils, np.float64(1.7)))
+    VK.reset_launch_counts()
+    out = VK.kvp_fwd(*args)
+    alone = VK.kvp_fwd(args[0][:1].contiguous(), *args[1:])
+    ref = kvp_ref(*args)
+    torch.cuda.synchronize()
+    assert VK.launch_counts() == {"kvp_fwd": 2}
+    scale = matern52_gram_ref(args[0], args[1], args[3], args[4]).abs() \
+        @ args[2].abs()
+    assert bool(((out - ref).abs() <= 1e-12 * scale).all())
+    assert torch.equal(alone[0], out[0])
+    from repro_torch.kernels.kvp.ops import gp_mean_kvp
+    assert torch.equal(gp_mean_kvp(*args, backend="auto"), out)
+    with pytest.raises(TypeError, match="float64"):
+        VK.kvp_fwd(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="shape"):
+        VK.kvp_fwd(args[0], args[1], args[2][:-1], *args[3:])
+
+
+@pytest.mark.cuda
+def test_reduced_serve_engine_on_card(cuda):
+    """The reduced llama3.2-3b served on the card in f32: one K6 launch per
+    layer per step, one program, and the same greedy tokens as on the
+    CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config("llama3.2-3b").reduced().replace(dtype="float32")
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(0))
+
+    def to(node):
+        if isinstance(node, dict):
+            return {k: to(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to(v) for v in node]
+        return node.to(cuda)
+
+    outs = {}
+    for name, params in (("cpu", cpu), ("cuda", to(cpu))):
+        eng = ServeEngine(params, cfg, slots=3, max_len=64)
+        rng = np.random.default_rng(0)
+        for i in range(7):
+            eng.submit(Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab_size, 4 + (i % 3)).astype(np.int32),
+                max_new_tokens=5))
+        FK.reset_launch_counts()
+        outs[name] = {r.uid: r.out_tokens for r in eng.run_until_drained()}
+        want = cfg.n_layers * eng.stats["steps"] if name == "cuda" else 0
+        assert FK.launch_counts()["flash_attention_fwd"] == want
+        assert eng.stats["flash_launches"] == want
+        assert eng.stats["compiles"] == 1
+    assert outs["cuda"] == outs["cpu"]

@@ -18,6 +18,7 @@ from repro.kernels.matern.kernel import matern52_gram as j_gram_pallas  # noqa: 
 from repro.kernels.matern.ref import matern52_gram_ref as j_gram_ref  # noqa: E402,E501
 from repro_torch.gp import kernels as tk  # noqa: E402
 from repro_torch.gp.fit import _FAR  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.matern import kernel as K  # noqa: E402
 from repro_torch.kernels.matern.ops import (matern52_cross,  # noqa: E402
                                             matern52_gram_op)
@@ -148,7 +149,7 @@ def test_gram_op_gradient_is_autograds_through_plain_gram():
                   <= 1e-10 * s_amp * np.exp(theta[:, d].numpy()))
     # CPU tensors take the plain versions: nothing was launched or built
     assert K.launch_counts() == dict.fromkeys(K.LAUNCHES, 0)
-    assert K._LIB is None
+    assert _build._LIB is None
     # x takes no gradient through the op
     with pytest.raises(ValueError, match="must not require grad"):
         matern52_gram_op(x.clone().requires_grad_(True), x,

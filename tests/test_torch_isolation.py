@@ -68,4 +68,9 @@ def test_walk_finds_the_kernel_modules():
     assert {"repro_torch.kernels.matern.kernel",
             "repro_torch.kernels.matern.ops",
             "repro_torch.engine.engine",
-            "repro_torch.bo.sampler"} <= names
+            "repro_torch.bo.sampler",
+            "repro_torch.kernels.flash.kernel",
+            "repro_torch.kernels.kvp.ops",
+            "repro_torch.models.lm",
+            "repro_torch.serve.engine",
+            "repro_torch.launch.serve"} <= names

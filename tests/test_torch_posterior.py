@@ -22,6 +22,7 @@ from repro_torch.convert import gp_state_from_numpy  # noqa: E402
 from repro_torch.core.acquisition import log_ei, logei_acq  # noqa: E402
 from repro_torch.engine.posterior import (fused_logei_acq,  # noqa: E402
                                           posterior, resolve_backend)
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.matern import kernel as K  # noqa: E402
 from repro_torch.kernels.matern.ops import \
     matern52_posterior_op  # noqa: E402
@@ -183,7 +184,7 @@ def test_cpu_tensors_take_plain_versions_without_launches():
     m, v = matern52_posterior_op(x, *t_args(gt))
     (m.sum() + v.sum()).backward()
     assert K.launch_counts() == dict.fromkeys(K.LAUNCHES, 0)
-    assert K._LIB is None                     # nothing was built or loaded
+    assert _build._LIB is None                     # nothing was built or loaded
     # a device with no kernel raises rather than falling back
     with pytest.raises(ValueError, match="no kernel"):
         K.matern52_posterior_fwd(*(a.to("meta") for a in

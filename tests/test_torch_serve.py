@@ -1,0 +1,147 @@
+"""Parity of the port's ``ServeEngine`` with the JAX package's on the
+traffic of ``tests/test_runtime.py`` (reduced llama3.2-3b, float32, JAX's
+parameters carried across): greedy tokens equal token by token under
+continuous batching, staggered admission, chunked prefill and slot reuse,
+with one program signature in steady state.  Also: an engine owns its
+cache, and the CLI serves on the CPU when asked."""
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.distributed.sharding import unbox  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.serve.engine import Request as JRequest  # noqa: E402
+from repro.serve.engine import ServeEngine as JServeEngine  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import lm_params_from_numpy  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    jcfg = jax_get_config("llama3_2_3b").reduced().replace(dtype="float32",
+                                                           attn_chunk=16)
+    jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = get_config("llama3_2_3b").reduced().replace(dtype="float32")
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, unbox(jparams)))
+    return (jcfg, jparams), (cfg, params)
+
+
+def engines(tiny, **kw):
+    (jcfg, jparams), (cfg, params) = tiny
+    return JServeEngine(jparams, jcfg, **kw), ServeEngine(params, cfg, **kw)
+
+
+def outputs(done):
+    return {r.uid: r.out_tokens for r in done}
+
+
+def submit_both(pair, uid, prompt, n):
+    pair[0].submit(JRequest(uid=uid, prompt=prompt, max_new_tokens=n))
+    pair[1].submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+
+
+def test_continuous_batching_matches_jax(tiny):
+    pair = engines(tiny, slots=3, max_len=64)
+    rng = np.random.default_rng(0)
+    vocab = tiny[1][0].vocab_size
+    for i in range(7):
+        submit_both(pair, i, rng.integers(0, vocab, 4 + (i % 3)).astype(
+            np.int32), 5)
+    done = [outputs(e.run_until_drained()) for e in pair]
+    assert len(done[1]) == 7
+    assert all(len(t) == 5 for t in done[1].values())
+    assert done[1] == done[0]
+    jax_eng, eng = pair
+    assert eng.stats["steps"] == jax_eng.stats["steps"]
+    assert eng.stats["tokens"] == jax_eng.stats["tokens"] == 35
+    assert eng.stats["compiles"] == 1
+    assert eng.stats["flash_launches"] == 0       # CPU: the plain version
+
+
+def test_stats_readable_before_first_step(tiny):
+    _, eng = engines(tiny, slots=2, max_len=64)
+    assert eng.stats["compiles"] == 0
+    eng.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32),
+                       max_new_tokens=2))
+    eng.run_until_drained()
+    assert eng.stats["compiles"] == 1
+
+
+def test_staggered_admission_and_chunked_prefill_match_solo_and_jax(tiny):
+    vocab = tiny[1][0].vocab_size
+    rng = np.random.default_rng(2)
+    pa = rng.integers(0, vocab, 9).astype(np.int32)
+    pb = rng.integers(0, vocab, 5).astype(np.int32)
+
+    solo = {}
+    for uid, prompt in ((0, pa), (1, pb)):
+        pair = engines(tiny, slots=2, max_len=64)
+        submit_both(pair, uid, prompt, 6)
+        jax_out, out = (e.run_until_drained()[0].out_tokens for e in pair)
+        assert out == jax_out
+        solo[uid] = out
+
+    pair = engines(tiny, slots=2, max_len=64)
+    submit_both(pair, 0, pa, 6)
+    for e in pair:
+        for _ in range(3):              # A decodes alone for a few steps
+            e.step()
+    submit_both(pair, 1, pb, 6)
+    assert [outputs(e.run_until_drained()) for e in pair] == [solo, solo]
+
+    pair = engines(tiny, slots=2, max_len=64, prefill_chunk=2)
+    submit_both(pair, 0, pa, 6)
+    for e in pair:
+        e.step()                        # A prefills 2 of 8 prompt steps
+        assert e._prefilling == {0} and e.positions[0] == 2
+    submit_both(pair, 1, pb, 6)
+    assert [outputs(e.run_until_drained()) for e in pair] == [solo, solo]
+    assert pair[1].stats["compiles"] == 1
+
+
+def test_slot_isolation_matches_jax(tiny):
+    vocab = tiny[1][0].vocab_size
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, vocab, 6).astype(np.int32)
+    first = rng.integers(0, vocab, 9).astype(np.int32)
+
+    pair = engines(tiny, slots=1, max_len=64)
+    submit_both(pair, 0, prompt, 4)
+    ref = [e.run_until_drained()[0].out_tokens for e in pair]
+
+    pair = engines(tiny, slots=1, max_len=64)
+    submit_both(pair, 0, first, 4)
+    submit_both(pair, 1, prompt, 4)
+    second = [outputs(e.run_until_drained())[1] for e in pair]
+    assert second == ref and ref[0] == ref[1]
+
+
+def test_an_engine_owns_its_cache(tiny):
+    _, (cfg, params) = tiny
+    a = ServeEngine(params, cfg, slots=2, max_len=32)
+    b = ServeEngine(params, cfg, slots=2, max_len=32)
+    for name in ("k", "v", "pos"):
+        assert a.cache[name].data_ptr() != b.cache[name].data_ptr()
+    before = {k: v.clone() for k, v in b.cache.items()}
+    a.submit(Request(uid=0, prompt=np.arange(5, dtype=np.int32),
+                     max_new_tokens=3))
+    a.run_until_drained()
+    assert torch.any(a.cache["pos"] >= 0)
+    assert all(torch.equal(b.cache[k], before[k]) for k in before)
+
+
+def test_cli_serves_on_the_cpu_when_asked(capsys):
+    eng = launch_serve.main(["--arch", "llama3.2-3b", "--reduced",
+                             "--device", "cpu", "--requests", "3",
+                             "--slots", "2", "--max-len", "32",
+                             "--prompt-len", "5", "--max-new", "4"])
+    assert eng.stats["tokens"] == 12 and eng.stats["compiles"] == 1
+    assert "3 requests, 12 tokens" in capsys.readouterr().out
+    if not torch.cuda.is_available():   # the default device is the card
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            launch_serve.main(["--arch", "llama3.2-3b", "--reduced"])
