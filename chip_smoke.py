@@ -38,12 +38,16 @@ Slice 3 adds, in the same run:
   - build     the flash (K6) and kvp (K5) sources join the one library
   - kernels   K6 flash_attention_fwd against its plain version on the
               Pallas test cases (through flash_attention), GQA decode
-              (B=8, NH=24, KH=8, hd=128, Sk ∈ {512, 4096}, ragged
-              positions, empty slots, a trash slot, an idle row), a
-              windowed prefill chunk over a cache and a causal prefill
-              through flash_attention_bhsd (H=24, hd=128: S=512 in f32,
-              S=2048 in bf16), with row independence bitwise; bf16
-              within one bf16 ulp of each entry; K5 kvp_fwd at the
+              (B=8, NH=24, KH=8, hd=128, Sk ∈ {512, 513, 4095, 4096},
+              ragged positions, empty slots, a trash slot, an idle row),
+              rows whose keys lie in one split only and a row with no
+              visible key in any split, a windowed prefill chunk over a
+              cache (split path, f32; MMA path, bf16), bf16 rows Sq·G ∈
+              {63, 64, 65} at G=1 and {63, 66} at G=3 around the MMA
+              threshold at hd ∈ {64, 128}, and a causal prefill through
+              flash_attention_bhsd (H=24, hd=128: S=512 in f32, S=2048
+              in bf16 on the MMA path), with row independence bitwise;
+              bf16 within one bf16 ulp of each entry; K5 kvp_fwd at the
               Pallas test shapes, (10, 544, 20) and (1000, 2048, 20)
   - kvp       gp_mean_kvp on the fused ask's fitted state (K5 launches)
   - serve     ServeEngine on llama3.2-3b at full width (bf16, weights
@@ -55,9 +59,13 @@ Slice 3 adds, in the same run:
               runs; decode vs forward logits over 64 tokens; the card
               against the CPU on the reduced config in f32
   - timing    K5/K6 and their plain versions beside their bounds, and
-              scaled_dot_product_attention at K6's shapes (timed only)
+              scaled_dot_product_attention at K6's shapes (timed only):
+              K6 at decode Sk ∈ {512, 4096}, at a serving step (8 slots,
+              positions 64–104 in a 512-slot cache) and at the causal
+              prefill S=2048, with the K6 kernels each trace holds (the
+              prefill's must be the MMA kernel)
 Then it prints the card, a "kernels" JSON line (each "ms" with its
-source, "ms_from"), and the result line.
+source, "ms_from"; K6 at the serving step's shape), and the result line.
 Exits with 2, printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
@@ -1132,6 +1140,20 @@ def decode_inputs(dev, b, sk, nh, kh, hd, dtype, seed, idle=True):
             torch.from_numpy(kv_pos).to(dev))
 
 
+def serving_step_inputs(dev, seed):
+    """The serving path's K6 call in steady decode: 8 slots of a 512-slot
+    bf16 cache at positions 64–104 (row r at 64 + 40r/7), each having
+    written positions 0..q_pos into slots 0..q_pos, the rest −1."""
+    import torch
+    q, k, v, _, _ = decode_inputs(dev, 8, 512, 24, 8, 128, torch.bfloat16,
+                                  seed, idle=False)
+    q_pos = torch.tensor([[64 + 40 * r // 7] for r in range(8)],
+                         dtype=torch.int32, device=dev)
+    slots = torch.arange(512, dtype=torch.int32, device=dev)[None]
+    kv_pos = torch.where(slots <= q_pos, slots, -1).to(torch.int32)
+    return q, k, v, q_pos, kv_pos.contiguous()
+
+
 def full_cache_inputs(dev, b, sk, nh, kh, hd, dtype, seed):
     """A decode step over a full cache: every slot valid, every row at
     position Sk−1 (the timing shape; every key is read)."""
@@ -1198,11 +1220,55 @@ def phase_flash_kernels(dev, err):
         err["flash"] = max(err["flash"], e)
     log(f"[kernels] flash_attention on the Pallas test cases: within "
         f"{FLASH_F32_TOL:g} (f32) / {FLASH_F32_TOL:g} + 2^-7·|ref| (bf16)")
-    for sk in (512, 4096):
+    # decode, Sk a multiple of the split length or not
+    for sk in (512, 513, 4095, 4096):
         for dt in ("bfloat16", "float32"):
             check_flash(f"decode B=8 NH=24 KH=8 hd=128 Sk={sk} {dt}",
                         decode_inputs(dev, 8, sk, 24, 8, 128,
                                       getattr(torch, dt), seed=sk), err)
+    # split edges (split_len 64 at Sk=512): row 0 sees slots 70..110 only
+    # (one split), row 1 slots 0..30, row 2 nothing in any split though
+    # its query is live, row 3 ends mid-split; with a window of 16 too
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, q_pos, kv_pos = decode_inputs(dev, 8, 512, 24, 8, 128, dt,
+                                               seed=21)
+        kv_pos[:4] = -1
+        kv_pos[0, 70:111] = torch.arange(41, dtype=torch.int32)
+        kv_pos[1, :31] = torch.arange(31, dtype=torch.int32)
+        kv_pos[3, :300] = torch.arange(300, dtype=torch.int32)
+        q_pos[:4, 0] = torch.tensor([40, 30, 100, 299], dtype=torch.int32)
+        for window in (0, 16):
+            check_flash(f"split edges {str(dt)[6:]} window {window}",
+                        (q, k, v, q_pos, kv_pos), err, window=window)
+    # bf16 rows around the MMA threshold (Sq·G = 64), a chunk continuing
+    # a cache of 40 positions; the path must be the one plan() names
+    for hd in (64, 128):
+        for sq, nh, kh in ((63, 2, 2), (64, 2, 2), (65, 2, 2), (21, 6, 2),
+                           (22, 6, 2)):
+            g = torch.Generator(device=dev).manual_seed(sq * hd + nh)
+            sk = 40 + sq
+            q, k, v = (torch.randn(sh, generator=g, device=dev).to(
+                torch.bfloat16) for sh in ((2, sq, nh, hd), (2, sk, kh, hd),
+                                           (2, sk, kh, hd)))
+            q_pos = (40 + torch.arange(sq, dtype=torch.int32,
+                                       device=dev)).expand(2, sq).contiguous()
+            kv_pos = torch.arange(sk, dtype=torch.int32,
+                                  device=dev).expand(2, sk).contiguous()
+            path = FK.plan(torch.bfloat16, sq, nh, kh, hd, sk)[0]
+            check(path == ("mma" if sq * nh // kh >= 64 else "split"),
+                  f"plan picks {path} at Sq·G = {sq * nh // kh}")
+            check_flash(f"bf16 Sq·G={sq * nh // kh} (G={nh // kh}) hd={hd} "
+                        f"{path}", (q, k, v, q_pos, kv_pos), err)
+    # a windowed bf16 chunk on the MMA path (192 rows, window 24)
+    g = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = (torch.randn(sh, generator=g, device=dev).to(torch.bfloat16)
+               for sh in ((2, 96, 4, 128), (2, 160, 2, 128), (2, 160, 2, 128)))
+    q_pos = (40 + torch.arange(96, dtype=torch.int32, device=dev)).expand(
+        2, 96).contiguous()
+    kv_pos = torch.arange(160, dtype=torch.int32, device=dev).expand(
+        2, 160).contiguous()
+    check_flash("prefill chunk Sq=96 G=2 over a cache, window 24, bf16 mma",
+                (q, k, v, q_pos, kv_pos), err, window=24)
     # local window and a chunk of queries continuing a cache, reduced widths
     q, k, v, _, kv_pos = decode_inputs(dev, 4, 256, 4, 2, 32, torch.float32,
                                        seed=9, idle=False)
@@ -1212,8 +1278,11 @@ def phase_flash_kernels(dev, err):
                      generator=torch.Generator(device=dev).manual_seed(10))
     check_flash("prefill chunk Sq=16 over a cache, window 24",
                 (qc, k, v, q_pos, kv_pos), err, window=24)
-    # causal prefill: 16 rows a block, the causal tile skip and hd=128
+    # causal prefill: the causal tile skip and hd=128; bf16 on the MMA path
     for s_len, dt in ((512, torch.float32), (2048, torch.bfloat16)):
+        check(FK.plan(dt, s_len, 24, 24, 128, s_len)[0]
+              == ("mma" if dt == torch.bfloat16 else "split"),
+              f"causal prefill S={s_len} {dt}: unexpected path")
         g = torch.Generator(device=dev).manual_seed(2)
         qb, kb, vb = (torch.randn((1, 24, s_len, 128), generator=g,
                                   device=dev).to(dt) for _ in range(3))
@@ -1322,7 +1391,7 @@ def serve_device_us(prof):
     for ev in prof.key_averages():
         us = _device_us(ev)
         busy += us
-        if "flash_fwd_kernel" in ev.key:
+        if "flash_fwd" in ev.key:      # split, merge and MMA kernels
             k6 += us
         elif any(k in ev.key.lower() for k in GEMM_KEYS):
             gemm += us
@@ -1557,13 +1626,22 @@ def phase_serve(dev):
     return row, launches
 
 
+def flash_kernels(fn):
+    """The K6 kernels (flash_fwd_*) a card_trace of a few calls holds."""
+    import re
+    return sorted({m.group(0) for key in _trace(fn, 3)
+                   for m in [re.search(r"flash_fwd_\w+", key)] if m})
+
+
 def phase_slice3_timing(dev):
     """CUDA-event and profiler times of K6 at the decode shapes (B=8,
-    NH=24, KH=8, hd=128, bf16, full cache Sk ∈ {512, 4096}) and the causal
-    prefill (B=1, H=24, S=2048), and of K5 at (10, 544, 20) and (1000,
-    2048, 20); their plain versions; SDPA at K6's shapes as the library
-    yardstick (decode: boolean mask, enable_gqa; prefill: is_causal).
-    SDPA is timed only."""
+    NH=24, KH=8, hd=128, bf16, full cache Sk ∈ {512, 4096}), at a serving
+    step (serving_step_inputs) and at the causal prefill (B=1, H=24,
+    S=2048), with the K6 kernels each trace holds, and of K5 at (10, 544,
+    20) and (1000, 2048, 20); their plain versions; SDPA at K6's shapes as
+    the library yardstick (decode: boolean mask, enable_gqa; prefill:
+    is_causal).  SDPA is timed only.  Rows: decode 512, decode 4096,
+    serving step, prefill, K5 small, K5 large."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash import kernel as FK
@@ -1572,9 +1650,12 @@ def phase_slice3_timing(dev):
     from repro_torch.kernels.kvp import kernel as VK
     from repro_torch.kernels.kvp.ref import kvp_ref
     rows = []
-    for sk in (512, 4096):
-        q, k, v, qp, kp = full_cache_inputs(dev, 8, sk, 24, 8, 128,
-                                            torch.bfloat16, seed=sk)
+    for sk in (512, 4096, "serving"):
+        if sk == "serving":
+            q, k, v, qp, kp = serving_step_inputs(dev, seed=64)
+        else:
+            q, k, v, qp, kp = full_cache_inputs(dev, 8, sk, 24, 8, 128,
+                                                torch.bfloat16, seed=sk)
         mask = position_mask(qp, kp, True, 0)[:, None]       # (B,1,1,Sk)
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
         calls = {
@@ -1582,13 +1663,18 @@ def phase_slice3_timing(dev):
             "flash_plain": lambda: flash_attention_fwd_ref(q, k, v, qp, kp),
             "flash_sdpa": lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, enable_gqa=True)}
-        row = dict(shape=f"decode B=8 Sk={sk}")
+        row = dict(shape=(f"decode B=8 Sk={sk}" if sk != "serving" else
+                          "serving step B=8 Sk=512 positions 64-104"))
         for key, fn in calls.items():
             row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(
                 fn, 50)
             row[f"{key}_call_ms"] = cuda_time_ms(fn, 50)
         row["flash_bound_ms"], row["flash_bound_by"] = flash_bound_ms(
             *flash_cost(q, k, qp, kp))
+        row["flash_kernels"] = flash_kernels(calls["flash"])
+        check(row["flash_kernels"] == ["flash_fwd_merge_kernel",
+                                       "flash_fwd_split_kernel"],
+              f"{row['shape']}: K6 ran {row['flash_kernels']}")
         rows.append(row)
         log("[timing] " + json.dumps(row))
     g = torch.Generator(device=dev).manual_seed(4)
@@ -1608,6 +1694,9 @@ def phase_slice3_timing(dev):
         row[f"{key}_call_ms"] = cuda_time_ms(fn, 10)
     row["flash_bound_ms"], row["flash_bound_by"] = flash_bound_ms(
         *flash_cost(qt, kt, pos, pos))
+    row["flash_kernels"] = flash_kernels(calls["flash"])
+    check(row["flash_kernels"] == ["flash_fwd_mma_kernel"],
+          f"causal prefill: K6 ran {row['flash_kernels']}")
     rows.append(row)
     log("[timing] " + json.dumps(row))
     for q, n, d, iters in ((10, 544, 20, 200), (1000, 2048, 20, 20)):
@@ -1693,13 +1782,14 @@ def main() -> int:
             "bound_ms": row[f"{key}_bound_ms"],
             "bound_by": row[f"{key}_bound_by"], "library_ms": None,
             "ms_from": row[f"{key}_ms_from"]})
-    # the serving path's shape: decode, 8 slots, a 512-slot cache, bf16;
-    # the kvp path's: q = B = 10 at n = 544, D = 20
+    # the serving path's shape: a decode step, 8 slots at positions
+    # 64–104 of a 512-slot bf16 cache; the kvp path's: q = B = 10 at
+    # n = 544, D = 20
     for name, key, row, src, replaces, lib in (
-            ("kvp_fwd", "kvp", timing3[3],
+            ("kvp_fwd", "kvp", timing3[4],
              "src/repro_torch/kernels/kvp/csrc/kvp.cu",
              "src/repro/kernels/kvp/kernel.py:47", None),
-            ("flash_attention_fwd", "flash", timing3[0],
+            ("flash_attention_fwd", "flash", timing3[2],
              "src/repro_torch/kernels/flash/csrc/flash.cu",
              "src/repro/kernels/flash/kernel.py:82", "flash_sdpa")):
         kernels.append({

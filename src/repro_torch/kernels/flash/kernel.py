@@ -1,16 +1,20 @@
 """CUDA flash attention (forward): build, binding, wrappers.
 
 ``csrc/flash.cu`` holds K6 ``flash_attention_fwd`` (see its header for
-what it replaces, what bounds it and why it looks as it does).  It is
-built with the port's other kernels into one library at first use
-(``kernels/_build.py``); nothing is built at import.
+what it replaces, what bounds each of its two paths and why they look as
+they do).  It is built with the port's other kernels into one library at
+first use (``kernels/_build.py``); nothing is built at import.
 
+* :func:`plan` — which path a call takes and how many cache slots a block
+  of the split path owns, from the shapes alone (the one source of truth;
+  the C entry takes its answer and recomputes nothing).
 * :func:`flash_attention_fwd` — the wrapper: position-masked GQA attention
   over (B, S, heads, hd) tensors.  It takes the plain version (``ref.py``)
   for tensors on the CPU, and only for those.  For CUDA tensors it checks
-  device, dtype, shape, contiguity and alignment, allocates the output,
-  launches on the current stream, raises if the launch fails, and adds one
-  to its launch count.
+  device, dtype, shape, contiguity and alignment, allocates the output and
+  the split path's scratch, launches on the current stream (one C call:
+  the split and merge kernels, or the MMA kernel), raises if the launch
+  fails, and adds one to its launch count.
 * :func:`attention` — the same function as an autograd op whose backward
   raises (training is a later slice of the port, ROADMAP A12): the LM's
   attention, with and without its KV cache.
@@ -21,7 +25,7 @@ built with the port's other kernels into one library at first use
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,6 +38,13 @@ Tensor = torch.Tensor
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PATHS = {"split": 0, "mma": 1}
+
+SPLIT_LEN = 64                   # least cache slots a split-path block owns
+MAX_SPLIT_LEN = 1024             # most (the C entry's limit)
+SPLITS = 8                       # splits a (batch row, KV head) aims at
+MMA_ROWS = 64                    # (query, group head) rows of one wgmma M
+MMA_HEAD_DIMS = (64, 128)
 
 # launches of K6; read and reset by callers that must show the main path
 # went through the kernel (chip_smoke.py, ServeEngine stats)
@@ -41,7 +52,39 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 declare("flash_attention_fwd",
-        [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P], _I)
+        [_P] * 7 + [_I] * 9 + [ctypes.c_float, _I, _I, _P], _I)
+
+
+def plan(dtype: torch.dtype, sq: int, nh: int, kh: int, hd: int,
+         sk: int) -> Tuple[str, int]:
+    """(path, split_len) of a K6 call.  ``"mma"`` (the tensor cores; a
+    block walks the whole cache, split_len 0) for bfloat16 with Sq·G ≥ 64
+    rows and hd ∈ {64, 128}; otherwise ``"split"``: blocks of split_len
+    consecutive cache slots and a fixed-order merge (decode steps, small
+    chunks, every float32 call).  split_len is the power of two that
+    spreads the cache over about SPLITS blocks, within [SPLIT_LEN,
+    MAX_SPLIT_LEN]: 64 at Sk=512, 512 at Sk=4096, the best of 64–512 at
+    both on the H100 (PERF.md).  It reads its arguments only, never B or
+    the positions, so a batch row computes the same alone and in a
+    batch."""
+    if (dtype == torch.bfloat16 and sq * (nh // kh) >= MMA_ROWS
+            and hd in MMA_HEAD_DIMS):
+        return "mma", 0
+    per_split = -(-sk // SPLITS)
+    split_len = 1 << max(0, per_split - 1).bit_length()
+    return "split", min(MAX_SPLIT_LEN, max(SPLIT_LEN, split_len))
+
+
+def plan_of(q: Tensor, k: Tensor) -> Tuple[str, int]:
+    """:func:`plan` of a call with q (B, Sq, NH, hd) and k (B, Sk, KH, hd)."""
+    _, sq, nh, hd = q.shape
+    return plan(q.dtype, sq, nh, k.shape[2], hd, k.shape[1])
+
+
+def n_splits(sk: int, split_len: int) -> int:
+    """Blocks a (batch row, KV head) spreads its cache over: ceil(Sk /
+    split_len), at least 1; 1 on the MMA path (split_len 0)."""
+    return max(1, -(-sk // split_len)) if split_len else 1
 
 
 def reset_launch_counts() -> None:
@@ -88,13 +131,20 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     scale = hd ** -0.5 if scale is None else float(scale)
+    path, split_len = plan_of(q, k)
     out = torch.empty_like(q)
+    # split path: per (row, split) partials m, l and acc[hd], in float32
+    scratch = (torch.empty(b * sq * nh * n_splits(sk, split_len) * (hd + 2),
+                           dtype=torch.float32, device=dev)
+               if path == "split" else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(), b, sq, sk, nh, kh, hd,
-            _DTYPES[q.dtype], int(causal), int(window or 0), scale, stream)
+            kv_pos.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, sq, sk, nh,
+            kh, hd, _DTYPES[q.dtype], int(causal), int(window or 0), scale,
+            _PATHS[path], split_len, stream)
     check_launch("flash_attention_fwd", err)
     LAUNCHES["flash_attention_fwd"] += 1
     return out

@@ -306,12 +306,77 @@ def test_flash_kernel_matches_plain_version_on_card(cuda, b, sk, nh, kh, hd,
     assert torch.equal(alone[0], out[0])              # row independence
 
 
+def assert_flash_matches_plain(inputs, causal=True, window=0):
+    """K6 against its plain version on ``inputs``: rows that see a key
+    within the limit, rows that see none exactly 0, row 0 alone bitwise."""
+    out = FK.flash_attention_fwd(*inputs, causal=causal, window=window)
+    ref = flash_attention_fwd_ref(*inputs, causal=causal, window=window)
+    alone = FK.flash_attention_fwd(*(t[:1].contiguous() for t in inputs),
+                                   causal=causal, window=window)
+    torch.cuda.synchronize()
+    seen = position_mask(inputs[3], inputs[4], causal, window).any(-1)
+    assert_flash_close(out[seen], ref[seen])
+    assert not out[~seen].any()
+    assert torch.equal(alone[0], out[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk", [513, 4095])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_cache_not_a_multiple_of_the_split(cuda, sk, dtype):
+    """The last split of each (row, KV head) holds fewer keys than the
+    others."""
+    inputs = serving_inputs(8, sk, 24, 8, 128, dtype, cuda, seed=sk)
+    assert FK.n_splits(sk, FK.plan_of(inputs[0], inputs[1])[1]) > 1
+    assert_flash_matches_plain(inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_split_edges_on_card(cuda, window, dtype):
+    """Row 0 sees keys of one split only (slots 70..110 of 512, splits of
+    64), row 1 of the first split only, row 2 (a live query) no key in
+    any split, row 3's keys end mid-split; the merge takes them all."""
+    q, k, v, q_pos, kv_pos = serving_inputs(6, 512, 6, 2, 64, dtype, cuda,
+                                            seed=21)
+    kv_pos[:4] = -1
+    kv_pos[0, 70:111] = torch.arange(41, dtype=torch.int32)
+    kv_pos[1, :31] = torch.arange(31, dtype=torch.int32)
+    kv_pos[3, :300] = torch.arange(300, dtype=torch.int32)
+    q_pos[:4, 0] = torch.tensor([40, 30, 100, 299], dtype=torch.int32)
+    assert FK.plan_of(q, k) == ("split", 64)
+    assert_flash_matches_plain((q, k, v, q_pos, kv_pos), window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sq,nh,kh", [(63, 2, 2), (64, 2, 2), (65, 2, 2),
+                                      (21, 6, 2), (22, 6, 2)])
+def test_flash_rows_around_the_mma_threshold(cuda, hd, sq, nh, kh):
+    """bf16 chunks of Sq·G = 63 / 64 / 65 rows (G=1) and 63 / 66 (G=3)
+    continuing a cache of 40 positions: split path below 64 rows, the
+    MMA path from 64 on, both within the limit."""
+    g = torch.Generator(device=cuda).manual_seed(sq * hd + nh)
+    sk = 40 + sq
+    q, k, v = (torch.randn(sh, generator=g, device=cuda).to(torch.bfloat16)
+               for sh in ((2, sq, nh, hd), (2, sk, kh, hd), (2, sk, kh, hd)))
+    q_pos = (40 + torch.arange(sq, dtype=torch.int32, device=cuda)).expand(
+        2, sq).contiguous()
+    kv_pos = torch.arange(sk, dtype=torch.int32, device=cuda).expand(
+        2, sk).contiguous()
+    assert FK.plan_of(q, k)[0] == ("mma" if sq * nh // kh >= 64 else "split")
+    assert_flash_matches_plain((q, k, v, q_pos, kv_pos))
+    assert_flash_matches_plain((q, k, v, q_pos, kv_pos), window=24)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,dtype", [(512, torch.float32),
-                                     (1024, torch.bfloat16)])
+                                     (1024, torch.bfloat16),
+                                     (2048, torch.bfloat16)])
 def test_causal_prefill_flash_matches_plain_on_card(cuda, s, dtype):
     """Many rows a block, the causal tile skip and hd=128 at llama's 24
-    heads."""
+    heads; bf16 through the MMA path."""
     g = torch.Generator(device=cuda).manual_seed(s)
     q, k, v = (torch.randn((1, 24, s, 128), generator=g, device=cuda).to(
         dtype) for _ in range(3))

@@ -7,6 +7,9 @@ Inputs are drawn with numpy and handed to both packages (bf16 inputs are
 rounded from the same float32 values on both sides).  Tolerances are those
 of the JAX package's own flash test: 2e-5 in float32, 2e-2 in bfloat16.
 """
+import inspect
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -148,3 +151,53 @@ def test_wrapper_takes_the_plain_version_on_cpu_and_has_no_backward():
     qg = q.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="A12"):
         K.attention(qg, k, v, qp, kp).sum().backward()
+
+
+# ------------------------------------------------- K6's launch plan (plan())
+@pytest.mark.parametrize("sq,nh,kh,hd,sk", [
+    (1, 24, 8, 128, 512), (1, 24, 8, 128, 4096), (16, 4, 2, 32, 256),
+    (64, 2, 2, 64, 104), (2048, 24, 24, 128, 2048), (22, 6, 2, 128, 62)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plan_ignores_batch_and_positions(sq, nh, kh, hd, sk, dtype):
+    """The plan is a function of (dtype, Sq, NH, KH, hd, Sk) alone: the
+    wrapper's call for a batch of 8 and for its row 0 alone take the same
+    path and split length, and neither B nor the positions is an argument,
+    so row 0 computes the same alone and in the batch."""
+    dt = getattr(torch, dtype)
+    q = torch.zeros((8, sq, nh, hd), dtype=dt)
+    k = torch.zeros((8, sk, kh, hd), dtype=dt)
+    assert K.plan_of(q, k) == K.plan_of(q[:1], k[:1]) == K.plan(
+        dt, sq, nh, kh, hd, sk)
+    assert list(inspect.signature(K.plan).parameters) == [
+        "dtype", "sq", "nh", "kh", "hd", "sk"]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("rows", [1, 3, 63, 64, 65, 66, 192])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plan_takes_the_mma_path_only_for_bf16_with_64_rows(hd, rows, dtype):
+    """"mma" exactly for bfloat16 with Sq·G ≥ 64 and hd ∈ {64, 128};
+    "split" otherwise (every float32 call, decode steps, small chunks)."""
+    for g in (1, 3):
+        if rows % g:
+            continue
+        path, split_len = K.plan(getattr(torch, dtype), rows // g, 2 * g, 2,
+                                 hd, 300)
+        mma = dtype == "bfloat16" and rows >= 64 and hd in (64, 128)
+        assert path == ("mma" if mma else "split")
+        assert (split_len == 0) == mma
+
+
+@pytest.mark.parametrize("sk", [0, 1, 63, 64, 65, 512, 513, 4095, 4096,
+                                8192, 20000])
+def test_split_count_covers_the_cache(sk):
+    """Split count = ceil(Sk / split_len) (at least 1); split_len is a
+    multiple of the 32-key tile within [64, 1024], the most keys of a
+    split the C entry takes."""
+    path, split_len = K.plan(torch.bfloat16, 1, 24, 8, 128, sk)
+    assert path == "split"
+    assert split_len % 32 == 0 and 64 <= split_len <= 1024
+    n = K.n_splits(sk, split_len)
+    assert n == max(1, math.ceil(sk / split_len))
+    assert (n - 1) * split_len < max(sk, 1) <= n * split_len
+    assert K.n_splits(sk, 0) == 1                      # the MMA path
