@@ -45,8 +45,9 @@ Slice 3 adds, in the same run:
               cache (split path, f32; MMA path, bf16), bf16 rows Sq·G ∈
               {63, 64, 65} at G=1 and {63, 66} at G=3 around the MMA
               threshold at hd ∈ {64, 128}, and a causal prefill through
-              flash_attention_bhsd (H=24, hd=128: S=512 in f32, S=2048
-              in bf16 on the MMA path), with row independence bitwise;
+              flash_attention_bhsd (H=24, hd=128: S=512 and 2048 in
+              f32 as one split, S=2048 in bf16 on the MMA path), with
+              row independence bitwise;
               bf16 within one bf16 ulp of each entry; K5 kvp_fwd at the
               Pallas test shapes, (10, 544, 20) and (1000, 2048, 20)
   - kvp       gp_mean_kvp on the fused ask's fitted state (K5 launches)
@@ -1279,10 +1280,13 @@ def phase_flash_kernels(dev, err):
     check_flash("prefill chunk Sq=16 over a cache, window 24",
                 (qc, k, v, q_pos, kv_pos), err, window=24)
     # causal prefill: the causal tile skip and hd=128; bf16 on the MMA path
-    for s_len, dt in ((512, torch.float32), (2048, torch.bfloat16)):
-        check(FK.plan(dt, s_len, 24, 24, 128, s_len)[0]
-              == ("mma" if dt == torch.bfloat16 else "split"),
-              f"causal prefill S={s_len} {dt}: unexpected path")
+    # f32: one split of the whole cache, two spans of positions at S=2048
+    for s_len, dt in ((512, torch.float32), (2048, torch.float32),
+                      (2048, torch.bfloat16)):
+        path, split_len = FK.plan(dt, s_len, 24, 24, 128, s_len)
+        check((path, FK.n_splits(s_len, split_len))
+              == (("mma", 1) if dt == torch.bfloat16 else ("split", 1)),
+              f"causal prefill S={s_len} {dt}: unexpected plan")
         g = torch.Generator(device=dev).manual_seed(2)
         qb, kb, vb = (torch.randn((1, 24, s_len, 128), generator=g,
                                   device=dev).to(dt) for _ in range(3))

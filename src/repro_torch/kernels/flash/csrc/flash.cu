@@ -38,16 +38,19 @@
 //  * flash_fwd_split_kernel: a block owns one (batch row, KV head, split of
 //    split_len consecutive cache slots) and up to kRows = 16 of its rows
 //    (a decode step has G = 3), so the grid is nsplit × row chunks × B·KH
-//    (plan() aims at 8 splits: 512 blocks at B=8, Sk=512).  It reads the
-//    split's positions once, votes which 32-key tiles some row sees, and
-//    streams only those through a ring of kStages shared-memory stages
-//    filled by 16-byte cp.async copies in the input type (bf16 stays bf16):
-//    the next tile is in flight while this one is computed.  Rows are
-//    padded by 16 bytes so the lanes' 16-byte reads of different key rows
-//    hit different banks.  Each warp owns rows warp + 4r; each lane owns
-//    one key for the score (a dot over hd in order) and hd/32 consecutive
-//    output dimensions for P·V.  Every (row, split) writes its float32 partial (m, l, acc[hd]) to
-//    scratch, m = -1e30 and l = acc = 0 if no tile of it was visible.
+//    (plan() aims at 8 splits for up to 16 rows: 512 blocks at B=8,
+//    Sk=512; past 16 rows the row chunks fill the grid and the cache is
+//    one split, so the scratch stays about the output's size).  It reads
+//    the split's positions once, kSpan at a time, votes which 32-key tiles
+//    some row sees, and streams only those through a ring of kStages
+//    shared-memory stages filled by 16-byte cp.async copies in the input
+//    type (bf16 stays bf16): the next tile is in flight while this one is
+//    computed.  Rows are padded by 16 bytes so the lanes' 16-byte reads of
+//    different key rows hit different banks.  Each warp owns rows warp +
+//    4r; each lane owns one key for the score (a dot over hd in order) and
+//    hd/32 consecutive output dimensions for P·V.  Every (row, split)
+//    writes its float32 partial (m, l, acc[hd]) to scratch, m = -1e30 and
+//    l = acc = 0 if no tile of it was visible.
 //  * flash_fwd_merge_kernel: one warp per row combines the splits in split
 //    order: M = max m_s, L = Σ exp(m_s - M) l_s, out = Σ exp(m_s - M) acc_s
 //    / (L == 0 ? 1 : L).  No atomics anywhere; a row with no visible key in
@@ -106,8 +109,8 @@ constexpr int kTileK = 32;               // keys per tile: one per lane
 constexpr int kRowsPerWarp = 4;
 constexpr int kRows = kWarps * kRowsPerWarp;  // rows a block
 constexpr int kStages = 2;
-constexpr int kMaxSplit = 1024;         // most keys a split (its positions
-                                         // are staged in shared memory)
+constexpr int kSpan = 1024;             // keys whose positions a block
+                                         // stages in shared memory at once
 
 // MMA path
 constexpr int kMmaRows = 64;             // one wgmma M
@@ -259,9 +262,10 @@ struct SplitSmem {
   static constexpr int kQBytes = kRows * HD * 4;
   static constexpr int kRingBytes = kStages * 2 * kTileBytes;
   static size_t bytes(int split_len) {
-    // q rows, K/V ring, the split's positions, tile flags and list, the
+    // q rows, K/V ring, a span's positions, tile flags and list, the
     // rows' positions and the block range
-    return kQBytes + kRingBytes + 4 * (split_len + 2 * (split_len / kTileK)
+    const int span = split_len < kSpan ? split_len : kSpan;
+    return kQBytes + kRingBytes + 4 * (span + 2 * (span / kTileK)
                                        + kRows + 2 * kWarps + 1);
   }
 };
@@ -283,10 +287,11 @@ flash_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);                  // [kRows][HD]
   unsigned char* ring = smem + S::kQBytes;                     // [stage][K|V]
-  int* kps = reinterpret_cast<int*>(ring + S::kRingBytes);     // [split_len]
-  int* flags = kps + split_len;
-  int* list = flags + split_len / kTileK;
-  int* qps = list + split_len / kTileK;                        // [kRows]
+  int* kps = reinterpret_cast<int*>(ring + S::kRingBytes);     // [span]
+  const int span = min(split_len, kSpan);
+  int* flags = kps + span;
+  int* list = flags + span / kTileK;
+  int* qps = list + span / kTileK;                             // [kRows]
   int* qlim = qps + kRows;
   int* nvis_s = qlim + 2 * kWarps;
 
@@ -298,7 +303,6 @@ flash_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nlive = min(kRows, nrows - row0);
   const int key0 = split * split_len;
   const int nkeys = max(0, min(split_len, sk - key0));
-  const int ntiles = (nkeys + kTileK - 1) / kTileK;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   for (int idx = threadIdx.x; idx < nlive * HD; idx += kThreads) {
@@ -308,21 +312,9 @@ flash_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (threadIdx.x < nlive)
     qps[threadIdx.x] = q_pos[(size_t)b * sq + (row0 + threadIdx.x) / g];
-  for (int j = threadIdx.x; j < ntiles * kTileK; j += kThreads)
-    kps[j] = j < nkeys ? kv_pos[(size_t)b * sk + key0 + j] : -1;
   __syncthreads();
-
   int lo, hi;
   block_range(qps, nlive, qlim, lo, hi);
-  for (int t = warp; t < ntiles; t += kWarps) {
-    const bool any = __any_sync(
-        kFull, maybe_visible(kps[t * kTileK + lane], lo, hi, causal, window));
-    if (lane == 0) flags[t] = any;
-  }
-  __syncthreads();
-  compact(flags, ntiles, list, nvis_s);
-  __syncthreads();
-  const int nvis = *nvis_s;
 
   bool live[kRowsPerWarp];
   int qp[kRowsPerWarp];
@@ -344,68 +336,89 @@ flash_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t key_stride = (size_t)kh * HD;
   const size_t src0 = ((size_t)b * sk + key0) * key_stride + (size_t)kvh * HD + part * kVec;
   const uint32_t dst0 = smem_u32(ring) + j0 * S::kRowBytes + part * 16;
-  // tile i of the list into stage i % kStages; always one commit group
-  auto issue = [&](int i) {
-    if (i < nvis) {
-      const int t0 = list[i] * kTileK;
-      const uint32_t dst = dst0 + (i % kStages) * 2 * S::kTileBytes;
-#pragma unroll
-      for (int it = 0; it < kTileK / kStep; ++it) {
-        const int j = j0 + it * kStep;
-        const bool valid = t0 + j < nkeys;
-        const size_t off = valid ? src0 + (size_t)(t0 + j) * key_stride : 0;
-        const uint32_t d = dst + it * kStep * S::kRowBytes;
-        cp_async16(d, k + off, valid);
-        cp_async16(d + S::kTileBytes, v + off, valid);
-      }
+
+  // The split's keys in order, kSpan at a time (one span unless split_len
+  // > kSpan): the span's positions, the vote, then its visible tiles.
+  for (int c0 = 0; c0 < nkeys; c0 += kSpan) {
+    const int ckeys = min(kSpan, nkeys - c0);
+    const int ntiles = (ckeys + kTileK - 1) / kTileK;
+    __syncthreads();                     // the last span's smem is read
+    for (int j = threadIdx.x; j < ntiles * kTileK; j += kThreads)
+      kps[j] = j < ckeys ? kv_pos[(size_t)b * sk + key0 + c0 + j] : -1;
+    __syncthreads();
+    for (int t = warp; t < ntiles; t += kWarps) {
+      const bool any = __any_sync(
+          kFull, maybe_visible(kps[t * kTileK + lane], lo, hi, causal, window));
+      if (lane == 0) flags[t] = any;
     }
-    cp_async_commit();
-  };
+    __syncthreads();
+    compact(flags, ntiles, list, nvis_s);
+    __syncthreads();
+    const int nvis = *nvis_s;
+
+    // tile i of the list into stage i % kStages; always one commit group
+    auto issue = [&](int i) {
+      if (i < nvis) {
+        const int t0 = c0 + list[i] * kTileK;
+        const uint32_t dst = dst0 + (i % kStages) * 2 * S::kTileBytes;
+#pragma unroll
+        for (int it = 0; it < kTileK / kStep; ++it) {
+          const int j = j0 + it * kStep;
+          const bool valid = t0 + j < nkeys;
+          const size_t off = valid ? src0 + (size_t)(t0 + j) * key_stride : 0;
+          const uint32_t d = dst + it * kStep * S::kRowBytes;
+          cp_async16(d, k + off, valid);
+          cp_async16(d + S::kTileBytes, v + off, valid);
+        }
+      }
+      cp_async_commit();
+    };
 
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) issue(i);
-  for (int i = 0; i < nvis; ++i) {
-    cp_async_wait<kStages - 2>();        // tile i has landed (this thread's part)
-    __syncthreads();                     // ... everyone's; stage i-1 is free
-    issue(i + kStages - 1);
-    const unsigned char* st = ring + (i % kStages) * 2 * S::kTileBytes;
-    const T* kt = reinterpret_cast<const T*>(st + lane * S::kRowBytes);
-    const int kp = kps[list[i] * kTileK + lane];
+    for (int i = 0; i < kStages - 1; ++i) issue(i);
+    for (int i = 0; i < nvis; ++i) {
+      cp_async_wait<kStages - 2>();      // tile i has landed (this thread's part)
+      __syncthreads();                   // ... everyone's; stage i-1 is free
+      issue(i + kStages - 1);
+      const unsigned char* st = ring + (i % kStages) * 2 * S::kTileBytes;
+      const T* kt = reinterpret_cast<const T*>(st + lane * S::kRowBytes);
+      const int kp = kps[list[i] * kTileK + lane];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      if (!live[r]) continue;            // uniform across the warp
-      const float* qrow = qs + (warp + kWarps * r) * HD;
-      const bool ok = visible(kp, qp[r], causal, window);
-      float s = 0.f;
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        if (!live[r]) continue;          // uniform across the warp
+        const float* qrow = qs + (warp + kWarps * r) * HD;
+        const bool ok = visible(kp, qp[r], causal, window);
+        float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        float kf[kVec];
-        Elem<T>::unpack(*reinterpret_cast<const uint4*>(kt + c * kVec), kf);
+        for (int c = 0; c < kChunks; ++c) {
+          float kf[kVec];
+          Elem<T>::unpack(*reinterpret_cast<const uint4*>(kt + c * kVec), kf);
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) s = fmaf(qrow[c * kVec + e], kf[e], s);
-      }
-      s = ok ? __fmul_rn(s, scale) : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(s));
-      const float p = ok ? expf(__fsub_rn(s, m_new)) : 0.f;
-      const float corr = expf(__fsub_rn(m[r], m_new));
-      l[r] = __fadd_rn(__fmul_rn(corr, l[r]), warp_sum(p));
-      float pv[kPer];
+          for (int e = 0; e < kVec; ++e) s = fmaf(qrow[c * kVec + e], kf[e], s);
+        }
+        s = ok ? __fmul_rn(s, scale) : kNegInf;
+        const float m_new = fmaxf(m[r], warp_max(s));
+        const float p = ok ? expf(__fsub_rn(s, m_new)) : 0.f;
+        const float corr = expf(__fsub_rn(m[r], m_new));
+        l[r] = __fadd_rn(__fmul_rn(corr, l[r]), warp_sum(p));
+        float pv[kPer];
 #pragma unroll
-      for (int t = 0; t < kPer; ++t) pv[t] = 0.f;
+        for (int t = 0; t < kPer; ++t) pv[t] = 0.f;
 #pragma unroll 8
-      for (int j = 0; j < kTileK; ++j) {
-        const float pj = __shfl_sync(kFull, p, j);
-        const T* vrow = reinterpret_cast<const T*>(st + S::kTileBytes + j * S::kRowBytes);
+        for (int j = 0; j < kTileK; ++j) {
+          const float pj = __shfl_sync(kFull, p, j);
+          const T* vrow = reinterpret_cast<const T*>(st + S::kTileBytes + j * S::kRowBytes);
 #pragma unroll
-        for (int t = 0; t < kPer; ++t)
-          pv[t] = fmaf(pj, Elem<T>::to_f32(vrow[lane * kPer + t]), pv[t]);
+          for (int t = 0; t < kPer; ++t)
+            pv[t] = fmaf(pj, Elem<T>::to_f32(vrow[lane * kPer + t]), pv[t]);
+        }
+#pragma unroll
+        for (int t = 0; t < kPer; ++t) acc[r][t] = __fadd_rn(__fmul_rn(corr, acc[r][t]), pv[t]);
+        m[r] = m_new;
       }
-#pragma unroll
-      for (int t = 0; t < kPer; ++t) acc[r][t] = __fadd_rn(__fmul_rn(corr, acc[r][t]), pv[t]);
-      m[r] = m_new;
     }
+    cp_async_wait<0>();                  // nothing in flight past the span
   }
-  cp_async_wait<0>();                    // nothing left in flight at exit
 
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -886,8 +899,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     if (hd == 128) return launch_mma<128>(a);
     return cudaErrorInvalidValue;
   }
-  if (path != 0 || split_len < kTileK || split_len > kMaxSplit ||
-      split_len % kTileK != 0 || scratch == nullptr)
+  if (path != 0 || split_len < kTileK || split_len % kTileK != 0 ||
+      scratch == nullptr)
     return cudaErrorInvalidValue;
   if (dtype == 0) return launch_split_type<float>(a, hd);
   if (dtype == 1) return launch_split_type<__nv_bfloat16>(a, hd);

@@ -15,6 +15,8 @@ first use (``kernels/_build.py``); nothing is built at import.
   the split path's scratch, launches on the current stream (one C call:
   the split and merge kernels, or the MMA kernel), raises if the launch
   fails, and adds one to its launch count.
+* :func:`enqueue` — the wrapper past its checks, for a given plan: the
+  allocations and the one C call.
 * :func:`attention` — the same function as an autograd op whose backward
   raises (training is a later slice of the port, ROADMAP A12): the LM's
   attention, with and without its KV cache.
@@ -25,6 +27,7 @@ first use (``kernels/_build.py``); nothing is built at import.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -40,9 +43,11 @@ HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"split": 0, "mma": 1}
 
-SPLIT_LEN = 64                   # least cache slots a split-path block owns
-MAX_SPLIT_LEN = 1024             # most (the C entry's limit)
-SPLITS = 8                       # splits a (batch row, KV head) aims at
+TILE_KEYS = 32                   # keys of a split-path tile
+SPLIT_ROWS = 16                  # (query, group head) rows of a split block
+SPLIT_LEN = 64                   # least cache slots a decode split owns
+MAX_SPLIT_LEN = 1024             # most
+SPLITS = 8                       # splits a decode (row, KV head) aims at
 MMA_ROWS = 64                    # (query, group head) rows of one wgmma M
 MMA_HEAD_DIMS = (64, 128)
 
@@ -55,21 +60,26 @@ declare("flash_attention_fwd",
         [_P] * 7 + [_I] * 9 + [ctypes.c_float, _I, _I, _P], _I)
 
 
+@functools.lru_cache(maxsize=1024)
 def plan(dtype: torch.dtype, sq: int, nh: int, kh: int, hd: int,
          sk: int) -> Tuple[str, int]:
     """(path, split_len) of a K6 call.  ``"mma"`` (the tensor cores; a
     block walks the whole cache, split_len 0) for bfloat16 with Sq·G ≥ 64
     rows and hd ∈ {64, 128}; otherwise ``"split"``: blocks of split_len
     consecutive cache slots and a fixed-order merge (decode steps, small
-    chunks, every float32 call).  split_len is the power of two that
-    spreads the cache over about SPLITS blocks, within [SPLIT_LEN,
-    MAX_SPLIT_LEN]: 64 at Sk=512, 512 at Sk=4096, the best of 64–512 at
-    both on the H100 (PERF.md).  It reads its arguments only, never B or
-    the positions, so a batch row computes the same alone and in a
-    batch."""
-    if (dtype == torch.bfloat16 and sq * (nh // kh) >= MMA_ROWS
-            and hd in MMA_HEAD_DIMS):
+    chunks, every float32 call).  With more than SPLIT_ROWS rows the row
+    blocks fill the grid and the cache is one split (scratch of about the
+    output's size).  Otherwise split_len is the power of two that spreads
+    the cache over about SPLITS blocks, within [SPLIT_LEN, MAX_SPLIT_LEN]:
+    64 at Sk=512 and 512 at Sk=4096, the fastest of 32–1024 and one split
+    at both on the H100 (``flash_ab.py``; readings in PERF.md).  It reads
+    its arguments only, never B or the positions, so a batch row computes
+    the same alone and in a batch."""
+    rows = sq * (nh // kh)
+    if dtype == torch.bfloat16 and rows >= MMA_ROWS and hd in MMA_HEAD_DIMS:
         return "mma", 0
+    if rows > SPLIT_ROWS:
+        return "split", max(TILE_KEYS, -(-sk // TILE_KEYS) * TILE_KEYS)
     per_split = -(-sk // SPLITS)
     split_len = 1 << max(0, per_split - 1).bit_length()
     return "split", min(MAX_SPLIT_LEN, max(SPLIT_LEN, split_len))
@@ -131,22 +141,34 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     scale = hd ** -0.5 if scale is None else float(scale)
-    path, split_len = plan_of(q, k)
+    with torch.cuda.device(dev):
+        out = enqueue(_lib().flash_attention_fwd, q, k, v, q_pos, kv_pos,
+                      causal, window, scale, *plan_of(q, k))
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out
+
+
+def enqueue(entry, q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+            kv_pos: Tensor, causal: bool, window: Optional[int],
+            scale: float, path: str, split_len: int) -> Tensor:
+    """The wrapper past its checks: allocate the output and the split
+    path's scratch, call ``entry`` (the C entry ``flash_attention_fwd``)
+    on the current stream with the given plan, raise if it failed.
+    ``flash_ab.py`` times it with other plans."""
+    b, sq, nh, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     # split path: per (row, split) partials m, l and acc[hd], in float32
     scratch = (torch.empty(b * sq * nh * n_splits(sk, split_len) * (hd + 2),
-                           dtype=torch.float32, device=dev)
+                           dtype=torch.float32, device=q.device)
                if path == "split" else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _lib().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), b, sq, sk, nh,
-            kh, hd, _DTYPES[q.dtype], int(causal), int(window or 0), scale,
-            _PATHS[path], split_len, stream)
+    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+                kv_pos.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), b, sq, sk,
+                nh, kh, hd, _DTYPES[q.dtype], int(causal), int(window or 0),
+                scale, _PATHS[path], split_len,
+                torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention_fwd", err)
-    LAUNCHES["flash_attention_fwd"] += 1
     return out
 
 

@@ -372,11 +372,13 @@ def test_flash_rows_around_the_mma_threshold(cuda, hd, sq, nh, kh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,dtype", [(512, torch.float32),
+                                     (2048, torch.float32),
                                      (1024, torch.bfloat16),
                                      (2048, torch.bfloat16)])
 def test_causal_prefill_flash_matches_plain_on_card(cuda, s, dtype):
     """Many rows a block, the causal tile skip and hd=128 at llama's 24
-    heads; bf16 through the MMA path."""
+    heads; bf16 through the MMA path, f32 through one split of the whole
+    cache (two spans of positions at S=2048)."""
     g = torch.Generator(device=cuda).manual_seed(s)
     q, k, v = (torch.randn((1, 24, s, 128), generator=g, device=cuda).to(
         dtype) for _ in range(3))

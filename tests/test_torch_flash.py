@@ -191,9 +191,9 @@ def test_plan_takes_the_mma_path_only_for_bf16_with_64_rows(hd, rows, dtype):
 @pytest.mark.parametrize("sk", [0, 1, 63, 64, 65, 512, 513, 4095, 4096,
                                 8192, 20000])
 def test_split_count_covers_the_cache(sk):
-    """Split count = ceil(Sk / split_len) (at least 1); split_len is a
-    multiple of the 32-key tile within [64, 1024], the most keys of a
-    split the C entry takes."""
+    """Split count = ceil(Sk / split_len) (at least 1); a decode step's
+    split_len is a multiple of the 32-key tile within [SPLIT_LEN,
+    MAX_SPLIT_LEN] = [64, 1024]."""
     path, split_len = K.plan(torch.bfloat16, 1, 24, 8, 128, sk)
     assert path == "split"
     assert split_len % 32 == 0 and 64 <= split_len <= 1024
@@ -201,3 +201,21 @@ def test_split_count_covers_the_cache(sk):
     assert n == max(1, math.ceil(sk / split_len))
     assert (n - 1) * split_len < max(sk, 1) <= n * split_len
     assert K.n_splits(sk, 0) == 1                      # the MMA path
+
+
+@pytest.mark.parametrize("sq,nh,kh,hd,sk", [
+    (6, 24, 8, 128, 4096), (17, 2, 2, 64, 300), (64, 4, 4, 32, 2048),
+    (2048, 24, 24, 128, 2048), (512, 24, 24, 128, 32768), (9, 6, 2, 128, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plan_takes_one_split_past_one_row_block(sq, nh, kh, hd, sk, dtype):
+    """A split-path call with more than SPLIT_ROWS (16) rows already has
+    a block per row chunk: one split of whole tiles covers the cache, so
+    the scratch is about the output's size, whatever Sk."""
+    path, split_len = K.plan(getattr(torch, dtype), sq, nh, kh, hd, sk)
+    if path == "mma":
+        assert dtype == "bfloat16" and sq * nh // kh >= 64
+        return
+    assert sq * nh // kh > K.SPLIT_ROWS
+    assert split_len % K.TILE_KEYS == 0 and split_len >= max(sk, 1)
+    assert split_len - K.TILE_KEYS < max(sk, 1)
+    assert K.n_splits(sk, split_len) == 1
