@@ -8,7 +8,10 @@ Phases (any failure exits nonzero; nothing is caught):
               into one library
   2. kernels  hold K1 (matern52_posterior_fwd) and K2
               (matern52_posterior_bwd_xq) against their plain PyTorch
-              versions on the card, and check batch-width independence;
+              versions on the card at n ∈ {32, 33, 512, 513, 2048} (K1's
+              ragged chunks and tiles; q = 1000 walks from n = 513 on),
+              and check batch-width independence bitwise (row 0 alone, in
+              a batch of 10 and in a batch of 1000, across K1's regimes);
               then K3 (matern52_gram_fwd) and K4 (matern52_gram_bwd_theta)
               at n ∈ {32, 544, 2048}, D ∈ {5, 20, 40}, R ∈ {1, 2}, the
               n1 = 1 cross column and _FAR rows
@@ -33,11 +36,13 @@ Phases (any failure exits nonzero; nothing is caught):
   6. timing   device times (profiler; CUDA events where a trace is
               short, marked "events") and CUDA-event call times of K1–K4
               and their plain versions beside the least time the card
-              could take (bound)
+              could take (bound); K1's regime and the device µs of each
+              kernel its trace holds (all in the K1 class)
 Slice 3 adds, in the same run:
   - build     the flash (K6) and kvp (K5) sources join the one library
   - kernels   K6 flash_attention_fwd against its plain version on the
-              Pallas test cases (through flash_attention), GQA decode
+              Pallas test cases (through flash_attention; window 0
+              masks every key, as in the Pallas kernel), GQA decode
               (B=8, NH=24, KH=8, hd=128, Sk ∈ {512, 513, 4095, 4096},
               ragged positions, empty slots, a trash slot, an idle row),
               rows whose keys lie in one split only and a row with no
@@ -48,6 +53,8 @@ Slice 3 adds, in the same run:
               flash_attention_bhsd (H=24, hd=128: S=512 and 2048 in
               f32 as one split, S=2048 in bf16 on the MMA path), with
               row independence bitwise;
+              a recurrentgemma-9b decode at hd=256 (B=8, NH=16, KH=1,
+              Sk=2048, window 2048) in bf16 and f32;
               bf16 within one bf16 ulp of each entry; K5 kvp_fwd at the
               Pallas test shapes, (10, 544, 20) and (1000, 2048, 20)
   - kvp       gp_mean_kvp on the fused ask's fitted state (K5 launches)
@@ -334,39 +341,43 @@ def check_against_plain(gp, q, rng, err, tag):
 
 def check_batch_width(gp, rng, tag):
     """Row 0 alone vs in a batch of 10 that ends with repeated padding rows
-    (as the evaluator pads): bitwise the same outputs."""
+    (as the evaluator pads) vs in a batch of 1000 (K1's walk regime at
+    n ≥ 513): bitwise the same outputs.  Returns K1's regimes."""
     import torch
     from repro_torch.kernels.matern import kernel as K
-    d = gp.x_train.shape[1]
+    n, d = gp.x_train.shape
     args = kernel_args(gp)
-    xq = torch.as_tensor(rng.uniform(0, 1, (7, d))).to(gp.x_train.device)
-    xb = torch.cat([xq, xq[-1:].expand(3, d)], 0).contiguous()
+    xq = torch.as_tensor(rng.uniform(0, 1, (1000, d))).to(gp.x_train.device)
+    xb = torch.cat([xq[:7], xq[6:7].expand(3, d)], 0).contiguous()
     outs = []
-    for x in (xq[:1].contiguous(), xb):
+    for x in (xq[:1].contiguous(), xb, xq):
         m, v, t = K.matern52_posterior_fwd(x, *args)
         ones = torch.ones_like(m)
         g = K.matern52_posterior_bwd_xq(x, args[0], args[1], t, v, args[3],
                                         args[4], ones, -0.5 * ones)
         outs.append((m, v, t, g))
-    for a, b in zip(outs[0], outs[1]):
-        check(torch.equal(a[0], b[0]), f"{tag}: row 0 differs with batch "
-              f"width")
+    for other, q in ((outs[1], 10), (outs[2], 1000)):
+        for a, b in zip(outs[0], other):
+            check(torch.equal(a[0], b[0]), f"{tag}: row 0 differs in a "
+                  f"batch of {q} (K1 {K.plan(q, n, d).regime})")
     for b in outs[1]:
         check(torch.equal(b[6], b[9]), f"{tag}: repeated row differs")
+    return [K.plan(q, n, d).regime for q in (1, 10, 1000)]
 
 
 def phase_kernels(dev):
     import numpy as np
     err = {"fwd": 0.0, "bwd": 0.0}
     rng = np.random.default_rng(7)
-    for n in (32, 512, 2048):
+    for n in (32, 33, 512, 513, 2048):
         for d in (5, 20, 40):
             gp = make_state(n, d, seed=n + d, device=dev)
             for q in (1, 10, 1000):
                 check_against_plain(gp, q, rng, err, f"n={n} D={d} q={q}")
-            check_batch_width(gp, rng, f"n={n} D={d}")
-    log(f"[kernels] batch-width independence: bitwise  max abs err "
-        f"fwd {err['fwd']:.3e} bwd {err['bwd']:.3e}")
+            regimes = check_batch_width(gp, rng, f"n={n} D={d}")
+        log(f"[kernels] n={n}: K1 regimes at q = 1, 10, 1000: {regimes}")
+    log(f"[kernels] batch-width independence (1, 10, 1000): bitwise  max "
+        f"abs err fwd {err['fwd']:.3e} bwd {err['bwd']:.3e}")
     return err
 
 
@@ -374,14 +385,16 @@ def phase_main_shapes(state, buckets, err):
     """K1/K2 against their plain versions on the state the main path's
     last ask evaluated, at every batch bucket its evaluator pads to."""
     import numpy as np
+    from repro_torch.kernels.matern import kernel as K
     gp = state[0]
     n, d = gp.x_train.shape
     rng = np.random.default_rng(17)
     for q in buckets:
         check_against_plain(gp, q, rng, err, f"main state n={n} D={d} q={q}")
     check_batch_width(gp, rng, f"main state n={n} D={d}")
-    log(f"[kernels] main-path shapes (buckets {list(buckets)}): within "
-        f"tolerance, batch width bitwise")
+    log(f"[kernels] main-path shapes (buckets {list(buckets)}, K1 "
+        f"{sorted({K.plan(q, n, d).regime for q in buckets})}): within "
+        f"tolerance, batch width (1, 10, 1000) bitwise")
 
 
 def phase_main(dev):
@@ -895,7 +908,8 @@ def timed_ask(s, obj):
 
 
 DEVICE_CLASSES = (
-    ("k1", ("posterior_fwd_kernel",)),
+    ("k1", ("posterior_fwd_split_kernel", "posterior_fwd_walk_kernel",
+            "posterior_fwd_merge_kernel", "posterior_fwd_merge_walk_kernel")),
     ("k2", ("posterior_bwd_xq_kernel",)),
     ("k3", ("gram_fwd_kernel",)),
     ("k4", ("gram_bwd_partial_kernel", "gram_bwd_reduce_kernel")),
@@ -1019,7 +1033,12 @@ def phase_timing(dev, state):
         fb, fby = bound_ms(*fwd_cost(q, n, d))
         bb, bby = bound_ms(*bwd_cost(q, n, d))
         row.update(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
-                   bwd_bound_by=bby)
+                   bwd_bound_by=bby, fwd_regime=K.plan(q, n, d).regime,
+                   fwd_kernel_us=kernel_us(calls["fwd"], "posterior_fwd",
+                                           iters))
+        check(row["fwd_kernel_us"] and all(
+            k in dict(DEVICE_CLASSES)["k1"] for k in row["fwd_kernel_us"]),
+            f"K1's trace holds {list(row['fwd_kernel_us'])}, not its class")
         rows.append(row)
         log("[timing] " + json.dumps(row))
     return rows
@@ -1064,6 +1083,8 @@ FLASH_CASES = [                   # tests/test_kernels_pallas.py:49-56
     (300, 300, 32, True, 128, "float32"),
     (1, 513, 64, True, None, "float32"),
     (128, 128, 64, True, None, "bfloat16"),
+    (256, 256, 64, True, 0, "float32"),     # window 0: every key masked
+    (128, 384, 64, False, 0, "float32"),    # window 0, not causal
 ]
 FLASH_F32_TOL = 2e-5
 
@@ -1091,7 +1112,7 @@ def flash_err(out, ref, where=None):
     return float(d.max()), bool(ok.all())
 
 
-def flash_cost(q, k, q_pos, kv_pos, causal=True, window=0):
+def flash_cost(q, k, q_pos, kv_pos, causal=True, window=None):
     """(bytes, operations, peak rate) K6 needs on these inputs: q, out and
     the positions once, and the K/V rows some query of their batch row
     sees, once; two products (q·kᵀ, p·v) of 2·hd operations per visible
@@ -1166,7 +1187,7 @@ def full_cache_inputs(dev, b, sk, nh, kh, hd, dtype, seed):
     return q, k, v, q_pos, kv_pos
 
 
-def check_flash(tag, inputs, err, causal=True, window=0):
+def check_flash(tag, inputs, err, causal=True, window=None):
     """K6 against its plain version on the same CUDA tensors; live rows
     within flash_tol, rows with no visible key exactly 0; row independence
     (row 0 alone is bitwise row 0 of the batch)."""
@@ -1218,6 +1239,9 @@ def phase_flash_kernels(dev, err):
         e, ok = flash_err(out, ref)
         case = (sq, sk, h, causal, window, dt)
         check(ok, f"flash case {case}: err {e} over its limit")
+        if causal and window is not None and window <= 0:
+            check(not bool(out.any()), f"flash case {case}: window "
+                  f"{window} must mask every key (the Pallas rule)")
         err["flash"] = max(err["flash"], e)
     log(f"[kernels] flash_attention on the Pallas test cases: within "
         f"{FLASH_F32_TOL:g} (f32) / {FLASH_F32_TOL:g} + 2^-7·|ref| (bf16)")
@@ -1227,6 +1251,12 @@ def phase_flash_kernels(dev, err):
             check_flash(f"decode B=8 NH=24 KH=8 hd=128 Sk={sk} {dt}",
                         decode_inputs(dev, 8, sk, 24, 8, 128,
                                       getattr(torch, dt), seed=sk), err)
+    # recurrentgemma-9b's local attention at a decode step: hd=256 (MQA)
+    for dt in (torch.bfloat16, torch.float32):
+        check_flash(f"decode recurrentgemma-9b B=8 NH=16 KH=1 hd=256 "
+                    f"Sk=2048 window 2048 {str(dt)[6:]}",
+                    decode_inputs(dev, 8, 2048, 16, 1, 256, dt, seed=256),
+                    err, window=2048)
     # split edges (split_len 64 at Sk=512): row 0 sees slots 70..110 only
     # (one split), row 1 slots 0..30, row 2 nothing in any split though
     # its query is live, row 3 ends mid-split; with a window of 16 too
@@ -1238,7 +1268,7 @@ def phase_flash_kernels(dev, err):
         kv_pos[1, :31] = torch.arange(31, dtype=torch.int32)
         kv_pos[3, :300] = torch.arange(300, dtype=torch.int32)
         q_pos[:4, 0] = torch.tensor([40, 30, 100, 299], dtype=torch.int32)
-        for window in (0, 16):
+        for window in (None, 16):
             check_flash(f"split edges {str(dt)[6:]} window {window}",
                         (q, k, v, q_pos, kv_pos), err, window=window)
     # bf16 rows around the MMA threshold (Sq·G = 64), a chunk continuing
@@ -1630,11 +1660,21 @@ def phase_serve(dev):
     return row, launches
 
 
+def kernel_us(fn, prefix, iters=3):
+    """{kernel: device µs a call} of the kernels named ``prefix``* in a
+    card_trace of ``iters`` calls of ``fn``."""
+    import re
+    out = {}
+    for key, (_, us) in _trace(fn, iters).items():
+        m = re.search(prefix + r"\w+", key)
+        if m:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + us / iters
+    return dict(sorted(out.items()))
+
+
 def flash_kernels(fn):
     """The K6 kernels (flash_fwd_*) a card_trace of a few calls holds."""
-    import re
-    return sorted({m.group(0) for key in _trace(fn, 3)
-                   for m in [re.search(r"flash_fwd_\w+", key)] if m})
+    return list(kernel_us(fn, "flash_fwd_"))
 
 
 def phase_slice3_timing(dev):
@@ -1660,7 +1700,7 @@ def phase_slice3_timing(dev):
         else:
             q, k, v, qp, kp = full_cache_inputs(dev, 8, sk, 24, 8, 128,
                                                 torch.bfloat16, seed=sk)
-        mask = position_mask(qp, kp, True, 0)[:, None]       # (B,1,1,Sk)
+        mask = position_mask(qp, kp, True, None)[:, None]       # (B,1,1,Sk)
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
         calls = {
             "flash": lambda: FK.flash_attention_fwd(q, k, v, qp, kp),

@@ -87,7 +87,7 @@ def tree_caller(path, split_len):
 
     def call(q, k, v, qp, kp):
         return FK.enqueue(lib().flash_attention_fwd, q, k, v, qp, kp, True,
-                          0, q.shape[-1] ** -0.5, path, split_len)
+                          None, q.shape[-1] ** -0.5, path, split_len)
     return call
 
 
@@ -165,7 +165,7 @@ def main() -> int:
         # [first quartile, median, third quartile] of each
         row["host_ms"] = {name: statistics.quantiles(t, n=4)
                           for name, t in hosts.items()}
-        mask = position_mask(qp, kp, True, 0)[:, None]
+        mask = position_mask(qp, kp, True, None)[:, None]
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
         if "prefill" in shape:          # as chip_smoke.py times it
             qs, ks, vs = (t.contiguous() for t in (qs, ks, vs))

@@ -12,7 +12,8 @@
 //   row, KV head) are f = query · G + group head.
 //   Key j is seen by query i of batch row b when kv_pos[b,j] >= 0, and
 //   kv_pos[b,j] <= q_pos[b,i] if causal, and kv_pos[b,j] > q_pos[b,i] - w
-//   if w > 0.  The single-head wrappers pass the Pallas kernel's
+//   if a window w is given (any w: w <= 0 with causal hides every key, as
+//   in the Pallas kernel).  The single-head wrappers pass the Pallas kernel's
 //   suffix-aligned positions; the serving path passes its cache's slot
 //   positions (-1 = empty, reset or trash slot).  A query with no visible
 //   key gets 0.
@@ -29,12 +30,14 @@
 // Two paths; the wrapper's plan() (kernel.py) picks one from (dtype, Sq,
 // NH, KH, hd, Sk) alone, never from B or the positions, and passes it in.
 //
-// Split path (decode; every float32 call).  A decode step reads every
-// visible key and value once, 2·B·Sk·KH·hd·2 bytes in bf16 (16.8 MB at B=8,
-// Sk=512, KH=8, hd=128: 5 µs at 3.35 TB/s) for 4·B·NH·Sk·hd operations, so
-// bytes bound it, and at a few hundred keys the latency of a block's chain
-// of loads.  So the cache is spread over many blocks, each with its loads
-// in flight together:
+// Split path (decode; every float32 call; hd 32, 64, 128 or 256: at hd =
+// 256, recurrentgemma-9b's local attention, a block's stage ring takes 133
+// KB in float32 and 68 KB in bf16 of the 227 KB it may use). A decode step
+// reads every visible key and value once, 2·B·Sk·KH·hd·2 bytes in bf16 (16.8
+// MB at B=8, Sk=512, KH=8, hd=128: 5 µs at 3.35 TB/s) for 4·B·NH·Sk·hd
+// operations, so bytes bound it, and at a few hundred keys the latency of a
+// block's chain of loads. So the cache is spread over many blocks, each with
+// its loads in flight together:
 //  * flash_fwd_split_kernel: a block owns one (batch row, KV head, split of
 //    split_len consecutive cache slots) and up to kRows = 16 of its rows
 //    (a decode step has G = 3), so the grid is nsplit × row chunks × B·KH
@@ -103,6 +106,7 @@ constexpr int kThreads = 128;            // 4 warps; the MMA path's warpgroup
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNoWindow = -2147483647 - 1;  // INT_MIN: no window given
 
 // split path
 constexpr int kTileK = 32;               // keys per tile: one per lane
@@ -150,10 +154,11 @@ struct Elem<__nv_bfloat16> {
   }
 };
 
+// `window` is kNoWindow when none is given
 __device__ __forceinline__ bool visible(int kp, int qp, int causal, int window) {
   bool ok = kp >= 0;
   if (causal) ok = ok && kp <= qp;
-  if (window > 0) ok = ok && kp > qp - window;
+  if (window != kNoWindow) ok = ok && (long long)kp > (long long)qp - window;
   return ok;
 }
 
@@ -163,7 +168,7 @@ __device__ __forceinline__ bool maybe_visible(int kp, int lo, int hi,
                                               int causal, int window) {
   bool ok = kp >= 0;
   if (causal) ok = ok && kp <= hi;
-  if (window > 0) ok = ok && (long long)kp > (long long)lo - window;
+  if (window != kNoWindow) ok = ok && (long long)kp > (long long)lo - window;
   return ok;
 }
 
@@ -603,7 +608,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         any = any || maybe_visible(kp[u][h], lo, hi, causal, window);
-        all = all && visible(kp[u][h], lo, causal, 0) && visible(kp[u][h], hi, 0, window);
+        all = all && visible(kp[u][h], lo, causal, kNoWindow) &&
+              visible(kp[u][h], hi, 0, window);
       }
       any = __any_sync(kFull, any);
       all = __all_sync(kFull, all);
@@ -873,13 +879,16 @@ cudaError_t launch_split_type(const Args& a, int hd) {
     case 32: return launch_split<T, 32>(a);
     case 64: return launch_split<T, 64>(a);
     case 128: return launch_split<T, 128>(a);
+    case 256: return launch_split<T, 256>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; window <= 0 means none.  path: 0 =
+// dtype: 0 = float32, 1 = bfloat16; has_window 0 means no window, else
+// keys at positions <= q_pos - window are hidden (window > INT_MIN; any
+// sign, as the Pallas kernel).  path: 0 =
 // split (scratch holds B·KH·Sq·G·nsplit·(hd + 2) floats, nsplit =
 // ceil(Sk / split_len), at least 1), 1 = MMA (bf16, hd 64 or 128; scratch
 // unused).  Returns the launches' cudaError_t.
@@ -887,12 +896,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* q_pos, const void* kv_pos,
                                    void* out, void* scratch, int b, int sq,
                                    int sk, int nh, int kh, int hd, int dtype,
-                                   int causal, int window, float scale,
-                                   int path, int split_len, void* stream) {
+                                   int causal, int has_window, int window,
+                                   float scale, int path, int split_len,
+                                   void* stream) {
   if (b < 1 || sq < 1 || sk < 0 || kh < 1 || nh % kh != 0) return cudaErrorInvalidValue;
+  if (has_window && window == kNoWindow) return cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos),
-               out, static_cast<float*>(scratch), b, sq, sk, nh, kh, causal, window,
-               split_len, scale, static_cast<cudaStream_t>(stream)};
+               out, static_cast<float*>(scratch), b, sq, sk, nh, kh, causal,
+               has_window ? window : kNoWindow, split_len, scale,
+               static_cast<cudaStream_t>(stream)};
   if (path == 1) {
     if (dtype != 1) return cudaErrorInvalidValue;
     if (hd == 64) return launch_mma<64>(a);

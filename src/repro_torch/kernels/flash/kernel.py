@@ -19,10 +19,13 @@ first use (``kernels/_build.py``); nothing is built at import.
   allocations and the one C call.
 * :func:`attention` — the same function as an autograd op whose backward
   raises (training is a later slice of the port, ROADMAP A12): the LM's
-  attention, with and without its KV cache.
+  attention, with and without its KV cache.  Its window follows the LM's
+  ``attention_xla``: 0 means none.
 * :func:`flash_attention` and :func:`flash_attention_bhsd` — the JAX
   package's single-head and (B, H, S, D) entry points, with the Pallas
-  kernel's suffix-aligned causal semantics, through the same kernel.
+  kernel's suffix-aligned causal semantics, through the same kernel.  Their
+  window follows the Pallas kernel: None means none, and any given window
+  w hides keys at positions ≤ i − w (w ≤ 0 with causal hides every key).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from repro_torch.kernels.flash.ref import flash_attention_fwd_ref
 
 Tensor = torch.Tensor
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"split": 0, "mma": 1}
 
@@ -57,24 +60,24 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 declare("flash_attention_fwd",
-        [_P] * 7 + [_I] * 9 + [ctypes.c_float, _I, _I, _P], _I)
+        [_P] * 7 + [_I] * 10 + [ctypes.c_float, _I, _I, _P], _I)
 
 
 @functools.lru_cache(maxsize=1024)
 def plan(dtype: torch.dtype, sq: int, nh: int, kh: int, hd: int,
          sk: int) -> Tuple[str, int]:
-    """(path, split_len) of a K6 call.  ``"mma"`` (the tensor cores; a
-    block walks the whole cache, split_len 0) for bfloat16 with Sq·G ≥ 64
-    rows and hd ∈ {64, 128}; otherwise ``"split"``: blocks of split_len
-    consecutive cache slots and a fixed-order merge (decode steps, small
-    chunks, every float32 call).  With more than SPLIT_ROWS rows the row
-    blocks fill the grid and the cache is one split (scratch of about the
-    output's size).  Otherwise split_len is the power of two that spreads
-    the cache over about SPLITS blocks, within [SPLIT_LEN, MAX_SPLIT_LEN]:
-    64 at Sk=512 and 512 at Sk=4096, the fastest of 32–1024 and one split
-    at both on the H100 (``flash_ab.py``; readings in PERF.md).  It reads
-    its arguments only, never B or the positions, so a batch row computes
-    the same alone and in a batch."""
+    """(path, split_len) of a K6 call. ``"mma"`` (the tensor cores; a block
+    walks the whole cache, split_len 0) for bfloat16 with Sq·G ≥ 64 rows
+    and hd ∈ {64, 128}; otherwise ``"split"`` (hd 256 too): blocks of
+    split_len consecutive cache slots and a fixed-order merge (decode
+    steps, small chunks, every float32 call). With more than SPLIT_ROWS
+    rows the row blocks fill the grid and the cache is one split (scratch
+    of about the output's size). Otherwise split_len is the power of two
+    that spreads the cache over about SPLITS blocks, within [SPLIT_LEN,
+    MAX_SPLIT_LEN]: 64 at Sk=512 and 512 at Sk=4096, the fastest of 32–1024
+    and one split at both on the H100 (``flash_ab.py``; readings in
+    PERF.md). It reads its arguments only, never B or the positions, so a
+    batch row computes the same alone and in a batch."""
     rows = sq * (nh // kh)
     if dtype == torch.bfloat16 and rows >= MMA_ROWS and hd in MMA_HEAD_DIMS:
         return "mma", 0
@@ -113,7 +116,8 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     """K6: q (B, Sq, NH, hd), k/v (B, Sk, KH, hd), q_pos (B, Sq) and
     kv_pos (B, Sk) int32 → (B, Sq, NH, hd) in q's dtype.
 
-    ``window`` ≤ 0 or None means no window.
+    ``window`` None means no window; a window w (any sign) hides keys at
+    positions ≤ q_pos − w, the Pallas kernel's rule.
     """
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError("flash attention takes q (B, Sq, NH, hd) and k/v "
@@ -140,6 +144,8 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if window is not None and not -2 ** 31 < window < 2 ** 31:
+        raise ValueError(f"window {window} is outside (-2³¹, 2³¹)")
     scale = hd ** -0.5 if scale is None else float(scale)
     with torch.cuda.device(dev):
         out = enqueue(_lib().flash_attention_fwd, q, k, v, q_pos, kv_pos,
@@ -165,8 +171,9 @@ def enqueue(entry, q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
                 kv_pos.data_ptr(), out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), b, sq, sk,
-                nh, kh, hd, _DTYPES[q.dtype], int(causal), int(window or 0),
-                scale, _PATHS[path], split_len,
+                nh, kh, hd, _DTYPES[q.dtype], int(causal),
+                int(window is not None), int(window or 0), scale,
+                _PATHS[path], split_len,
                 torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention_fwd", err)
     return out
@@ -190,8 +197,10 @@ def attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
               window: Optional[int] = None,
               scale: Optional[float] = None) -> Tensor:
     """Position-masked GQA attention (the LM's): K6 on CUDA tensors, the
-    plain version on CPU tensors; the backward raises."""
-    return _FlashFn.apply(q, k, v, q_pos, kv_pos, causal, window, scale)
+    plain version on CPU tensors; the backward raises.  ``window`` 0 or
+    None means none, as in ``attention_xla``."""
+    return _FlashFn.apply(q, k, v, q_pos, kv_pos, causal, window or None,
+                          scale)
 
 
 def _suffix_positions(b: int, sq: int, sk: int, device) -> tuple:
@@ -207,7 +216,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     scale: Optional[float] = None) -> Tensor:
     """Single-head attention, q (Sq, H), k/v (Sk, H) → (Sq, H), with the
     Pallas kernel's semantics: suffix-aligned queries, optional causal mask
-    and local window (i − window, i], fully masked rows → 0."""
+    and local window (i − window, i] whenever ``window`` is not None (so
+    ``window=0`` with causal masks every key), fully masked rows → 0."""
     sq, h = q.shape
     sk = k.shape[0]
     q_pos, kv_pos = _suffix_positions(1, sq, sk, q.device)

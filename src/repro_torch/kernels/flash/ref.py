@@ -4,8 +4,8 @@ The CPU path of the kernel wrapper, and what ``chip_smoke.py`` holds the
 kernel against on the card.  Masking is by position, as on the serving
 path (``repro/models/layers.py::attention_xla``): key j of row b is seen
 by query i when ``kv_pos[b, j] >= 0`` and, if causal,
-``kv_pos[b, j] <= q_pos[b, i]`` and, with a window w > 0,
-``kv_pos[b, j] > q_pos[b, i] - w``.  A query with no such key gets 0, as
+``kv_pos[b, j] <= q_pos[b, i]`` and, with a window w (not None, any
+sign: the Pallas kernel's rule), ``kv_pos[b, j] > q_pos[b, i] - w``.  A query with no such key gets 0, as
 in the Pallas kernel (``repro/kernels/flash/kernel.py:75-78``; the XLA
 path would give the mean of v).  Scores, softmax and P·V are float32; the
 output is in q's dtype.
@@ -29,7 +29,7 @@ def position_mask(q_pos: Tensor, kv_pos: Tensor, causal: bool,
     mask = ik >= 0
     if causal:
         mask = mask & (ik <= iq)
-    if window:
+    if window is not None:
         mask = mask & (ik > iq - window)
     return mask
 

@@ -13,44 +13,677 @@
 //       ∂/∂xq_i = inv_ls ⊙ ((Σ_j c_ij) a_i − Σ_j c_ij b_j),  a = xq·inv_ls, b = xt·inv_ls
 //
 // What bounds them on an H100.  K1 must read K⁻¹ (8·n² bytes) and do
-// 2·q·n² f64 operations.  At the BO main path's shape (n ≈ 512, q ≤ 10) that
-// is 2 MiB and ~5 MFLOP, under a microsecond of device time, so launch
-// latency bounds a round.  When scoring a large pool (q = 1000, n = 2048) the
-// f64 operations bound it: the product k* K⁻¹ is 8.4 GFLOP, ~125 µs at the
-// card's 67 TFLOP/s f64 tensor-core rate (this kernel runs it on the CUDA
-// cores, whose f64 peak is half that).  K2 is O(q·n·D) and is bound by
+// 2·q·n² f64 operations.  At the BO main path's shape (n ≈ 544, q ≤ 10) that
+// is 2.4 MB and ~6 MFLOP, under a microsecond of device time, so latency
+// bounds a round: the time to get K⁻¹ onto the SMs and the length of the
+// dependent chains.  When scoring a large pool (q = 1000, n = 2048) the f64
+// operations bound it: the product k* K⁻¹ is 8.4 GFLOP, ~125 µs at the
+// card's 67 TFLOP/s f64 tensor-core rate, ~247 µs at the CUDA cores' 34
+// TFLOP/s, where this kernel runs it.  K2 is O(q·n·D) and is bound by
 // reading t (8·q·n bytes) and launch latency.
 //
-// Design.
+// K1's summation order, fixed by n alone (kChunk = C = 64, kTile = W = 64):
+//   t_ij  = (((c_0 + c_1) + c_2) + …),  c_s = Σ_{l in chunk s} k*_il K⁻¹_lj
+//           an fma chain from 0 in l order over the C rows of chunk s
+//           (the last chunk's rows past n count as zeros);
+//   mean_i, quad_i = Σ_j k*_ij α_j, Σ_j t_ij k*_ij: in each column tile of W
+//           a fixed tree (column j + 32 onto j, then a warp-shuffle tree),
+//           then the tiles' sums in tile order.
+// Any grid computes exactly these operations, so a row is bitwise the same
+// alone, in a batch, or next to repeated padding rows, in either regime:
+//  * split (small q, the MSO's rounds): posterior_fwd_split_kernel, one
+//    block per (column tile, chunk, tile of kSplitRows queries), reads one
+//    C×W tile of K⁻¹ once (cp.async, under the k* it needs) and writes its
+//    c_s for every query row to scratch (S, q, n), S = ceil(n / C); the
+//    blocks of column tile 0 also write their k* (q, n) for the merge.  At
+//    q = 10, n = 544 that is 9 × 9 = 81 blocks, K⁻¹ spread over the SMs.
+//  * walk (large q: where the walk's blocks fill the SMs or the split
+//    partials would pass 32 MB): posterior_fwd_walk_kernel, one block per
+//    (kWalkCols columns, kWalkRows queries), walks every chunk in stages
+//    of kStageRows rows of K⁻¹ (a 2-slot cp.async ring in shared memory;
+//    the stage's xt rows one stage ahead).  Each of 512 threads owns 4
+//    rows × 4 columns in registers (a K⁻¹ element read from shared memory
+//    serves 4 rows, a k* value 4 columns), computes c_s from 0 and adds it
+//    to its running t at the chunk's end.  One barrier a stage: a thread
+//    computes its share of the next stage's k* and then this stage's
+//    product, so that warps in the one overlap warps in the other.  No
+//    scratch.
+//  * merge, split regime: posterior_fwd_merge_kernel, one block per query
+//    row, a warp per column tile: adds the S partials in chunk order
+//    (their loads in flight together), writes t, takes the row's k* from
+//    scratch, and sums mean and quad as above.  Walk regime:
+//    posterior_fwd_merge_walk_kernel, 8 query rows a block, a warp per
+//    column tile: stages the tile's training rows (the next tile's under
+//    this one's sums), scales them once for the 8 rows, recomputes k*,
+//    and sums the same way.
+// k*, the chunk chains and the merge's adds are written with explicit
+// fma / __dmul_rn / __dadd_rn, so that the three kernels round alike
+// whatever nvcc would contract.  Every input row a block needs is staged
+// in shared memory by cp.async first: a chain over D never waits on
+// device memory.
+//
+// Design, besides.
 //  * f64 throughout.  The TPU kernel computes in f32 (no f64 there), and the
 //    f32 cancellation in σ_f² − k*K⁻¹k*ᵀ grows with ‖K⁻¹‖; the BO runs in f64.
-//  * K⁻¹ (32 MiB at n = 2048) cannot sit in shared memory (227 KB a block),
-//    so it streams from device memory / L2.  A block owns a tile of TQ query
-//    rows whose k* rows live in shared memory; each K⁻¹ element loaded serves
-//    all TQ rows.  Threads own consecutive columns j and loop over l, so a
-//    warp reads one row of K⁻¹ contiguously (coalesced).
-//  * No padding copies: the ragged q edge is masked in the kernel; n needs
-//    none.  Training sets padded with _FAR pseudo-points have d² ~ 1e15 there,
+//  * No padding copies: the ragged q edge and the ragged n edge are masked
+//    in the kernels (K⁻¹ tiles are zero-filled past n, k* is 0 there).
+//    Training sets padded with _FAR pseudo-points have d² ~ 1e15 there,
 //    where exp underflows to 0 and the polynomial stays finite (no inf·0).
-//  * Batch-width independence: every sum of a query row runs in an order
-//    fixed by n and D only (sequential over l, then per-thread column
-//    partials, then a fixed warp-shuffle tree and a fixed cross-warp order).
-//    It does not depend on q, on the row's place in the tile or the grid, or
-//    on repeated padding rows.  No atomics.  So a row's value and gradient
-//    are bitwise the same in any batch, which lets D-BE reproduce SEQ
-//    per restart bitwise on the card.
-//  * At q ≤ 10 only q blocks are busy (≤ 10 of 132 SMs); spreading n over
-//    blocks with a fixed-order second pass is later work.
+//  * No atomics.  FP64 tensor cores (mma.sync m8n8k4) for the walk's
+//    product are later work.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;              // threads per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kColsPerThread = 4;          // K⁻¹ columns in flight per thread
 constexpr double kSqrt5 = 2.2360679774997896;
 constexpr double kVarFloor = 1e-16;
+
+// K1's geometry; kernel.py mirrors these (CHUNK, TILE, SPLIT_ROWS,
+// WALK_ROWS, WALK_COLS, STAGE_ROWS) in its plan() and shared-memory sizes.
+constexpr int kChunk = 64;                 // C: rows of K⁻¹ a chunk
+constexpr int kTile = 64;                  // W: columns of a split block and a mean/var tile
+constexpr int kSplitRows = 16;             // query rows of a split block
+constexpr int kWalkRows = 32;              // query rows of a walk block
+constexpr int kWalkCols = 256;             // columns of a walk block
+constexpr int kStageRows = 32;             // K⁻¹ rows of a walk ring stage
+constexpr int kWalkThreads = 512;          // threads of a walk block
+constexpr int kMergeWarps = 16;            // most warps of a merge block
+constexpr int kPartBatch = 16;             // partials a merge lane loads at once
+constexpr int kMergeRows = 8;              // query rows of a walk-regime merge block
+constexpr int kMergeWalkWarps = 16;        // most warps of a walk-regime merge block
+constexpr size_t kMaxSmem = 232448;        // dynamic shared memory a block may use
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 8 bytes global → shared, asynchronous; zeros where !valid
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// 16 bytes global → shared, asynchronous, past L1; zeros where !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------- K1 math
+// Every k* below is the same sequence of roundings: a = xq ⊙ inv_ls and
+// b = xt ⊙ inv_ls by __dmul_rn, |a|², |b|² and a·b as fma chains in k
+// order, then matern().  Where the scaled rows are staged in shared memory
+// or scaled on the fly changes nothing.
+
+// Matérn-5/2 from |a|², |b|² and a·b
+__device__ __forceinline__ double matern(double asq, double bsq, double ab, double amp) {
+  double d2 = __dsub_rn(__dadd_rn(asq, bsq), __dmul_rn(2.0, ab));
+  d2 = d2 > 0.0 ? d2 : 0.0;
+  const double rr = __dsqrt_rn(__dadd_rn(d2, 1e-36));
+  const double poly = __fma_rn(5.0 / 3.0, d2, __fma_rn(kSqrt5, rr, 1.0));
+  return __dmul_rn(__dmul_rn(amp, poly), exp(__dmul_rn(-kSqrt5, rr)));
+}
+
+// Row stride of coordinates in shared memory: odd, so that a warp reading
+// one coordinate of consecutive rows spreads over the banks.
+__host__ __device__ __forceinline__ int coord_stride(int d) { return d | 1; }
+
+// rows [0, rows) of src (row-major, d wide) into dst (stride ds),
+// asynchronously; rows [valid, rows) are zeros
+__device__ __forceinline__ void stage_rows(double* dst, int ds, const double* src,
+                                           int rows, int valid, int d) {
+  for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
+    const int r = idx / d, k = idx - r * d;
+    const bool ok = r < valid;
+    cp_async8(smem_u32(dst + r * ds + k), ok ? src + idx : src, ok);
+  }
+}
+
+// count contiguous doubles of src into dst, asynchronously; zeros from
+// index valid on
+__device__ __forceinline__ void stage_flat(double* dst, const double* src, int count,
+                                           int valid) {
+  for (int e = threadIdx.x; e < count; e += blockDim.x) {
+    const bool ok = e < valid;
+    cp_async8(smem_u32(dst + e), ok ? src + e : src, ok);
+  }
+}
+
+// A kRows × kCols tile of a row-major matrix (leading dimension ld) at src
+// into dst (dense), asynchronously; zeros at rows ≥ vr or columns ≥ vc.
+// 16-byte copies when src and ld keep every row 16-byte aligned (then vc
+// is even too), else 8-byte ones.  base: any valid address of the matrix.
+template <int kRows, int kCols>
+__device__ __forceinline__ void stage_tile(double* dst, const double* src, int ld, int vr,
+                                           int vc, const double* base) {
+  if ((ld & 1) == 0 && ((uintptr_t)src & 15) == 0 && ((uintptr_t)base & 15) == 0) {
+    constexpr int kPairs = kCols / 2;
+    const int c = 2 * (threadIdx.x % kPairs);
+    const bool col_ok = c < vc;
+    for (int r = threadIdx.x / kPairs; r < kRows; r += blockDim.x / kPairs) {
+      const bool ok = r < vr && col_ok;
+      cp_async16(smem_u32(dst + r * kCols + c), ok ? src + (size_t)r * ld + c : base, ok);
+    }
+  } else {
+    const int c = threadIdx.x % kCols;
+    const bool col_ok = c < vc;
+    for (int r = threadIdx.x / kCols; r < kRows; r += blockDim.x / kCols) {
+      const bool ok = r < vr && col_ok;
+      cp_async8(smem_u32(dst + r * kCols + c), ok ? src + (size_t)r * ld + c : base, ok);
+    }
+  }
+}
+
+// M values k*(a_i, x_l[m]) from raw training rows x_l[m] (scaled on the fly)
+// and the scaled query row a (|a|² = asq)
+template <int M>
+__device__ __forceinline__ void kstar_rows(const double* a, double asq,
+                                           const double* const* x, const double* ils,
+                                           int d, double amp, double* out) {
+  double bsq[M], ab[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) bsq[m] = ab[m] = 0.0;
+  for (int k = 0; k < d; ++k) {
+    const double ak = a[k], il = ils[k];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const double b = __dmul_rn(x[m][k], il);
+      bsq[m] = __fma_rn(b, b, bsq[m]);
+      ab[m] = __fma_rn(ak, b, ab[m]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) out[m] = matern(asq, bsq[m], ab[m], amp);
+}
+
+// scale rows [0, rows) of x (stride ds) in place by ils; then |row|² of
+// each into sq (threads < rows, an fma chain each)
+__device__ __forceinline__ void scale_rows(double* x, int ds, int rows, const double* ils,
+                                           int d, double* sq) {
+  for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
+    const int r = idx / d, k = idx - r * d;
+    x[r * ds + k] = __dmul_rn(x[r * ds + k], ils[k]);
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < rows) {
+    const double* row = x + threadIdx.x * ds;
+    double s = 0.0;
+    for (int k = 0; k < d; ++k) s = __fma_rn(row[k], row[k], s);
+    sq[threadIdx.x] = s;
+  }
+}
+
+// ------------------------------------------------------ K1 split regime
+// grid (ceil(n / kTile), S, ceil(q / kSplitRows)), kThreads threads.
+// part[(s, i, j)] = c_s[i, j]; blocks of column tile 0 also write their
+// chunk's k*_il to kst[(i, l)] for the merge.
+__global__ void __launch_bounds__(kThreads)
+posterior_fwd_split_kernel(const double* __restrict__ xq, const double* __restrict__ xt,
+                           const double* __restrict__ kinv, const double* __restrict__ inv_ls,
+                           const double* __restrict__ amp_ptr, double* __restrict__ part,
+                           double* __restrict__ kst, int q, int n, int d) {
+  extern __shared__ double smem[];
+  const int ds = coord_stride(d);
+  double* kv = smem;                                  // [kChunk][kTile] K⁻¹ tile
+  double* ks = kv + kChunk * kTile;                   // [kChunk][kSplitRows] k*
+  double* ils = ks + kChunk * kSplitRows;             // [d]
+  double* a = ils + d;                                // [kSplitRows][ds] queries
+  double* x = a + kSplitRows * ds;                    // [kChunk][d] chunk rows (raw)
+  double* asq = x + kChunk * d;                       // [kSplitRows]
+
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * kTile, s = blockIdx.y, l0 = s * kChunk;
+  const int i0 = blockIdx.z * kSplitRows;
+  const double amp = *amp_ptr;
+
+  // group 0: the rows k* needs; group 1: the K⁻¹ tile (zeros past n)
+  stage_rows(a, ds, xq + (size_t)i0 * d, kSplitRows, q - i0, d);
+  stage_flat(x, xt + (size_t)l0 * d, kChunk * d, (n - l0) * d);
+  for (int k = tid; k < d; k += kThreads) cp_async8(smem_u32(ils + k), inv_ls + k, true);
+  cp_async_commit();
+  stage_tile<kChunk, kTile>(kv, kinv + (size_t)l0 * n + j0, n, n - l0, n - j0, kinv);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  scale_rows(a, ds, kSplitRows, ils, d, asq);
+  __syncthreads();
+
+  // k*: thread owns query i and chunk rows l, l + 16, l + 32, l + 48
+  {
+    constexpr int kM = kChunk * kSplitRows / kThreads;
+    const int i = tid % kSplitRows, l = tid / kSplitRows;
+    const double* rows[kM];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) rows[m] = x + (l + m * (kThreads / kSplitRows)) * d;
+    double kk[kM];
+    kstar_rows<kM>(a + i * ds, asq[i], rows, ils, d, amp, kk);
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const int r = l + m * (kThreads / kSplitRows);
+      const bool ok = l0 + r < n && i0 + i < q;
+      ks[r * kSplitRows + i] = ok ? kk[m] : 0.0;
+      if (ok && blockIdx.x == 0) kst[(size_t)(i0 + i) * n + l0 + r] = kk[m];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // c_s: thread owns column c and rows g, g + 4, g + 8, g + 12
+  constexpr int kGroups = kThreads / kTile;
+  constexpr int kPer = kSplitRows / kGroups;
+  const int c = tid % kTile, g = tid / kTile;
+  double acc[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) acc[r] = 0.0;
+#pragma unroll 16
+  for (int l = 0; l < kChunk; ++l) {
+    const double kl = kv[l * kTile + c];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r)
+      acc[r] = __fma_rn(ks[l * kSplitRows + g + kGroups * r], kl, acc[r]);
+  }
+  if (j0 + c < n) {
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int row = i0 + g + kGroups * r;
+      if (row < q) part[((size_t)s * q + row) * n + j0 + c] = acc[r];
+    }
+  }
+}
+
+// ------------------------------------------------------- K1 walk regime
+// grid (ceil(n / kWalkCols), ceil(q / kWalkRows)), kWalkThreads threads;
+// writes t.  A chunk is kChunk / kStageRows stages; the last chunk's
+// stages past n are zeros, as the split regime's rows past n.  One
+// barrier a stage: after it a thread computes its k* of the next stage
+// and then this stage's product, so that warps in the one overlap warps
+// in the other.  K⁻¹ rows run through a 2-slot ring, the (small) training
+// rows through a 3-slot ring one stage ahead, k* through 2 slots.
+__global__ void __launch_bounds__(kWalkThreads, 1)
+posterior_fwd_walk_kernel(const double* __restrict__ xq, const double* __restrict__ xt,
+                          const double* __restrict__ kinv, const double* __restrict__ inv_ls,
+                          const double* __restrict__ amp_ptr, double* __restrict__ t,
+                          int q, int n, int d) {
+  extern __shared__ double smem[];
+  const int ds = coord_stride(d);
+  constexpr int kTileSize = kStageRows * kWalkCols;
+  double* kring = smem;                               // [2][kStageRows][kWalkCols]
+  double* xring = kring + 2 * kTileSize;              // [3][kStageRows][d] raw xt rows
+  double* ks = xring + 3 * kStageRows * d;            // [2][kStageRows][kWalkRows]
+  double* ils = ks + 2 * kStageRows * kWalkRows;      // [d]
+  double* a = ils + d;                                // [kWalkRows][ds]
+  double* asq = a + kWalkRows * ds;                   // [kWalkRows]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWalkWarps = kWalkThreads / 32;
+  const int j0 = blockIdx.x * kWalkCols, i0 = blockIdx.y * kWalkRows;
+  constexpr int kPerChunk = kChunk / kStageRows;
+  const int nstages = (n + kChunk - 1) / kChunk * kPerChunk;
+  const double amp = *amp_ptr;
+  // rows 2ty + {0, 1, 16, 17}, columns 2cx + {0, 1, 128, 129}: two 16-byte
+  // loads of k* and two of K⁻¹ a step; a warp's are 8 and 4 distinct
+  const int ty = lane >> 2, cx = warp * 4 + (lane & 3);
+
+  auto issue_k = [&](int st) {               // stage st's K⁻¹ rows
+    if (st >= nstages) return;
+    double* dst = kring + (st & 1) * kTileSize;
+    const int l0 = st * kStageRows;
+    if (l0 < n)
+      stage_tile<kStageRows, kWalkCols>(dst, kinv + (size_t)l0 * n + j0, n, n - l0, n - j0,
+                                        kinv);
+    else                                     // a stage past n: zeros
+      for (int e = tid; e < kTileSize; e += kWalkThreads) dst[e] = 0.0;
+  };
+  auto issue_x = [&](int st) {               // stage st's training rows
+    if (st >= nstages) return;
+    const int l0 = st * kStageRows;
+    stage_flat(xring + (st % 3) * kStageRows * d, l0 < n ? xt + (size_t)l0 * d : xt,
+               kStageRows * d, (n - l0) * d);
+  };
+  auto kstar_stage = [&](int st) {           // k* of stage st: query lane, rows warp + 16m
+    constexpr int kM = kStageRows * kWalkRows / kWalkThreads;
+    const double* rows[kM];
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+      rows[m] = xring + (st % 3) * kStageRows * d + (warp + m * kWalkWarps) * d;
+    double kk[kM];
+    kstar_rows<kM>(a + lane * ds, asq[lane], rows, ils, d, amp, kk);
+    double* out = ks + (st & 1) * kStageRows * kWalkRows;
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const int r = warp + m * kWalkWarps;
+      out[r * kWalkRows + lane] = st * kStageRows + r < n ? kk[m] : 0.0;
+    }
+  };
+
+  stage_rows(a, ds, xq + (size_t)i0 * d, kWalkRows, q - i0, d);
+  for (int k = tid; k < d; k += kWalkThreads) cp_async8(smem_u32(ils + k), inv_ls + k, true);
+  issue_k(0);
+  issue_x(0);
+  issue_x(1);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  scale_rows(a, ds, kWalkRows, ils, d, asq);
+  __syncthreads();
+  kstar_stage(0);
+
+  double run[4][4], acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) run[r][c] = acc[r][c] = 0.0;
+  for (int st = 0; st < nstages; ++st) {
+    cp_async_wait<0>();              // K⁻¹ rows of st, training rows of st + 1 (own)
+    __syncthreads();                 // ... everyone's; k* of st is written; the
+    issue_k(st + 1);                 // slots the copies below refill are read
+    issue_x(st + 2);
+    cp_async_commit();
+    if (st + 1 < nstages) kstar_stage(st + 1);
+
+    const double* kv = kring + (st & 1) * kTileSize;
+    const double* kst_ = ks + (st & 1) * kStageRows * kWalkRows;
+#pragma unroll 2
+    for (int l = 0; l < kStageRows; ++l) {
+      const double2 r01 = *reinterpret_cast<const double2*>(kst_ + l * kWalkRows + 2 * ty);
+      const double2 r23 = *reinterpret_cast<const double2*>(kst_ + l * kWalkRows + 16 + 2 * ty);
+      const double2 c01 = *reinterpret_cast<const double2*>(kv + l * kWalkCols + 2 * cx);
+      const double2 c23 = *reinterpret_cast<const double2*>(kv + l * kWalkCols + 128 + 2 * cx);
+      const double kr[4] = {r01.x, r01.y, r23.x, r23.y};
+      const double kc[4] = {c01.x, c01.y, c23.x, c23.y};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = __fma_rn(kr[r], kc[c], acc[r][c]);
+    }
+    if (st % kPerChunk == kPerChunk - 1) {   // chunk st / kPerChunk is complete
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          run[r][c] = st < kPerChunk ? acc[r][c] : __dadd_rn(run[r][c], acc[r][c]);
+          acc[r][c] = 0.0;
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = i0 + 2 * ty + (r & 1) + 16 * (r >> 1);
+    if (row >= q) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = j0 + 2 * cx + (c & 1) + 128 * (c >> 1);
+      if (col < n) t[(size_t)row * n + col] = run[r][c];
+    }
+  }
+}
+
+// ------------------------------------------------------------- K1 merge
+// A column tile's sums of the merge: lane holds the products of columns
+// j and j + 32 of the tile; j + 32 onto j, then a warp-shuffle tree.
+// The result is in lane 0.
+__device__ __forceinline__ double tile_sum(double lo, double hi) {
+  double v = __dadd_rn(lo, hi);
+  for (int off = 16; off > 0; off >>= 1) v = __dadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// The tiles' sums in tile order: mean_i, and var_i = max(σ_f² − quad_i, floor).
+__device__ __forceinline__ void finish_row(const double* msum, const double* vsum,
+                                           int ntiles, double amp, double* mean,
+                                           double* var) {
+  double m = msum[0], quad = vsum[0];
+  for (int tile = 1; tile < ntiles; ++tile) {
+    m = __dadd_rn(m, msum[tile]);
+    quad = __dadd_rn(quad, vsum[tile]);
+  }
+  *mean = m;
+  const double v = __dsub_rn(amp, quad);
+  *var = v > kVarFloor ? v : kVarFloor;
+}
+
+// Split regime: grid (q), 32 · min(kMergeWarps, ceil(n / kTile)) threads;
+// one row, a warp per column tile (columns j and j + 32 in a lane):
+// t_ij = ((p_0 + p_1) + …) over the nparts partials part[(s, i, j)], k*
+// from kst, then mean and var.
+__global__ void __launch_bounds__(kMergeWarps * 32)
+posterior_fwd_merge_kernel(const double* __restrict__ alpha,
+                           const double* __restrict__ amp_ptr,
+                           const double* __restrict__ part, int nparts,
+                           const double* __restrict__ kst, double* __restrict__ mean,
+                           double* __restrict__ var, double* __restrict__ t, int q, int n) {
+  extern __shared__ double smem[];
+  const int ntiles = (n + kTile - 1) / kTile;
+  double* msum = smem;                                // [ntiles]
+  double* vsum = msum + ntiles;                       // [ntiles]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int i = blockIdx.x;
+  const size_t plane = (size_t)q * n;
+
+  for (int tile = warp; tile < ntiles; tile += nwarps) {
+    int j[2];
+    bool ok[2];
+    double tv[2], pm[2], pv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      j[h] = tile * kTile + lane + 32 * h;
+      ok[h] = j[h] < n;
+      tv[h] = 0.0;
+    }
+    double kk[2], al[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      kk[h] = ok[h] ? kst[(size_t)i * n + j[h]] : 0.0;
+      al[h] = ok[h] ? alpha[j[h]] : 0.0;
+    }
+    // the partials kPartBatch at a time, their loads in flight together
+    for (int s0 = 0; s0 < nparts; s0 += kPartBatch) {
+      double p[2][kPartBatch];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int u = 0; u < kPartBatch; ++u)
+          p[h][u] = ok[h] && s0 + u < nparts
+                        ? part[(size_t)(s0 + u) * plane + (size_t)i * n + j[h]] : 0.0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int u = 0; u < kPartBatch; ++u)
+          if (s0 + u < nparts) tv[h] = s0 + u == 0 ? p[h][u] : __dadd_rn(tv[h], p[h][u]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (ok[h]) t[(size_t)i * n + j[h]] = tv[h];
+      pm[h] = ok[h] ? __dmul_rn(kk[h], al[h]) : 0.0;
+      pv[h] = ok[h] ? __dmul_rn(tv[h], kk[h]) : 0.0;
+    }
+    const double m = tile_sum(pm[0], pm[1]), v = tile_sum(pv[0], pv[1]);
+    if (lane == 0) {
+      msum[tile] = m;
+      vsum[tile] = v;
+    }
+  }
+  __syncthreads();
+  if (tid == 0) finish_row(msum, vsum, ntiles, *amp_ptr, mean + i, var + i);
+}
+
+// Walk regime: grid (ceil(q / kMergeRows)), 32 · warps threads; t is
+// final.  A block takes kMergeRows query rows, a warp a column tile at a
+// time: it stages the tile's training rows in its own slice of shared
+// memory (the next tile's under this one's sums), scales them once for
+// the block's rows, recomputes their k* and sums mean and quad as the
+// split merge.
+__global__ void __launch_bounds__(kMergeWalkWarps * 32)
+posterior_fwd_merge_walk_kernel(const double* __restrict__ xq, const double* __restrict__ xt,
+                                const double* __restrict__ alpha,
+                                const double* __restrict__ inv_ls,
+                                const double* __restrict__ amp_ptr,
+                                const double* __restrict__ t, double* __restrict__ mean,
+                                double* __restrict__ var, int q, int n, int d) {
+  extern __shared__ double smem[];
+  const int ds = coord_stride(d);
+  const int ntiles = (n + kTile - 1) / kTile;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  double* ils = smem;                                 // [d]
+  double* a = ils + d;                                // [kMergeRows][ds]
+  double* asq = a + kMergeRows * ds;                  // [kMergeRows]
+  double* msum = asq + kMergeRows;                    // [kMergeRows][ntiles]
+  double* vsum = msum + kMergeRows * ntiles;          // [kMergeRows][ntiles]
+  double* b = vsum + kMergeRows * ntiles + warp * kTile * ds;   // [kTile][ds], this warp's
+
+  const int i0 = blockIdx.x * kMergeRows;
+  const double amp = *amp_ptr;
+  stage_rows(a, ds, xq + (size_t)i0 * d, kMergeRows, q - i0, d);
+  for (int k = tid; k < d; k += blockDim.x) cp_async8(smem_u32(ils + k), inv_ls + k, true);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  scale_rows(a, ds, kMergeRows, ils, d, asq);
+  __syncthreads();
+
+  // a tile's training rows (kTile · d contiguous doubles of xt) into this
+  // warp's slice, asynchronously; element e = lane + 32m goes to row r,
+  // column k, advanced without a division
+  const int dr = 32 / d, dk = 32 % d;
+  auto stage = [&](int tile) {
+    const double* src = xt + (size_t)tile * kTile * d;
+    const int valid = (n - tile * kTile) * d;
+    int r = lane / d, k = lane % d;
+    for (int e = lane; e < kTile * d; e += 32) {
+      cp_async8(smem_u32(b + r * ds + k), e < valid ? src + e : xt, e < valid);
+      r += dr;
+      k += dk;
+      if (k >= d) {
+        k -= d;
+        ++r;
+      }
+    }
+    cp_async_commit();
+  };
+  if (warp < ntiles) stage(warp);
+  for (int tile = warp; tile < ntiles; tile += nwarps) {
+    const int j0 = tile * kTile;
+    bool ok[2];
+    double tv[kMergeRows][2], al[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + lane + 32 * h;
+      ok[h] = j < n;
+      al[h] = ok[h] ? alpha[j] : 0.0;
+#pragma unroll
+      for (int r = 0; r < kMergeRows; ++r)
+        tv[r][h] = ok[h] && i0 + r < q ? t[(size_t)(i0 + r) * n + j] : 0.0;
+    }
+    cp_async_wait<0>();
+    __syncwarp();
+    // a lane scales its own two rows, then reads only them
+    double bsq[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      double* row = b + (lane + 32 * h) * ds;
+      double s2 = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double v = __dmul_rn(row[k], ils[k]);
+        row[k] = v;
+        s2 = __fma_rn(v, v, s2);
+      }
+      bsq[h] = s2;
+    }
+    double ab[kMergeRows][2];
+#pragma unroll
+    for (int r = 0; r < kMergeRows; ++r) ab[r][0] = ab[r][1] = 0.0;
+    for (int k = 0; k < d; ++k) {
+      const double b0 = b[lane * ds + k], b1 = b[(lane + 32) * ds + k];
+#pragma unroll
+      for (int r = 0; r < kMergeRows; ++r) {
+        const double ak = a[r * ds + k];
+        ab[r][0] = __fma_rn(ak, b0, ab[r][0]);
+        ab[r][1] = __fma_rn(ak, b1, ab[r][1]);
+      }
+    }
+    __syncwarp();                            // b is read: stage the next tile
+    if (tile + nwarps < ntiles) stage(tile + nwarps);
+#pragma unroll
+    for (int r = 0; r < kMergeRows; ++r) {
+      double pm[2], pv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const double kk = matern(asq[r], bsq[h], ab[r][h], amp);
+        pm[h] = ok[h] ? __dmul_rn(kk, al[h]) : 0.0;
+        pv[h] = ok[h] ? __dmul_rn(tv[r][h], kk) : 0.0;
+      }
+      const double m = tile_sum(pm[0], pm[1]), v = tile_sum(pv[0], pv[1]);
+      if (lane == 0) {
+        msum[r * ntiles + tile] = m;
+        vsum[r * ntiles + tile] = v;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (tid < kMergeRows && i0 + tid < q)
+    finish_row(msum + tid * ntiles, vsum + tid * ntiles, ntiles, amp, mean + i0 + tid,
+               var + i0 + tid);
+}
+
+size_t split_smem(int d) {
+  const int ds = coord_stride(d);
+  return sizeof(double) * ((size_t)kChunk * kTile + kChunk * kSplitRows + d +
+                           (size_t)kSplitRows * ds + (size_t)kChunk * d + kSplitRows);
+}
+
+size_t walk_smem(int d) {
+  const int ds = coord_stride(d);
+  return sizeof(double) * (2 * (size_t)kStageRows * kWalkCols + 3 * (size_t)kStageRows * d +
+                           2 * kStageRows * kWalkRows + d + (size_t)kWalkRows * ds + kWalkRows);
+}
+
+size_t merge_smem(int n) {
+  return sizeof(double) * 2 * (size_t)((n + kTile - 1) / kTile);
+}
+
+// the walk merge's shared memory with `warps` warps
+size_t merge_walk_smem(int n, int d, int warps) {
+  const int ds = coord_stride(d);
+  return sizeof(double) * ((size_t)d + (size_t)kMergeRows * (ds + 1) +
+                           2 * (size_t)kMergeRows * ((n + kTile - 1) / kTile) +
+                           (size_t)warps * kTile * ds);
+}
+
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// ---------------------------------------------------------------- K2
+// Fixed-order block sum of one value per thread; result valid in all threads.
+__device__ __forceinline__ double block_sum(double v, double* scratch) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();                         // scratch may still be read
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  double s = 0.0;
+  for (int w = 0; w < kWarps; ++w) s += scratch[w];
+  return s;
+}
 
 // Matérn-5/2 factors of one (query, train) pair; returns d².
 __device__ __forceinline__ double sq_dist(const double* a, double asq,
@@ -64,115 +697,6 @@ __device__ __forceinline__ double sq_dist(const double* a, double asq,
   }
   double d2 = (asq + bsq) - 2.0 * ab;
   return d2 > 0.0 ? d2 : 0.0;
-}
-
-// Fixed-order block sum of one value per thread; result valid in all threads.
-__device__ __forceinline__ double block_sum(double v, double* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();                         // scratch may still be read
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  double s = 0.0;
-  for (int w = 0; w < kWarps; ++w) s += scratch[w];
-  return s;
-}
-
-template <int TQ>
-__global__ void __launch_bounds__(kThreads)
-posterior_fwd_kernel(const double* __restrict__ xq, const double* __restrict__ xt,
-                     const double* __restrict__ alpha, const double* __restrict__ kinv,
-                     const double* __restrict__ inv_ls, const double* __restrict__ amp_ptr,
-                     double* __restrict__ mean, double* __restrict__ var,
-                     double* __restrict__ t_out, int q, int n, int d) {
-  extern __shared__ double smem[];
-  double* ks = smem;                       // (TQ, n) k* rows
-  double* a = ks + (size_t)TQ * n;         // (TQ, d) scaled queries
-  double* asq = a + (size_t)TQ * d;        // (TQ,)
-  double* scratch = asq + TQ;              // (kWarps,)
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * TQ;
-  const double amp = *amp_ptr;
-
-  for (int idx = tid; idx < TQ * d; idx += kThreads) {
-    int r = idx / d, k = idx - r * d;
-    int row = min(row0 + r, q - 1);        // ragged tile: repeat a valid row
-    a[idx] = xq[(size_t)row * d + k] * inv_ls[k];
-  }
-  __syncthreads();
-  if (tid < TQ) {
-    double s = 0.0;
-    for (int k = 0; k < d; ++k) s = fma(a[tid * d + k], a[tid * d + k], s);
-    asq[tid] = s;
-  }
-  __syncthreads();
-
-  // k* rows into shared memory, with the mean's per-thread partials
-  double pm[TQ];
-#pragma unroll
-  for (int r = 0; r < TQ; ++r) pm[r] = 0.0;
-  for (int j = tid; j < n; j += kThreads) {
-    const double* xr = xt + (size_t)j * d;
-    const double al = alpha[j];
-#pragma unroll
-    for (int r = 0; r < TQ; ++r) {
-      double d2 = sq_dist(a + r * d, asq[r], xr, inv_ls, d);
-      double rr = sqrt(d2 + 1e-36);
-      double k = amp * (1.0 + kSqrt5 * rr + (5.0 / 3.0) * d2) * exp(-kSqrt5 * rr);
-      ks[(size_t)r * n + j] = k;
-      pm[r] = fma(k, al, pm[r]);
-    }
-  }
-  __syncthreads();
-
-  // t = k* K⁻¹ over column groups; the variance's per-thread partials
-  double pv[TQ];
-#pragma unroll
-  for (int r = 0; r < TQ; ++r) pv[r] = 0.0;
-  for (int jb = 0; jb < n; jb += kThreads * kColsPerThread) {
-    double acc[TQ][kColsPerThread];
-#pragma unroll
-    for (int r = 0; r < TQ; ++r)
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) acc[r][c] = 0.0;
-    int col[kColsPerThread];
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) col[c] = jb + c * kThreads + tid;
-#pragma unroll 4
-    for (int l = 0; l < n; ++l) {   // unrolled: loads of 4 rows in flight
-      const double* krow = kinv + (size_t)l * n;
-      double kv[kColsPerThread];
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) kv[c] = col[c] < n ? __ldg(krow + col[c]) : 0.0;
-#pragma unroll
-      for (int r = 0; r < TQ; ++r) {
-        const double kl = ks[(size_t)r * n + l];
-#pragma unroll
-        for (int c = 0; c < kColsPerThread; ++c) acc[r][c] = fma(kl, kv[c], acc[r][c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) {
-      if (col[c] >= n) continue;
-#pragma unroll
-      for (int r = 0; r < TQ; ++r) {
-        pv[r] = fma(acc[r][c], ks[(size_t)r * n + col[c]], pv[r]);
-        if (row0 + r < q) t_out[(size_t)(row0 + r) * n + col[c]] = acc[r][c];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < TQ; ++r) {
-    double m = block_sum(pm[r], scratch);
-    double quad = block_sum(pv[r], scratch);
-    if (tid == 0 && row0 + r < q) {
-      mean[row0 + r] = m;
-      double v = amp - quad;
-      var[row0 + r] = v > kVarFloor ? v : kVarFloor;
-    }
-  }
 }
 
 // One block per query row.
@@ -225,40 +749,63 @@ posterior_bwd_xq_kernel(const double* __restrict__ xq, const double* __restrict_
   }
 }
 
-template <int TQ>
-cudaError_t launch_fwd(const double* xq, const double* xt, const double* alpha,
-                       const double* kinv, const double* inv_ls, const double* amp,
-                       double* mean, double* var, double* t, int q, int n, int d,
-                       cudaStream_t stream) {
-  size_t smem = sizeof(double) * ((size_t)TQ * n + (size_t)TQ * d + TQ + kWarps);
-  cudaError_t err = cudaFuncSetAttribute(posterior_fwd_kernel<TQ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  int blocks = (q + TQ - 1) / TQ;
-  posterior_fwd_kernel<TQ><<<blocks, kThreads, smem, stream>>>(
-      xq, xt, alpha, kinv, inv_ls, amp, mean, var, t, q, n, d);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success).  `rows` (query rows per block) is one
-// of 1, 2, 4, 8.
+// Returns a cudaError_t (0 on success).  regime 0 = split: scratch holds
+// (ceil(n / 64) + 1) · q · n doubles (the chunks' partials, then k*);
+// 1 = walk: scratch unused (may be null).
+// The wrapper's plan() (kernel.py) picks the regime; either gives the same
+// bits.  Two launches: the split or walk kernel, then the merge.
 int matern52_posterior_fwd(const double* xq, const double* xt, const double* alpha,
                            const double* kinv, const double* inv_ls, const double* amp,
-                           double* mean, double* var, double* t, int q, int n, int d,
-                           int rows, void* stream) {
+                           double* mean, double* var, double* t, double* scratch,
+                           int q, int n, int d, int regime, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (rows) {
-    case 1: return launch_fwd<1>(xq, xt, alpha, kinv, inv_ls, amp, mean, var, t, q, n, d, s);
-    case 2: return launch_fwd<2>(xq, xt, alpha, kinv, inv_ls, amp, mean, var, t, q, n, d, s);
-    case 4: return launch_fwd<4>(xq, xt, alpha, kinv, inv_ls, amp, mean, var, t, q, n, d, s);
-    case 8: return launch_fwd<8>(xq, xt, alpha, kinv, inv_ls, amp, mean, var, t, q, n, d, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (q < 1 || n < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  const int nchunks = (n + kChunk - 1) / kChunk;
+  cudaError_t err;
+  if (regime == 0) {
+    const dim3 grid((n + kTile - 1) / kTile, nchunks, (q + kSplitRows - 1) / kSplitRows);
+    if (scratch == nullptr || grid.y > 65535 || grid.z > 65535)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = split_smem(d);
+    if ((err = allow_smem((const void*)posterior_fwd_split_kernel, smem)) != cudaSuccess)
+      return (int)err;
+    posterior_fwd_split_kernel<<<grid, kThreads, smem, s>>>(
+        xq, xt, kinv, inv_ls, amp, scratch, scratch + (size_t)nchunks * q * n, q, n, d);
+  } else if (regime == 1) {
+    const dim3 grid((n + kWalkCols - 1) / kWalkCols, (q + kWalkRows - 1) / kWalkRows);
+    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+    const size_t smem = walk_smem(d);
+    if ((err = allow_smem((const void*)posterior_fwd_walk_kernel, smem)) != cudaSuccess)
+      return (int)err;
+    posterior_fwd_walk_kernel<<<grid, kWalkThreads, smem, s>>>(xq, xt, kinv, inv_ls, amp, t,
+                                                           q, n, d);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (regime == 0) {
+    const int ntiles = (n + kTile - 1) / kTile;
+    const int threads = 32 * (ntiles < kMergeWarps ? ntiles : kMergeWarps);
+    const size_t msmem = merge_smem(n);
+    if ((err = allow_smem((const void*)posterior_fwd_merge_kernel, msmem)) != cudaSuccess)
+      return (int)err;
+    posterior_fwd_merge_kernel<<<q, threads, msmem, s>>>(
+        alpha, amp, scratch, nchunks, scratch + (size_t)nchunks * q * n, mean, var, t, q, n);
+  } else {
+    int warps = kMergeWalkWarps;             // as many as the tiles' slices fit
+    while (warps > 1 && merge_walk_smem(n, d, warps) > kMaxSmem) --warps;
+    const size_t msmem = merge_walk_smem(n, d, warps);
+    if (msmem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    if ((err = allow_smem((const void*)posterior_fwd_merge_walk_kernel, msmem)) != cudaSuccess)
+      return (int)err;
+    posterior_fwd_merge_walk_kernel<<<(q + kMergeRows - 1) / kMergeRows, 32 * warps, msmem,
+                                      s>>>(xq, xt, alpha, inv_ls, amp, t, mean, var, q, n, d);
+  }
+  return (int)cudaGetLastError();
 }
 
 int matern52_posterior_bwd_xq(const double* xq, const double* xt, const double* alpha,

@@ -4,7 +4,10 @@
 the kernels replace, what bounds them and why they look as they do):
 
 * :func:`matern52_posterior_fwd` (K1): mean, variance and the residual
-  ``t = k* K⁻¹`` of a (q, D) query batch;
+  ``t = k* K⁻¹`` of a (q, D) query batch, in two launches: the split or
+  the walk kernel, then the merge.  :func:`plan` picks the regime and the
+  scratch from (q, n, D); the summation order depends on n alone, so a
+  row has the same bits in either regime and at any q;
 * :func:`matern52_posterior_bwd_xq` (K2): the gradient in the queries.
 
 ``csrc/gram.cu`` holds the gram matrix of the GP fit:
@@ -23,7 +26,8 @@ stream, raises if the launch fails, and adds one to its launch count.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -45,7 +49,7 @@ LAUNCHES: Dict[str, int] = {"matern52_posterior_fwd": 0,
                             "matern52_gram_bwd_theta": 0}
 
 _P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-declare("matern52_posterior_fwd", [_P] * 9 + [_I] * 4 + [_P], _I)
+declare("matern52_posterior_fwd", [_P] * 10 + [_I] * 4 + [_P], _I)
 declare("matern52_posterior_bwd_xq", [_P] * 10 + [_I] * 3 + [_P], _I)
 declare("matern52_gram_smem_bytes", [_I, _I], _Z)
 declare("matern52_gram_bwd_scratch", [_I] * 4, _Z)
@@ -62,19 +66,72 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
-def rows_per_block(q: int, n: int, d: int, n_sm: int) -> int:
-    """Query rows per block of K1: enough to put at most one block per SM
-    when q is large (each K⁻¹ load then serves more rows), at most 8, and
-    within the shared memory a block may use."""
-    rows = 1
-    while rows < 8 and rows * n_sm < q:
-        rows *= 2
-    while rows > 1 and 8 * (rows * n + rows * d + rows + 8) > MAX_SMEM:
-        rows //= 2
-    if 8 * (rows * n + rows * d + rows + 8) > MAX_SMEM:
-        raise ValueError(f"n={n} training points do not fit the forward "
-                         f"kernel's shared memory")
-    return rows
+# K1's geometry, as posterior.cu has it (kChunk, kTile, kSplitRows,
+# kWalkRows, kWalkCols, kStageRows)
+CHUNK = 64                       # rows of K⁻¹ a chunk: t sums chunk by chunk
+TILE = 64                        # columns of a split block and a mean/var tile
+SPLIT_ROWS = 16                  # query rows of a split block
+WALK_ROWS = 32                   # query rows of a walk block
+WALK_COLS = 256                  # columns of a walk block
+STAGE_ROWS = 32                  # K⁻¹ rows of a walk ring stage
+N_SM = 132                       # the H100's SMs
+MAX_SCRATCH = 32 << 20           # bytes of split scratch a call may take
+_REGIMES = {"split": 0, "walk": 1}
+
+
+class PosteriorPlan(NamedTuple):
+    """How K1 runs a (q, n, D) call.  ``chunks`` = ceil(n / CHUNK) chunks
+    of CHUNK rows of K⁻¹ partition [0, n): the summation order, the same
+    in both regimes.  ``blocks`` is the first kernel's grid size, and
+    ``scratch`` the doubles it writes for the merge (split: the chunks'
+    partials and k*, (chunks + 1)·q·n; walk: 0)."""
+    regime: str
+    chunks: int
+    blocks: int
+    scratch: int
+
+
+def _split_smem(d: int) -> int:
+    ds = d | 1
+    return 8 * (CHUNK * TILE + CHUNK * SPLIT_ROWS + d + SPLIT_ROWS * ds
+                + CHUNK * d + SPLIT_ROWS)
+
+
+def _walk_smem(d: int) -> int:
+    ds = d | 1
+    return 8 * (2 * STAGE_ROWS * WALK_COLS + 3 * STAGE_ROWS * d
+                + 2 * STAGE_ROWS * WALK_ROWS + d + WALK_ROWS * ds + WALK_ROWS)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(q: int, n: int, d: int) -> PosteriorPlan:
+    """K1's regime for q queries, n training points, D dimensions.
+    ``"split"`` (one block per TILE columns × chunk × SPLIT_ROWS queries,
+    partials to scratch) while the walk's blocks would not fill the SMs
+    and the partials stay within MAX_SCRATCH bytes: the MSO's rounds, q ≤
+    16 at n ≤ 2048.  Otherwise ``"walk"`` (one block per WALK_ROWS
+    queries × WALK_COLS columns walks every chunk, no scratch), whose
+    shared memory holds D up to 81; past that the split regime runs
+    whatever its scratch (D up to 295).  Which blocks compute never
+    changes the order of the sums, so a row is bitwise the same whichever
+    regime its batch takes."""
+    if q < 1 or n < 1 or d < 1:
+        raise ValueError(f"empty posterior input (q={q}, n={n}, D={d})")
+    chunks = -(-n // CHUNK)
+    tiles, ds = -(-n // TILE), d | 1
+    walk_blocks = -(-q // WALK_ROWS) * -(-n // WALK_COLS)
+    scratch = (chunks + 1) * q * n
+    split_fits = max(_split_smem(d), 16 * tiles) <= MAX_SMEM
+    walk_fits = max(_walk_smem(d), 8 * (d + 8 * (ds + 1) + 16 * tiles
+                                        + TILE * ds)) <= MAX_SMEM
+    if split_fits and (not walk_fits or (walk_blocks < N_SM
+                                         and 8 * scratch <= MAX_SCRATCH)):
+        blocks = -(-n // TILE) * chunks * -(-q // SPLIT_ROWS)
+        return PosteriorPlan("split", chunks, blocks, scratch)
+    if walk_fits:
+        return PosteriorPlan("walk", chunks, walk_blocks, 0)
+    raise ValueError(f"D={d}, n={n} do not fit the forward kernels' "
+                     f"shared memory")
 
 
 def matern52_posterior_fwd(xq: Tensor, xt: Tensor, alpha: Tensor,
@@ -93,20 +150,20 @@ def matern52_posterior_fwd(xq: Tensor, xt: Tensor, alpha: Tensor,
                            ("inv_lengthscale", inv_lengthscale, (d,)),
                            ("amplitude", amplitude, ())):
         check_tensor(name, x, shape, torch.float64, dev)
-    if q < 1 or n < 1:
-        raise ValueError(f"empty posterior input (q={q}, n={n})")
-    rows = rows_per_block(
-        q, n, d, torch.cuda.get_device_properties(dev).multi_processor_count)
+    p = plan(q, n, d)
     mean = torch.empty((q,), dtype=torch.float64, device=dev)
     var = torch.empty((q,), dtype=torch.float64, device=dev)
     t = torch.empty((q, n), dtype=torch.float64, device=dev)
+    scratch = (torch.empty((p.scratch,), dtype=torch.float64, device=dev)
+               if p.scratch else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().matern52_posterior_fwd(
             xq.data_ptr(), xt.data_ptr(), alpha.data_ptr(), kinv.data_ptr(),
             inv_lengthscale.data_ptr(), amplitude.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), t.data_ptr(), q, n, d, rows,
-            stream)
+            mean.data_ptr(), var.data_ptr(), t.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), q, n, d,
+            _REGIMES[p.regime], stream)
     check_launch("matern52_posterior_fwd", err)
     LAUNCHES["matern52_posterior_fwd"] += 1
     return mean, var, t

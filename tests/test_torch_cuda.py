@@ -38,7 +38,7 @@ def state(n, d, seed, device, n_pad=3):
     rng = np.random.default_rng(seed)
     X = rng.uniform(0, 1, (n - n_pad, d))
     y = np.sin(5 * X).sum(1) + 0.05 * rng.standard_normal(n - n_pad)
-    y = (y - y.mean()) / y.std()
+    y = (y - y.mean()) / (y.std() or 1.0)
     p = KernelParams(
         torch.full((d,), math.log(0.3 * math.sqrt(d)), dtype=torch.float64,
                    device=device),
@@ -86,6 +86,62 @@ def test_kernels_match_plain_versions_on_card(cuda, n, d, q):
     m1, v1, t1 = K.matern52_posterior_fwd(xq[:1].contiguous(), *args)
     assert torch.equal(m1[0], m_k[0]) and torch.equal(v1[0], v_k[0])
     assert torch.equal(t1[0], t_k[0])
+
+
+def k1_tolerances(xq, gp):
+    """K1's stated tolerances against its plain version: mean and t
+    within 1e-11 of Σ|terms| of their sums; var (which cancels) within
+    8·n·eps·σ_f⁴·max|K⁻¹|."""
+    xt, alpha, kinv, ils, amp = args_of(gp)
+    k = matern52_gram_ref(xq, xt, ils, amp).abs()
+    a = float(amp)
+    return (1e-11 * float((k @ alpha.abs()).max()),
+            1e-11 * float((k @ kinv.abs()).max()),
+            8 * xt.shape[0] * EPS64 * a * a * float(kinv.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 513, 544, 2048])
+def test_posterior_fwd_rows_bitwise_at_any_batch_and_regime_on_card(cuda, n):
+    """K1 over ragged chunks (32 rows of K⁻¹) and tiles (64 columns), the
+    last 3 training rows _FAR pseudo-points (n > 1): row 0 is bitwise the
+    same alone, in a batch of 10 that ends in repeated padding rows, and
+    in a batch of 1000 (the walk regime from n = 513 on, the split regime
+    below it); a second call repeats every bit; every batch is within the
+    stated tolerances of the plain version."""
+    d = 20
+    gp = state(n, d, seed=n, device=cuda, n_pad=min(3, n - 1))
+    args = args_of(gp)
+    x = torch.tensor(np.random.default_rng(n).uniform(0, 1, (1000, d)),
+                     device=cuda)
+    x[1] = gp.x_train[0]                       # a query on a training point
+    batches = {1: x[:1].contiguous(),
+               10: torch.cat([x[:7], x[6:7].expand(3, d)]).contiguous(),
+               1000: x}
+    regimes = {q: K.plan(q, n, d).regime for q in batches}
+    assert regimes[1] == regimes[10] == "split"
+    assert regimes[1000] == ("walk" if n >= 513 else "split")
+    K.reset_launch_counts()
+    outs = {q: K.matern52_posterior_fwd(xq, *args)
+            for q, xq in batches.items()}
+    again = {q: K.matern52_posterior_fwd(xq, *args)
+             for q, xq in batches.items()}
+    torch.cuda.synchronize()
+    assert K.launch_counts()["matern52_posterior_fwd"] == 6
+    for q, xq in batches.items():
+        for a, b in zip(outs[q], again[q]):
+            assert torch.equal(a, b)                     # run to run
+        for a, b in zip(outs[1], outs[q]):
+            assert torch.equal(a[0], b[0])               # row 0 at any q
+        m_r, v_r, t_r = matern52_posterior_fwd_ref(xq, *args)
+        m_k, v_k, t_k = outs[q]
+        tol_m, tol_t, tol_v = k1_tolerances(xq, gp)
+        assert bool(torch.isfinite(t_k).all())
+        assert float((m_k - m_r).abs().max()) <= tol_m
+        assert float((t_k - t_r).abs().max()) <= tol_t
+        assert float((v_k - v_r).abs().max()) <= tol_v
+    for out in outs[10]:
+        assert torch.equal(out[6], out[9])               # repeated rows
 
 
 @pytest.mark.cuda
@@ -306,7 +362,7 @@ def test_flash_kernel_matches_plain_version_on_card(cuda, b, sk, nh, kh, hd,
     assert torch.equal(alone[0], out[0])              # row independence
 
 
-def assert_flash_matches_plain(inputs, causal=True, window=0):
+def assert_flash_matches_plain(inputs, causal=True, window=None):
     """K6 against its plain version on ``inputs``: rows that see a key
     within the limit, rows that see none exactly 0, row 0 alone bitwise."""
     out = FK.flash_attention_fwd(*inputs, causal=causal, window=window)
@@ -332,7 +388,7 @@ def test_flash_decode_cache_not_a_multiple_of_the_split(cuda, sk, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("window", [None, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_split_edges_on_card(cuda, window, dtype):
     """Row 0 sees keys of one split only (slots 70..110 of 512, splits of
@@ -393,7 +449,7 @@ def test_causal_prefill_flash_matches_plain_on_card(cuda, s, dtype):
 @pytest.mark.parametrize("sq,sk,h,causal,window", [
     (256, 256, 64, True, None), (128, 384, 64, True, None),
     (300, 300, 32, True, 128), (1, 513, 64, True, None),
-    (200, 200, 128, False, None)])
+    (200, 200, 128, False, None), (256, 256, 64, True, 0)])
 def test_single_head_flash_matches_plain_on_card(cuda, sq, sk, h, causal,
                                                  window):
     g = torch.Generator(device=cuda).manual_seed(sq + sk)
@@ -406,9 +462,23 @@ def test_single_head_flash_matches_plain_on_card(cuda, sq, sk, h, causal,
                                   v[None, :, None], qp, kp, causal=causal,
                                   window=window)[0, :, 0]
     torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    if window is not None and window <= 0 and causal:
+        assert not out.any()          # the Pallas rule: every key masked
     bh = FK.flash_attention_bhsd(q[None, None], k[None, None], v[None, None],
                                  causal=causal, window=window)
     assert torch.equal(bh[0, 0], out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [2048, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_head_dim_256_decode_on_card(cuda, window, dtype):
+    """recurrentgemma-9b's local attention at a decode step: B=8, NH=16,
+    KH=1 (MQA), hd=256, Sk=2048, its window 2048 and a window of 300
+    that cuts the longer rows; the split path at hd 256."""
+    inputs = serving_inputs(8, 2048, 16, 1, 256, dtype, cuda, seed=256)
+    assert FK.plan_of(inputs[0], inputs[1])[0] == "split"
+    assert_flash_matches_plain(inputs, window=window)
 
 
 @pytest.mark.cuda

@@ -32,6 +32,9 @@ FLASH_CASES = [
     (300, 300, 32, True, 128, "float32"),     # local window, ragged
     (1, 513, 64, True, None, "float32"),      # single-query decode
     (128, 128, 64, True, None, "bfloat16"),   # dtype sweep
+    (256, 256, 64, True, 0, "float32"),       # window 0: every key masked
+    (128, 384, 64, False, 0, "float32"),      # window 0, not causal
+    (96, 160, 256, True, 64, "float32"),      # hd 256 (recurrentgemma-9b)
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -65,6 +68,8 @@ def test_flash_attention_matches_pallas_and_oracle(sq, sk, h, causal, window,
                                atol=tol, rtol=tol)
     np.testing.assert_allclose(t2np(out), np.asarray(ref), atol=tol,
                                rtol=tol)
+    if causal and window is not None and window <= 0:
+        assert not out.any()          # the Pallas rule: every key masked
     assert K.launch_counts() == {"flash_attention_fwd": 0}   # CPU: plain
 
 
@@ -172,12 +177,13 @@ def test_plan_ignores_batch_and_positions(sq, nh, kh, hd, sk, dtype):
         "dtype", "sq", "nh", "kh", "hd", "sk"]
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("rows", [1, 3, 63, 64, 65, 66, 192])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plan_takes_the_mma_path_only_for_bf16_with_64_rows(hd, rows, dtype):
     """"mma" exactly for bfloat16 with Sq·G ≥ 64 and hd ∈ {64, 128};
-    "split" otherwise (every float32 call, decode steps, small chunks)."""
+    "split" otherwise (every float32 call, decode steps, small chunks,
+    hd 256)."""
     for g in (1, 3):
         if rows % g:
             continue
