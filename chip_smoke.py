@@ -8,10 +8,12 @@ Phases (any failure exits nonzero; nothing is caught):
               into one library
   2. kernels  hold K1 (matern52_posterior_fwd) and K2
               (matern52_posterior_bwd_xq) against their plain PyTorch
-              versions on the card at n ∈ {32, 33, 512, 513, 2048} (K1's
-              ragged chunks and tiles; q = 1000 walks from n = 513 on),
+              versions on the card at n ∈ {32, 33, 63, 64, 65, 512, 513,
+              2048} (ragged chunks and tiles; q = 1000 walks from n = 513
+              on) and D ∈ {5, 20, 40, 300} (D = 300 in pieces, K1 split),
               and check batch-width independence bitwise (row 0 alone, in
-              a batch of 10 and in a batch of 1000, across K1's regimes);
+              a batch of 10 and in a batch of 1000, across K1's regimes
+              and K2's rows a block);
               then K3 (matern52_gram_fwd) and K4 (matern52_gram_bwd_theta)
               at n ∈ {32, 544, 2048}, D ∈ {5, 20, 40}, R ∈ {1, 2}, the
               n1 = 1 cross column and _FAR rows
@@ -37,7 +39,8 @@ Phases (any failure exits nonzero; nothing is caught):
               short, marked "events") and CUDA-event call times of K1–K4
               and their plain versions beside the least time the card
               could take (bound); K1's regime and the device µs of each
-              kernel its trace holds (all in the K1 class)
+              kernel its trace holds (all in the K1 class), and K2's
+              (all in the K2 class)
 Slice 3 adds, in the same run:
   - build     the flash (K6) and kvp (K5) sources join the one library
   - kernels   K6 flash_attention_fwd against its plain version on the
@@ -369,8 +372,8 @@ def phase_kernels(dev):
     import numpy as np
     err = {"fwd": 0.0, "bwd": 0.0}
     rng = np.random.default_rng(7)
-    for n in (32, 33, 512, 513, 2048):
-        for d in (5, 20, 40):
+    for n in (32, 33, 63, 64, 65, 512, 513, 2048):
+        for d in (5, 20, 40, 300):
             gp = make_state(n, d, seed=n + d, device=dev)
             for q in (1, 10, 1000):
                 check_against_plain(gp, q, rng, err, f"n={n} D={d} q={q}")
@@ -910,7 +913,7 @@ def timed_ask(s, obj):
 DEVICE_CLASSES = (
     ("k1", ("posterior_fwd_split_kernel", "posterior_fwd_walk_kernel",
             "posterior_fwd_merge_kernel", "posterior_fwd_merge_walk_kernel")),
-    ("k2", ("posterior_bwd_xq_kernel",)),
+    ("k2", ("posterior_bwd_split_kernel", "posterior_bwd_merge_kernel")),
     ("k3", ("gram_fwd_kernel",)),
     ("k4", ("gram_bwd_partial_kernel", "gram_bwd_reduce_kernel")),
     ("memcpy", ("memcpy",)),
@@ -1035,10 +1038,14 @@ def phase_timing(dev, state):
         row.update(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
                    bwd_bound_by=bby, fwd_regime=K.plan(q, n, d).regime,
                    fwd_kernel_us=kernel_us(calls["fwd"], "posterior_fwd",
+                                           iters),
+                   bwd_rows=K.bwd_plan(q, n, d).rows,
+                   bwd_kernel_us=kernel_us(calls["bwd"], "posterior_bwd",
                                            iters))
-        check(row["fwd_kernel_us"] and all(
-            k in dict(DEVICE_CLASSES)["k1"] for k in row["fwd_kernel_us"]),
-            f"K1's trace holds {list(row['fwd_kernel_us'])}, not its class")
+        for key, cls in (("fwd", "k1"), ("bwd", "k2")):
+            us = row[f"{key}_kernel_us"]
+            check(us and all(k in dict(DEVICE_CLASSES)[cls] for k in us),
+                  f"{cls.upper()}'s trace holds {list(us)}, not its class")
         rows.append(row)
         log("[timing] " + json.dumps(row))
     return rows

@@ -11,6 +11,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.engine.ask import AskConfig, AskEngine
 from repro_torch.engine.engine import EvalEngine
 from repro_torch.gp.gpr import GPState
@@ -26,8 +27,10 @@ def gp_state_from_numpy(*, x_train, y_train, log_lengthscale, log_amplitude,
                         log_noise, chol, alpha, kinv=None,
                         kernel: str = "matern52",
                         device=None) -> GPState:
-    """float64 GPState on ``device`` (default CPU) from numpy arrays."""
-    dev = torch.device("cpu" if device is None else device)
+    """float64 GPState on ``device`` from numpy arrays.  ``None`` means
+    the card, as at every entry point (``repro_torch.resolve_device``):
+    it raises without one, so pass ``device="cpu"`` on the CPU."""
+    dev = resolve_device(device)
 
     def t(a) -> torch.Tensor:
         return _tensor(a, dev)
@@ -76,8 +79,9 @@ def lm_params_from_numpy(tree, device=None):
     """The port's LM parameters from the JAX package's unboxed parameter
     tree as numpy arrays (``{"embed", "final_norm", "blocks"}``, the blocks
     stacked over layers); ``blocks`` becomes one dictionary per layer of
-    views.  On ``device`` (default CPU)."""
-    dev = torch.device("cpu" if device is None else device)
+    views.  On ``device``: ``None`` means the card, as at every entry
+    point (``repro_torch.resolve_device``), and raises without one."""
+    dev = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):

@@ -19,8 +19,10 @@
 // dependent chains.  When scoring a large pool (q = 1000, n = 2048) the f64
 // operations bound it: the product k* K⁻¹ is 8.4 GFLOP, ~125 µs at the
 // card's 67 TFLOP/s f64 tensor-core rate, ~247 µs at the CUDA cores' 34
-// TFLOP/s, where this kernel runs it.  K2 is O(q·n·D) and is bound by
-// reading t (8·q·n bytes) and launch latency.
+// TFLOP/s, where this kernel runs it.  K2 reads t (8·q·n bytes) and does
+// O(q·n·D) f64 operations: at the MSO's shape well under a microsecond of
+// either, so latency bounds it (two launches, a few dependent chains); at
+// q = 1000, n = 2048 reading t (16 MB, ~5 µs) does.
 //
 // K1's summation order, fixed by n alone (kChunk = C = 64, kTile = W = 64):
 //   t_ij  = (((c_0 + c_1) + c_2) + …),  c_s = Σ_{l in chunk s} k*_il K⁻¹_lj
@@ -78,7 +80,6 @@
 namespace {
 
 constexpr int kThreads = 256;              // threads per block
-constexpr int kWarps = kThreads / 32;
 constexpr double kSqrt5 = 2.2360679774997896;
 constexpr double kVarFloor = 1e-16;
 
@@ -95,6 +96,8 @@ constexpr int kMergeWarps = 16;            // most warps of a merge block
 constexpr int kPartBatch = 16;             // partials a merge lane loads at once
 constexpr int kMergeRows = 8;              // query rows of a walk-regime merge block
 constexpr int kMergeWalkWarps = 16;        // most warps of a walk-regime merge block
+constexpr int kPiece = 64;                 // coordinates a K1 split or K2 block stages at a time
+constexpr int kBwdMergeWarps = 8;          // warps of a K2 merge block
 constexpr size_t kMaxSmem = 232448;        // dynamic shared memory a block may use
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -126,12 +129,19 @@ __device__ __forceinline__ void cp_async_wait() {
 // Every k* below is the same sequence of roundings: a = xq ⊙ inv_ls and
 // b = xt ⊙ inv_ls by __dmul_rn, |a|², |b|² and a·b as fma chains in k
 // order, then matern().  Where the scaled rows are staged in shared memory
-// or scaled on the fly changes nothing.
+// or scaled on the fly, and whether D is staged whole or in pieces of
+// kPiece coordinates (the chains carried from piece to piece), changes
+// nothing.
+
+// d² = max(|a|² + |b|² − 2 a·b, 0)
+__device__ __forceinline__ double sq_dist(double asq, double bsq, double ab) {
+  const double d2 = __dsub_rn(__dadd_rn(asq, bsq), __dmul_rn(2.0, ab));
+  return d2 > 0.0 ? d2 : 0.0;
+}
 
 // Matérn-5/2 from |a|², |b|² and a·b
 __device__ __forceinline__ double matern(double asq, double bsq, double ab, double amp) {
-  double d2 = __dsub_rn(__dadd_rn(asq, bsq), __dmul_rn(2.0, ab));
-  d2 = d2 > 0.0 ? d2 : 0.0;
+  const double d2 = sq_dist(asq, bsq, ab);
   const double rr = __dsqrt_rn(__dadd_rn(d2, 1e-36));
   const double poly = __fma_rn(5.0 / 3.0, d2, __fma_rn(kSqrt5, rr, 1.0));
   return __dmul_rn(__dmul_rn(amp, poly), exp(__dmul_rn(-kSqrt5, rr)));
@@ -141,14 +151,38 @@ __device__ __forceinline__ double matern(double asq, double bsq, double ab, doub
 // one coordinate of consecutive rows spreads over the banks.
 __host__ __device__ __forceinline__ int coord_stride(int d) { return d | 1; }
 
-// rows [0, rows) of src (row-major, d wide) into dst (stride ds),
-// asynchronously; rows [valid, rows) are zeros
-__device__ __forceinline__ void stage_rows(double* dst, int ds, const double* src,
-                                           int rows, int valid, int d) {
-  for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
-    const int r = idx / d, k = idx - r * d;
+// columns [0, cols) of rows [0, rows) of src (row-major, leading dimension
+// ld) into dst (row stride ds), asynchronously; rows [valid, rows) are zeros
+// (element idx = r·cols + k of a thread advances by blockDim.x without a
+// division)
+__device__ __forceinline__ void stage_rows(double* dst, int ds, const double* src, int ld,
+                                           int rows, int valid, int cols) {
+  const int dr = blockDim.x / cols, dk = blockDim.x - dr * cols;
+  for (int r = threadIdx.x / cols, k = threadIdx.x - r * cols; r < rows;) {
     const bool ok = r < valid;
-    cp_async8(smem_u32(dst + r * ds + k), ok ? src + idx : src, ok);
+    cp_async8(smem_u32(dst + r * ds + k), ok ? src + (size_t)r * ld + k : src, ok);
+    r += dr;
+    k += dk;
+    if (k >= cols) {
+      k -= cols;
+      ++r;
+    }
+  }
+}
+
+// columns [0, cols) of rows [0, rows) of x (row stride ds) times ils, in
+// place, by __dmul_rn
+__device__ __forceinline__ void scale_cols(double* x, int ds, int rows, int cols,
+                                           const double* ils) {
+  const int dr = blockDim.x / cols, dk = blockDim.x - dr * cols;
+  for (int r = threadIdx.x / cols, k = threadIdx.x - r * cols; r < rows;) {
+    x[r * ds + k] = __dmul_rn(x[r * ds + k], ils[k]);
+    r += dr;
+    k += dk;
+    if (k >= cols) {
+      k -= cols;
+      ++r;
+    }
   }
 }
 
@@ -213,10 +247,7 @@ __device__ __forceinline__ void kstar_rows(const double* a, double asq,
 // each into sq (threads < rows, an fma chain each)
 __device__ __forceinline__ void scale_rows(double* x, int ds, int rows, const double* ils,
                                            int d, double* sq) {
-  for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
-    const int r = idx / d, k = idx - r * d;
-    x[r * ds + k] = __dmul_rn(x[r * ds + k], ils[k]);
-  }
+  scale_cols(x, ds, rows, d, ils);
   __syncthreads();
   if ((int)threadIdx.x < rows) {
     const double* row = x + threadIdx.x * ds;
@@ -229,54 +260,70 @@ __device__ __forceinline__ void scale_rows(double* x, int ds, int rows, const do
 // ------------------------------------------------------ K1 split regime
 // grid (ceil(n / kTile), S, ceil(q / kSplitRows)), kThreads threads.
 // part[(s, i, j)] = c_s[i, j]; blocks of column tile 0 also write their
-// chunk's k*_il to kst[(i, l)] for the merge.
+// chunk's k*_il to kst[(i, l)] for the merge.  The query and chunk rows
+// are staged kPiece coordinates at a time (one piece up to D = kPiece),
+// the K⁻¹ tile under the first piece's chains.
 __global__ void __launch_bounds__(kThreads)
 posterior_fwd_split_kernel(const double* __restrict__ xq, const double* __restrict__ xt,
                            const double* __restrict__ kinv, const double* __restrict__ inv_ls,
                            const double* __restrict__ amp_ptr, double* __restrict__ part,
                            double* __restrict__ kst, int q, int n, int d) {
   extern __shared__ double smem[];
-  const int ds = coord_stride(d);
+  const int pw = d < kPiece ? d : kPiece, ps = coord_stride(pw);
   double* kv = smem;                                  // [kChunk][kTile] K⁻¹ tile
   double* ks = kv + kChunk * kTile;                   // [kChunk][kSplitRows] k*
-  double* ils = ks + kChunk * kSplitRows;             // [d]
-  double* a = ils + d;                                // [kSplitRows][ds] queries
-  double* x = a + kSplitRows * ds;                    // [kChunk][d] chunk rows (raw)
-  double* asq = x + kChunk * d;                       // [kSplitRows]
+  double* ils = ks + kChunk * kSplitRows;             // [pw] the piece's 1/ℓ
+  double* a = ils + pw;                               // [kSplitRows][ps] queries, a piece
+  double* x = a + kSplitRows * ps;                    // [kChunk][pw] chunk rows (raw), a piece
 
   const int tid = threadIdx.x;
   const int j0 = blockIdx.x * kTile, s = blockIdx.y, l0 = s * kChunk;
   const int i0 = blockIdx.z * kSplitRows;
   const double amp = *amp_ptr;
 
-  // group 0: the rows k* needs; group 1: the K⁻¹ tile (zeros past n)
-  stage_rows(a, ds, xq + (size_t)i0 * d, kSplitRows, q - i0, d);
-  stage_flat(x, xt + (size_t)l0 * d, kChunk * d, (n - l0) * d);
-  for (int k = tid; k < d; k += kThreads) cp_async8(smem_u32(ils + k), inv_ls + k, true);
-  cp_async_commit();
-  stage_tile<kChunk, kTile>(kv, kinv + (size_t)l0 * n + j0, n, n - l0, n - j0, kinv);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  scale_rows(a, ds, kSplitRows, ils, d, asq);
-  __syncthreads();
-
   // k*: thread owns query i and chunk rows l, l + 16, l + 32, l + 48
-  {
-    constexpr int kM = kChunk * kSplitRows / kThreads;
-    const int i = tid % kSplitRows, l = tid / kSplitRows;
-    const double* rows[kM];
+  constexpr int kM = kChunk * kSplitRows / kThreads;
+  const int i = tid % kSplitRows, l = tid / kSplitRows;
+  double asq = 0.0, bsq[kM], ab[kM];
 #pragma unroll
-    for (int m = 0; m < kM; ++m) rows[m] = x + (l + m * (kThreads / kSplitRows)) * d;
-    double kk[kM];
-    kstar_rows<kM>(a + i * ds, asq[i], rows, ils, d, amp, kk);
-#pragma unroll
-    for (int m = 0; m < kM; ++m) {
-      const int r = l + m * (kThreads / kSplitRows);
-      const bool ok = l0 + r < n && i0 + i < q;
-      ks[r * kSplitRows + i] = ok ? kk[m] : 0.0;
-      if (ok && blockIdx.x == 0) kst[(size_t)(i0 + i) * n + l0 + r] = kk[m];
+  for (int m = 0; m < kM; ++m) bsq[m] = ab[m] = 0.0;
+  for (int k0 = 0; k0 < d; k0 += kPiece) {
+    const int kw = d - k0 < kPiece ? d - k0 : kPiece;
+    if (k0 > 0) __syncthreads();                      // the last piece is read
+    // a group: the piece's rows k* needs; then, under the first piece,
+    // a group of the K⁻¹ tile (zeros past n)
+    stage_rows(a, ps, xq + (size_t)i0 * d + k0, d, kSplitRows, q - i0, kw);
+    stage_rows(x, pw, xt + (size_t)l0 * d + k0, d, kChunk, n - l0, kw);
+    for (int k = tid; k < kw; k += kThreads) cp_async8(smem_u32(ils + k), inv_ls + k0 + k, true);
+    cp_async_commit();
+    if (k0 == 0) {
+      stage_tile<kChunk, kTile>(kv, kinv + (size_t)l0 * n + j0, n, n - l0, n - j0, kinv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    scale_cols(a, ps, kSplitRows, kw, ils);
+    __syncthreads();
+    for (int k = 0; k < kw; ++k) {
+      const double ak = a[i * ps + k], il = ils[k];
+      asq = __fma_rn(ak, ak, asq);
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        const double b = __dmul_rn(x[(l + m * (kThreads / kSplitRows)) * pw + k], il);
+        bsq[m] = __fma_rn(b, b, bsq[m]);
+        ab[m] = __fma_rn(ak, b, ab[m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    const int r = l + m * (kThreads / kSplitRows);
+    const bool ok = l0 + r < n && i0 + i < q;
+    const double kk = matern(asq, bsq[m], ab[m], amp);
+    ks[r * kSplitRows + i] = ok ? kk : 0.0;
+    if (ok && blockIdx.x == 0) kst[(size_t)(i0 + i) * n + l0 + r] = kk;
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -369,7 +416,7 @@ posterior_fwd_walk_kernel(const double* __restrict__ xq, const double* __restric
     }
   };
 
-  stage_rows(a, ds, xq + (size_t)i0 * d, kWalkRows, q - i0, d);
+  stage_rows(a, ds, xq + (size_t)i0 * d, d, kWalkRows, q - i0, d);
   for (int k = tid; k < d; k += kWalkThreads) cp_async8(smem_u32(ils + k), inv_ls + k, true);
   issue_k(0);
   issue_x(0);
@@ -550,7 +597,7 @@ posterior_fwd_merge_walk_kernel(const double* __restrict__ xq, const double* __r
 
   const int i0 = blockIdx.x * kMergeRows;
   const double amp = *amp_ptr;
-  stage_rows(a, ds, xq + (size_t)i0 * d, kMergeRows, q - i0, d);
+  stage_rows(a, ds, xq + (size_t)i0 * d, d, kMergeRows, q - i0, d);
   for (int k = tid; k < d; k += blockDim.x) cp_async8(smem_u32(ils + k), inv_ls + k, true);
   cp_async_commit();
   cp_async_wait<0>();
@@ -643,10 +690,11 @@ posterior_fwd_merge_walk_kernel(const double* __restrict__ xq, const double* __r
                var + i0 + tid);
 }
 
+// the split kernel's shared memory: its widest piece is min(d, kPiece)
 size_t split_smem(int d) {
-  const int ds = coord_stride(d);
-  return sizeof(double) * ((size_t)kChunk * kTile + kChunk * kSplitRows + d +
-                           (size_t)kSplitRows * ds + (size_t)kChunk * d + kSplitRows);
+  const int pw = d < kPiece ? d : kPiece;
+  return sizeof(double) * ((size_t)kChunk * kTile + kChunk * kSplitRows + pw +
+                           (size_t)kSplitRows * coord_stride(pw) + (size_t)kChunk * pw);
 }
 
 size_t walk_smem(int d) {
@@ -673,80 +721,231 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------- K2
-// Fixed-order block sum of one value per thread; result valid in all threads.
-__device__ __forceinline__ double block_sum(double v, double* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();                         // scratch may still be read
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  double s = 0.0;
-  for (int w = 0; w < kWarps; ++w) s += scratch[w];
-  return s;
+// K2's summation order, fixed by n alone (column tiles of kTile = 64
+// training points, as K1's mean/var tiles):
+//   c_ij     by one sequence of roundings (bwd_weight);
+//   in tile T, csum_iT = Σ_{j in T} c_ij and s_ikT = Σ_{j in T} c_ij b_jk
+//            (each product rounded) by tile_sum's tree: column j + 32
+//            onto j, then pairs 16, 8, 4, 2, 1 apart (tree64);
+//   csum_i, s_ik = ((T_0 + T_1) + …) over the tiles in tile order;
+//   dxq_ik   = il_k (csum_i a_ik − s_ik).
+// So which blocks compute a row never changes its bits:
+//  * posterior_bwd_split_kernel<R>: one block per (column tile, R query
+//    rows), R = 1 at q ≤ 16 (the MSO's rounds: 9 × 10 = 90 blocks at
+//    q = 10, n = 544), 16 above (a tile's training rows staged once per 16
+//    queries).  It stages the tile's training rows and its query rows by
+//    cp.async, D in pieces of kPiece coordinates scaled by 1/ℓ once, with
+//    its t, α, ḡ and var in registers under the copies; carries the |a|²,
+//    |b|², a·b chains from piece to piece, computes its c_ij, then one
+//    thread a (row, coordinate) evaluates a tree over the tile's 64
+//    columns from shared memory, rows fastest across a warp (the tree's
+//    loads, not its adds, bound it); it writes D + 1 partials a row (the
+//    s_ik, then csum_i) to scratch (tiles, q, D + 1).
+//  * posterior_bwd_merge_kernel: a warp per (query row, 32 coordinates)
+//    adds the tiles' partials in tile order (their loads in flight
+//    together), a lane per coordinate, and writes dxq.
+// Probed on the card and dropped, each slower: one block a row walking its
+// tiles and merging itself (one launch, but the tiles run in series),
+// blocks of 4 tiles, 32 rows a block, two rows a tree thread.
+
+// tile_sum's tree over 64 leaves leaf(0..63), evaluated by one thread:
+// tree64<S>(leaf, l) sums the leaves ≡ l (mod S), (leaves ≡ l mod 2S) +
+// (leaves ≡ l + S mod 2S), down to leaf(l) + leaf(l + 32) at S = 32; so
+// tree64<1>(leaf, 0) adds the pairs lane 0 of tile_sum adds.
+template <int S, typename Leaf>
+__device__ __forceinline__ double tree64(const Leaf& leaf, int l) {
+  if constexpr (S == 32)
+    return __dadd_rn(leaf(l), leaf(l + 32));
+  else
+    return __dadd_rn(tree64<2 * S>(leaf, l), tree64<2 * S>(leaf, l + S));
 }
 
-// Matérn-5/2 factors of one (query, train) pair; returns d².
-__device__ __forceinline__ double sq_dist(const double* a, double asq,
-                                          const double* xt_row,
-                                          const double* inv_ls, int d) {
-  double bsq = 0.0, ab = 0.0;
-  for (int k = 0; k < d; ++k) {
-    double b = xt_row[k] * inv_ls[k];
-    bsq = fma(b, b, bsq);
-    ab = fma(a[k], b, ab);
-  }
-  double d2 = (asq + bsq) - 2.0 * ab;
-  return d2 > 0.0 ? d2 : 0.0;
+// c_ij from |a_i|², |b_j|², a_i·b_j; coef = −(5/3) σ_f², gv2 = 2 ḡv_i [var_i > floor]
+__device__ __forceinline__ double bwd_weight(double asq, double bsq, double ab, double coef,
+                                             double gmi, double gv2, double al, double tij) {
+  const double rr = __dsqrt_rn(__dadd_rn(sq_dist(asq, bsq, ab), 1e-36));
+  const double w = __dsub_rn(__dmul_rn(gmi, al), __dmul_rn(gv2, tij));
+  const double f = __dmul_rn(__dmul_rn(coef, __fma_rn(kSqrt5, rr, 1.0)),
+                             exp(__dmul_rn(-kSqrt5, rr)));
+  return __dmul_rn(f, w);
 }
 
-// One block per query row.
-__global__ void __launch_bounds__(kThreads)
-posterior_bwd_xq_kernel(const double* __restrict__ xq, const double* __restrict__ xt,
-                        const double* __restrict__ alpha, const double* __restrict__ t,
-                        const double* __restrict__ var, const double* __restrict__ inv_ls,
-                        const double* __restrict__ amp_ptr, const double* __restrict__ gm,
-                        const double* __restrict__ gv, double* __restrict__ dxq,
-                        int n, int d) {
+// grid (ceil(n / kTile), ceil(q / R)), kThreads threads: R query rows from
+// i0 × the column tile from j0.  Writes part[(T, i, k)] = s_ikT for k < D
+// and csum_iT at k = D.  A thread owns the pairs (rows row0 + kRowStep·m,
+// column col); what c needs besides the chains (t, α, ḡm, ḡv, var, σ_f²)
+// is loaded into registers under the staging.  At R = 1 one block an SM is
+// asked for (more registers: the tree's loads in flight); at R = 16 three.
+template <int R>
+__global__ void __launch_bounds__(kThreads, R == 1 ? 1 : 3)
+posterior_bwd_split_kernel(const double* __restrict__ xq, const double* __restrict__ xt,
+                           const double* __restrict__ alpha, const double* __restrict__ t,
+                           const double* __restrict__ var, const double* __restrict__ inv_ls,
+                           const double* __restrict__ amp_ptr, const double* __restrict__ gm,
+                           const double* __restrict__ gv, double* __restrict__ part,
+                           int q, int n, int d) {
+  constexpr int kRowStep = kThreads / kTile;
+  static_assert(R <= kRowStep || R % kRowStep == 0, "the pairs must tile the threads");
+  constexpr int kPer = R <= kRowStep ? 1 : R / kRowStep;
+  constexpr int kCs = kTile + 1;                      // odd: rows of c over the banks
   extern __shared__ double smem[];
-  double* cs = smem;                       // (n,) c_ij of this row
-  double* a = cs + n;                      // (d,)
-  double* scratch = a + d;                 // (kWarps,) + 1
+  const int pw = d < kPiece ? d : kPiece, ps = coord_stride(pw);
+  double* xs = smem;                                  // [kTile][ps] training rows, a piece
+  double* as = xs + kTile * ps;                       // [R][ps] query rows, a piece
+  double* ils = as + R * ps;                          // [pw] the piece's 1/ℓ
+  double* cs = ils + pw;                              // [R][kCs] c
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i = blockIdx.x;
-  const double amp = *amp_ptr;
-  const double gmi = gm[i];
-  const double gvi = var[i] > kVarFloor ? gv[i] : 0.0;
+  const int tid = threadIdx.x, tile = blockIdx.x, j0 = tile * kTile, i0 = blockIdx.y * R;
+  const int npieces = (d + kPiece - 1) / kPiece;
+  const int col = tid % kTile, row0 = tid / kTile;
+  const bool active = row0 < R, col_ok = j0 + col < n;
 
-  for (int k = tid; k < d; k += kThreads) a[k] = xq[(size_t)i * d + k] * inv_ls[k];
-  __syncthreads();
-  if (tid == 0) {
-    double s = 0.0;
-    for (int k = 0; k < d; ++k) s = fma(a[k], a[k], s);
-    scratch[kWarps] = s;
+  const double coef = __dmul_rn(-5.0 / 3.0, *amp_ptr);
+  const double al = col_ok ? alpha[j0 + col] : 0.0;
+  double tv[kPer], gmv[kPer], gv2[kPer];
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int i = i0 + row0 + kRowStep * m;
+    const bool row_ok = active && i < q;
+    tv[m] = row_ok && col_ok ? t[(size_t)i * n + j0 + col] : 0.0;
+    gmv[m] = row_ok ? gm[i] : 0.0;
+    gv2[m] = row_ok && var[i] > kVarFloor ? __dmul_rn(2.0, gv[i]) : 0.0;
+  }
+
+  // piece p's rows and 1/ℓ, scaled in place (xs and as are one array);
+  // the caller has made sure the last piece is read
+  auto load_piece = [&](int p) {
+    const int k0 = p * kPiece, kw = d - k0 < kPiece ? d - k0 : kPiece;
+    stage_rows(xs, ps, xt + (size_t)j0 * d + k0, d, kTile, n - j0, kw);
+    stage_rows(as, ps, xq + (size_t)i0 * d + k0, d, R, q - i0, kw);
+    for (int k = tid; k < kw; k += kThreads) cp_async8(smem_u32(ils + k), inv_ls + k0 + k, true);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    scale_cols(xs, ps, kTile + R, kw, ils);
+    __syncthreads();
+    return kw;
+  };
+
+  // |a_i|², |b_j|², a_i·b_j: fma chains in k order, carried over the pieces
+  double bsq = 0.0, asq[kPer], ab[kPer];
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) asq[m] = ab[m] = 0.0;
+  for (int p = 0; p < npieces; ++p) {
+    if (p > 0) __syncthreads();
+    const int kw = load_piece(p);
+    if (active) {
+      for (int k = 0; k < kw; ++k) {
+        const double b = xs[col * ps + k];
+        bsq = __fma_rn(b, b, bsq);
+#pragma unroll
+        for (int m = 0; m < kPer; ++m) {
+          const double ak = as[(row0 + kRowStep * m) * ps + k];
+          asq[m] = __fma_rn(ak, ak, asq[m]);
+          ab[m] = __fma_rn(ak, b, ab[m]);
+        }
+      }
+    }
+  }
+  if (active) {
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) {
+      const int r = row0 + kRowStep * m;
+      cs[r * kCs + col] = i0 + r < q && col_ok
+          ? bwd_weight(asq[m], bsq, ab[m], coef, gmv[m], gv2[m], al, tv[m]) : 0.0;
+    }
   }
   __syncthreads();
-  const double asq = scratch[kWarps];
 
-  double pc = 0.0;
-  for (int j = tid; j < n; j += kThreads) {
-    double d2 = sq_dist(a, asq, xt + (size_t)j * d, inv_ls, d);
-    double rr = sqrt(d2 + 1e-36);
-    double w = gmi * alpha[j] - 2.0 * gvi * t[(size_t)i * n + j];
-    double c = -(5.0 / 3.0) * amp * (1.0 + kSqrt5 * rr) * exp(-kSqrt5 * rr) * w;
-    cs[j] = c;
-    pc += c;
+  // the tile's sums, one thread a (row, coordinate), rows fastest (a warp
+  // reads R rows of c and 32 / R values of b a leaf); the pieces from the
+  // last (still staged) to the first; csum with the first
+  const size_t w = (size_t)d + 1;
+  double* out = part + ((size_t)tile * q + i0) * w;
+  for (int p = npieces - 1; p >= 0; --p) {
+    const int k0 = p * kPiece;
+    int kw = d - k0 < kPiece ? d - k0 : kPiece;
+    if (p < npieces - 1) {
+      __syncthreads();
+      kw = load_piece(p);
+    }
+    const int items = R * kw + (p == 0 ? R : 0);
+    for (int e = tid; e < items; e += kThreads) {
+      if (e < R * kw) {                      // s_ikT
+        const int r = e % R, k = e / R;
+        const double* c = cs + r * kCs;
+        const double* b = xs + k;
+        const double v = tree64<1>([&](int jj) { return __dmul_rn(c[jj], b[jj * ps]); }, 0);
+        if (i0 + r < q) out[r * w + k0 + k] = v;
+      } else {                               // csum_iT
+        const int r = e - R * kw;
+        const double* c = cs + r * kCs;
+        const double v = tree64<1>([&](int jj) { return c[jj]; }, 0);
+        if (i0 + r < q) out[r * w + d] = v;
+      }
+    }
   }
-  const double csum = block_sum(pc, scratch);   // syncs, so cs is complete
+}
 
-  // Σ_j c_ij b_jd: warp w owns dims w, w + kWarps, ...; lanes stride over j
-  for (int k = warp; k < d; k += kWarps) {
-    const double il = inv_ls[k];
-    double s = 0.0;
-    for (int j = lane; j < n; j += 32) s = fma(cs[j], xt[(size_t)j * d + k] * il, s);
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) dxq[(size_t)i * d + k] = il * (csum * a[k] - s);
+// grid (ceil(q · ceil(d / 32) / kBwdMergeWarps)), a warp per (query row,
+// 32 coordinates), a lane per coordinate k: csum_i and s_ik over the
+// ntiles partials in tile order (both columns' loads kPartBatch at a time,
+// in flight together), then dxq_ik = il_k (csum_i a_ik − s_ik).
+__global__ void __launch_bounds__(kBwdMergeWarps * 32)
+posterior_bwd_merge_kernel(const double* __restrict__ xq, const double* __restrict__ inv_ls,
+                           const double* __restrict__ part, int ntiles,
+                           double* __restrict__ dxq, int q, int d) {
+  const int kchunks = (d + 31) / 32;
+  const int task = blockIdx.x * kBwdMergeWarps + (threadIdx.x >> 5);
+  const int i = task / kchunks, k = (task - i * kchunks) * 32 + (threadIdx.x & 31);
+  if (i >= q || k >= d) return;
+  const size_t w = (size_t)d + 1, plane = (size_t)q * w;
+  const double* row = part + (size_t)i * w;
+  const double il = inv_ls[k], x = xq[(size_t)i * d + k];
+  double csum = 0.0, s = 0.0;
+  for (int t0 = 0; t0 < ntiles; t0 += kPartBatch) {
+    double pc[kPartBatch], pk[kPartBatch];
+#pragma unroll
+    for (int u = 0; u < kPartBatch; ++u) {
+      const bool ok = t0 + u < ntiles;
+      pc[u] = ok ? row[(size_t)(t0 + u) * plane + d] : 0.0;
+      pk[u] = ok ? row[(size_t)(t0 + u) * plane + k] : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < kPartBatch; ++u) {
+      if (t0 + u >= ntiles) break;
+      csum = t0 + u == 0 ? pc[u] : __dadd_rn(csum, pc[u]);
+      s = t0 + u == 0 ? pk[u] : __dadd_rn(s, pk[u]);
+    }
   }
+  dxq[(size_t)i * d + k] = __dmul_rn(il, __dsub_rn(__dmul_rn(csum, __dmul_rn(x, il)), s));
+}
+
+size_t bwd_split_smem(int d, int rows) {
+  const int pw = d < kPiece ? d : kPiece;
+  return sizeof(double) *
+         ((size_t)(kTile + rows) * coord_stride(pw) + pw + (size_t)rows * (kTile + 1));
+}
+
+template <int R>
+cudaError_t launch_bwd(const double* xq, const double* xt, const double* alpha,
+                       const double* t, const double* var, const double* inv_ls,
+                       const double* amp, const double* gm, const double* gv, double* part,
+                       double* dxq, int q, int n, int d, cudaStream_t s) {
+  const int ntiles = (n + kTile - 1) / kTile;
+  const dim3 grid(ntiles, (q + R - 1) / R);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const size_t smem = bwd_split_smem(d, R);
+  cudaError_t err = allow_smem((const void*)posterior_bwd_split_kernel<R>, smem);
+  if (err != cudaSuccess) return err;
+  posterior_bwd_split_kernel<R><<<grid, kThreads, smem, s>>>(xq, xt, alpha, t, var, inv_ls,
+                                                               amp, gm, gv, part, q, n, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long tasks = (long long)q * ((d + 31) / 32);
+  posterior_bwd_merge_kernel<<<(unsigned)((tasks + kBwdMergeWarps - 1) / kBwdMergeWarps),
+                               kBwdMergeWarps * 32, 0, s>>>(xq, inv_ls, part, ntiles, dxq, q,
+                                                            d);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -808,18 +1007,24 @@ int matern52_posterior_fwd(const double* xq, const double* xt, const double* alp
   return (int)cudaGetLastError();
 }
 
+// Returns a cudaError_t (0 on success).  scratch holds ceil(n / 64) · q ·
+// (d + 1) doubles (the tiles' partials); rows (1 or 16) is the split
+// kernel's query rows a block, which the wrapper's bwd_plan() (kernel.py)
+// picks; either gives the same bits.  Two launches: split, then merge.
 int matern52_posterior_bwd_xq(const double* xq, const double* xt, const double* alpha,
                               const double* t, const double* var, const double* inv_ls,
                               const double* amp, const double* gm, const double* gv,
-                              double* dxq, int q, int n, int d, void* stream) {
-  size_t smem = sizeof(double) * ((size_t)n + d + kWarps + 1);
-  cudaError_t err = cudaFuncSetAttribute(posterior_bwd_xq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  posterior_bwd_xq_kernel<<<q, kThreads, smem, (cudaStream_t)stream>>>(
-      xq, xt, alpha, t, var, inv_ls, amp, gm, gv, dxq, n, d);
-  return (int)cudaGetLastError();
+                              double* dxq, double* scratch, int q, int n, int d, int rows,
+                              void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (q < 1 || n < 1 || d < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (rows == 1)
+    return (int)launch_bwd<1>(xq, xt, alpha, t, var, inv_ls, amp, gm, gv, scratch, dxq, q, n, d,
+                              s);
+  if (rows == 16)
+    return (int)launch_bwd<16>(xq, xt, alpha, t, var, inv_ls, amp, gm, gv, scratch, dxq, q, n,
+                               d, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

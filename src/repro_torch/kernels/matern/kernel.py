@@ -8,7 +8,11 @@ the kernels replace, what bounds them and why they look as they do):
   the walk kernel, then the merge.  :func:`plan` picks the regime and the
   scratch from (q, n, D); the summation order depends on n alone, so a
   row has the same bits in either regime and at any q;
-* :func:`matern52_posterior_bwd_xq` (K2): the gradient in the queries.
+* :func:`matern52_posterior_bwd_xq` (K2): the gradient in the queries, in
+  two launches: the split kernel (partials of each 64-column tile of
+  training points to scratch), then the merge.  :func:`bwd_plan` picks the
+  query rows a block and the scratch from (q, n, D); the sums follow an
+  order fixed by n alone, so a row has the same bits at any q.
 
 ``csrc/gram.cu`` holds the gram matrix of the GP fit:
 
@@ -50,7 +54,7 @@ LAUNCHES: Dict[str, int] = {"matern52_posterior_fwd": 0,
 
 _P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 declare("matern52_posterior_fwd", [_P] * 10 + [_I] * 4 + [_P], _I)
-declare("matern52_posterior_bwd_xq", [_P] * 10 + [_I] * 3 + [_P], _I)
+declare("matern52_posterior_bwd_xq", [_P] * 11 + [_I] * 4 + [_P], _I)
 declare("matern52_gram_smem_bytes", [_I, _I], _Z)
 declare("matern52_gram_bwd_scratch", [_I] * 4, _Z)
 declare("matern52_gram_fwd", [_P] * 5 + [_I] * 4 + [_P], _I)
@@ -66,14 +70,16 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
-# K1's geometry, as posterior.cu has it (kChunk, kTile, kSplitRows,
-# kWalkRows, kWalkCols, kStageRows)
+# K1's and K2's geometry, as posterior.cu has it (kChunk, kTile,
+# kSplitRows, kWalkRows, kWalkCols, kStageRows, kPiece)
 CHUNK = 64                       # rows of K⁻¹ a chunk: t sums chunk by chunk
 TILE = 64                        # columns of a split block and a mean/var tile
 SPLIT_ROWS = 16                  # query rows of a split block
 WALK_ROWS = 32                   # query rows of a walk block
 WALK_COLS = 256                  # columns of a walk block
 STAGE_ROWS = 32                  # K⁻¹ rows of a walk ring stage
+PIECE = 64                       # coordinates a split block stages at once
+BWD_ROWS = 16                    # query rows of a K2 block past q = 16
 N_SM = 132                       # the H100's SMs
 MAX_SCRATCH = 32 << 20           # bytes of split scratch a call may take
 _REGIMES = {"split": 0, "walk": 1}
@@ -92,9 +98,11 @@ class PosteriorPlan(NamedTuple):
 
 
 def _split_smem(d: int) -> int:
-    ds = d | 1
-    return 8 * (CHUNK * TILE + CHUNK * SPLIT_ROWS + d + SPLIT_ROWS * ds
-                + CHUNK * d + SPLIT_ROWS)
+    """The split kernel's shared memory: it stages D in pieces of at most
+    PIECE coordinates, so this is the size of one piece's block."""
+    pw = min(d, PIECE)
+    return 8 * (CHUNK * TILE + CHUNK * SPLIT_ROWS + pw + SPLIT_ROWS * (pw | 1)
+                + CHUNK * pw)
 
 
 def _walk_smem(d: int) -> int:
@@ -112,26 +120,46 @@ def plan(q: int, n: int, d: int) -> PosteriorPlan:
     16 at n ≤ 2048.  Otherwise ``"walk"`` (one block per WALK_ROWS
     queries × WALK_COLS columns walks every chunk, no scratch), whose
     shared memory holds D up to 81; past that the split regime runs
-    whatever its scratch (D up to 295).  Which blocks compute never
-    changes the order of the sums, so a row is bitwise the same whichever
-    regime its batch takes."""
+    whatever its scratch, at any D (it stages D in pieces).  Which blocks
+    compute never changes the order of the sums, so a row is bitwise the
+    same whichever regime its batch takes."""
     if q < 1 or n < 1 or d < 1:
         raise ValueError(f"empty posterior input (q={q}, n={n}, D={d})")
     chunks = -(-n // CHUNK)
     tiles, ds = -(-n // TILE), d | 1
     walk_blocks = -(-q // WALK_ROWS) * -(-n // WALK_COLS)
     scratch = (chunks + 1) * q * n
-    split_fits = max(_split_smem(d), 16 * tiles) <= MAX_SMEM
     walk_fits = max(_walk_smem(d), 8 * (d + 8 * (ds + 1) + 16 * tiles
                                         + TILE * ds)) <= MAX_SMEM
-    if split_fits and (not walk_fits or (walk_blocks < N_SM
-                                         and 8 * scratch <= MAX_SCRATCH)):
-        blocks = -(-n // TILE) * chunks * -(-q // SPLIT_ROWS)
+    if not walk_fits or (walk_blocks < N_SM and 8 * scratch <= MAX_SCRATCH):
+        blocks = tiles * chunks * -(-q // SPLIT_ROWS)
         return PosteriorPlan("split", chunks, blocks, scratch)
-    if walk_fits:
-        return PosteriorPlan("walk", chunks, walk_blocks, 0)
-    raise ValueError(f"D={d}, n={n} do not fit the forward kernels' "
-                     f"shared memory")
+    return PosteriorPlan("walk", chunks, walk_blocks, 0)
+
+
+class BwdPlan(NamedTuple):
+    """How K2 runs a (q, n, D) call.  ``tiles`` = ceil(n / TILE) column
+    tiles of TILE training points partition [0, n): the summation order.
+    ``rows`` is the split kernel's query rows a block, ``blocks`` its grid
+    size, and ``scratch`` the doubles of its partials, tiles·q·(D + 1)."""
+    rows: int
+    tiles: int
+    blocks: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_plan(q: int, n: int, d: int) -> BwdPlan:
+    """K2's geometry for q queries, n training points, D dimensions: one
+    split block per (column tile, ``rows`` queries), a row a block at q ≤
+    16 (the MSO's rounds: 90 blocks at q = 10, n = 544), BWD_ROWS at
+    larger q, so that a tile's training rows are staged once for that
+    many queries.  The rows never change the order of the sums."""
+    if q < 1 or n < 1 or d < 1:
+        raise ValueError(f"empty posterior input (q={q}, n={n}, D={d})")
+    tiles = -(-n // TILE)
+    rows = 1 if q <= 16 else BWD_ROWS
+    return BwdPlan(rows, tiles, tiles * -(-q // rows), tiles * q * (d + 1))
 
 
 def matern52_posterior_fwd(xq: Tensor, xt: Tensor, alpha: Tensor,
@@ -188,17 +216,16 @@ def matern52_posterior_bwd_xq(xq: Tensor, xt: Tensor, alpha: Tensor,
                            ("amplitude", amplitude, ()),
                            ("g_mean", g_mean, (q,)), ("g_var", g_var, (q,))):
         check_tensor(name, x, shape, torch.float64, dev)
-    if 8 * (n + d + 9) > MAX_SMEM:
-        raise ValueError(f"n={n} training points do not fit the backward "
-                         f"kernel's shared memory")
+    p = bwd_plan(q, n, d)
     dxq = torch.empty((q, d), dtype=torch.float64, device=dev)
+    scratch = torch.empty((p.scratch,), dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().matern52_posterior_bwd_xq(
             xq.data_ptr(), xt.data_ptr(), alpha.data_ptr(), t.data_ptr(),
             var.data_ptr(), inv_lengthscale.data_ptr(), amplitude.data_ptr(),
-            g_mean.data_ptr(), g_var.data_ptr(), dxq.data_ptr(), q, n, d,
-            stream)
+            g_mean.data_ptr(), g_var.data_ptr(), dxq.data_ptr(),
+            scratch.data_ptr(), q, n, d, p.rows, stream)
     check_launch("matern52_posterior_bwd_xq", err)
     LAUNCHES["matern52_posterior_bwd_xq"] += 1
     return dxq

@@ -16,7 +16,8 @@ from repro_torch.bo.sampler import GPSampler  # noqa: E402
 from repro_torch.bo.space import BoxSpace  # noqa: E402
 from repro_torch.core.mso import MsoOptions, maximize_acqf  # noqa: E402
 from repro_torch.engine.posterior import fused_logei_acq  # noqa: E402
-from repro_torch.gp.gpr import fit_gram, pad_gp, with_kinv  # noqa: E402
+from repro_torch.gp.gpr import (GPState, fit_gram, pad_gp,  # noqa: E402
+                                with_kinv)
 from repro_torch.gp.kernels import KernelParams  # noqa: E402
 from repro_torch.kernels.matern import kernel as K  # noqa: E402
 from repro_torch.kernels.matern.ops import matern52_posterior_op  # noqa: E402,E501
@@ -103,7 +104,7 @@ def k1_tolerances(xq, gp):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 513, 544, 2048])
 def test_posterior_fwd_rows_bitwise_at_any_batch_and_regime_on_card(cuda, n):
-    """K1 over ragged chunks (32 rows of K⁻¹) and tiles (64 columns), the
+    """K1 over ragged chunks (64 rows of K⁻¹) and tiles (64 columns), the
     last 3 training rows _FAR pseudo-points (n > 1): row 0 is bitwise the
     same alone, in a batch of 10 that ends in repeated padding rows, and
     in a batch of 1000 (the walk regime from n = 513 on, the split regime
@@ -142,6 +143,104 @@ def test_posterior_fwd_rows_bitwise_at_any_batch_and_regime_on_card(cuda, n):
         assert float((v_k - v_r).abs().max()) <= tol_v
     for out in outs[10]:
         assert torch.equal(out[6], out[9])               # repeated rows
+
+
+def k2_tolerance(xq, gp, t):
+    """K2's stated tolerance against its plain version: 1e-11 of Σ|terms|
+    of its sums, (Σ_j |c_ij| w_ij) |a_i| + Σ_j |c_ij| w_ij |b_j|, scaled
+    by 1/ℓ, with w_ij = |α_j| + 2 |t_ij|."""
+    xt, alpha, _, ils, amp = args_of(gp)
+    a, b, d2 = _scaled_sq_dists(xq, xt, ils)
+    r = torch.sqrt(d2 + 1e-36)
+    cw = ((5.0 / 3.0) * amp * (1.0 + SQRT5 * r) * torch.exp(-SQRT5 * r)
+          * (alpha.abs()[None, :] + 2.0 * t.abs()))
+    return 1e-11 * float((ils * (cw.sum(-1, keepdim=True) * a.abs()
+                                 + cw @ b.abs())).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 63, 64, 65, 513, 544, 2048])
+def test_posterior_bwd_rows_bitwise_at_any_batch_on_card(cuda, n):
+    """K2 over ragged tiles (64 training points), the last 3 training
+    rows _FAR pseudo-points (n > 1): row 0 of dxq is bitwise the same
+    alone (a row a split block), in a batch of 10 that ends in repeated
+    padding rows, and in a batch of 1000 (16 rows a block); a second call
+    repeats every bit; every batch is within 1e-11 of Σ|terms| of the
+    plain version.  Every batch reads the same t and var rows."""
+    d = 20
+    gp = state(n, d, seed=n, device=cuda, n_pad=min(3, n - 1))
+    xt, alpha, _, ils, amp = args = args_of(gp)
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.uniform(0, 1, (1000, d)), device=cuda)
+    x[1] = gp.x_train[0]                       # a query on a training point
+    _, var, t = matern52_posterior_fwd_ref(x, *args)
+    gm = torch.tensor(rng.standard_normal(1000), device=cuda)
+    gv = torch.tensor(rng.standard_normal(1000), device=cuda)
+    rows = {1: [0], 10: [0, 1, 2, 3, 4, 5, 6, 6, 6, 6], 1000: range(1000)}
+    batches = {q: tuple(v[torch.tensor(idx, device=cuda)].contiguous()
+                        for v in (x, t, var, gm, gv))
+               for q, idx in rows.items()}
+    assert [K.bwd_plan(q, n, d).rows for q in batches] == [1, 1, 16]
+
+    def bwd(xq, tq, vq, gmq, gvq):
+        return K.matern52_posterior_bwd_xq(xq, xt, alpha, tq, vq, ils, amp,
+                                           gmq, gvq)
+
+    K.reset_launch_counts()
+    outs = {q: bwd(*b) for q, b in batches.items()}
+    again = {q: bwd(*b) for q, b in batches.items()}
+    torch.cuda.synchronize()
+    assert K.launch_counts()["matern52_posterior_bwd_xq"] == 6
+    for q, (xq, tq, vq, gmq, gvq) in batches.items():
+        assert torch.equal(outs[q], again[q])            # run to run
+        assert torch.equal(outs[1][0], outs[q][0])       # row 0 at any q
+        assert bool(torch.isfinite(outs[q]).all())
+        ref = matern52_posterior_bwd_ref(xq, xt, alpha, tq, vq, ils, amp,
+                                         gmq, gvq)
+        assert float((outs[q] - ref).abs().max()) <= k2_tolerance(xq, gp, tq)
+    assert torch.equal(outs[10][6], outs[10][9])         # repeated rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [100, 300, 1000])
+@pytest.mark.parametrize("n", [33, 544])
+def test_posterior_kernels_take_any_d_on_card(cuda, n, d):
+    """K1 (split regime, D staged in pieces of 64) and K2 at D past what
+    one block's shared memory held whole: within their stated tolerances
+    of the plain versions, and row 0 bitwise the same at q = 1 and 10."""
+    # fitted on the CPU: the gram kernels hold D whole (D ≲ 400)
+    gp = state(n, d, seed=n + d, device=torch.device("cpu"))
+    gp = GPState(*(v.to(cuda) for v in (gp.x_train, gp.y_train)),
+                 KernelParams(gp.params.log_lengthscale.to(cuda),
+                              gp.params.log_amplitude.to(cuda),
+                              gp.params.log_noise.to(cuda)),
+                 gp.chol.to(cuda), gp.alpha.to(cuda), kinv=gp.kinv.to(cuda))
+    xt, alpha, _, ils, amp = args = args_of(gp)
+    rng = np.random.default_rng(d)
+    x = torch.tensor(rng.uniform(0, 1, (10, d)), device=cuda)
+    x[1] = gp.x_train[0]
+    gm = torch.tensor(rng.standard_normal(10), device=cuda)
+    gv = torch.tensor(rng.standard_normal(10), device=cuda)
+    outs = {}
+    for q in (1, 10):
+        xq = x[:q].contiguous()
+        assert K.plan(q, n, d).regime == "split"
+        m_k, v_k, t_k = K.matern52_posterior_fwd(xq, *args)
+        g_k = K.matern52_posterior_bwd_xq(xq, xt, alpha, t_k, v_k, ils, amp,
+                                          gm[:q], gv[:q])
+        m_r, v_r, t_r = matern52_posterior_fwd_ref(xq, *args)
+        g_r = matern52_posterior_bwd_ref(xq, xt, alpha, t_k, v_k, ils, amp,
+                                         gm[:q], gv[:q])
+        torch.cuda.synchronize()
+        tol_m, tol_t, tol_v = k1_tolerances(xq, gp)
+        assert bool(torch.isfinite(g_k).all())
+        assert float((m_k - m_r).abs().max()) <= tol_m
+        assert float((t_k - t_r).abs().max()) <= tol_t
+        assert float((v_k - v_r).abs().max()) <= tol_v
+        assert float((g_k - g_r).abs().max()) <= k2_tolerance(xq, gp, t_k)
+        outs[q] = (m_k, v_k, t_k, g_k)
+    for a, b in zip(outs[1], outs[10]):
+        assert torch.equal(a[0], b[0])
 
 
 @pytest.mark.cuda

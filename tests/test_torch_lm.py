@@ -47,7 +47,8 @@ def jax_side(dtype, seed=0):
 
 
 def carried(params):
-    return lm_params_from_numpy(jax.tree.map(np.asarray, unbox(params)))
+    return lm_params_from_numpy(jax.tree.map(np.asarray, unbox(params)),
+                                device="cpu")
 
 
 def tokens(vocab, seed=3):

@@ -41,7 +41,7 @@ def fitted():
         log_amplitude=np.asarray(gj.params.log_amplitude),
         log_noise=np.asarray(gj.params.log_noise),
         chol=np.asarray(gj.chol), alpha=np.asarray(gj.alpha),
-        kinv=np.asarray(gj.kinv))
+        kinv=np.asarray(gj.kinv), device="cpu")
     best = float(np.max(y_std))
     # random starts: at the incumbent (a training point) the posterior
     # variance is ~σ_n² and the quadratic form's cancellation, amplified

@@ -18,7 +18,8 @@ from repro.gp import gpr as jgpr  # noqa: E402
 from repro.gp.kernels import KernelParams as JParams  # noqa: E402
 from repro.kernels.matern.ref import \
     matern52_posterior_ref as j_post_ref  # noqa: E402
-from repro_torch.convert import gp_state_from_numpy  # noqa: E402
+from repro_torch.convert import (gp_state_from_numpy,  # noqa: E402
+                                 lm_params_from_numpy)
 from repro_torch.core.acquisition import log_ei, logei_acq  # noqa: E402
 from repro_torch.engine.posterior import (fused_logei_acq,  # noqa: E402
                                           posterior, resolve_backend)
@@ -195,3 +196,26 @@ def test_cpu_tensors_take_plain_versions_without_launches():
                                  torch.exp(-ls), gt.params.amplitude)
     with pytest.raises(NotImplementedError):
         m.sum().backward()
+
+
+def test_carry_over_defaults_to_the_card(monkeypatch):
+    """The carry-over functions follow the entry-point rule: no device
+    means the card, and without one they raise instead of moving to the
+    CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gj = jax_state(8, 2, seed=5)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gp_state_from_numpy(
+            x_train=np.asarray(gj.x_train), y_train=np.asarray(gj.y_train),
+            log_lengthscale=np.asarray(gj.params.log_lengthscale),
+            log_amplitude=np.asarray(gj.params.log_amplitude),
+            log_noise=np.asarray(gj.params.log_noise),
+            chol=np.asarray(gj.chol), alpha=np.asarray(gj.alpha))
+    tree = {"embed": np.zeros((4, 2), np.float32),
+            "final_norm": np.ones(2, np.float32),
+            "blocks": {"mlp": {"w": np.zeros((1, 2, 2), np.float32)}}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_params_from_numpy(tree)
+    assert to_port(gj).x_train.device.type == "cpu"     # asked for: the CPU
+    assert lm_params_from_numpy(tree, device="cpu")["embed"].device.type \
+        == "cpu"

@@ -1,7 +1,8 @@
-"""K1's launch plan (``repro_torch.kernels.matern.kernel.plan``) and the
-wrapper's CPU path.  The plan picks which blocks compute (split or walk
-regime, scratch); the summation order is fixed by n alone, so a row has
-the same bits in either regime and at any q (checked on a card by
+"""K1's launch plan (``repro_torch.kernels.matern.kernel.plan``), K2's
+(``bwd_plan``) and the wrappers' CPU paths.  A plan picks which blocks
+compute (K1: split or walk regime; K2: query rows a block; scratch); the
+summation order is fixed by n alone, so a row has the same bits in any
+geometry and at any q (checked on a card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``)."""
 import inspect
 import math
@@ -13,8 +14,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.matern import kernel as K  # noqa: E402
-from repro_torch.kernels.matern.ref import \
-    matern52_posterior_fwd_ref  # noqa: E402
+from repro_torch.kernels.matern.ref import (  # noqa: E402
+    matern52_posterior_bwd_ref, matern52_posterior_fwd_ref)
 
 NS = [1, 31, 32, 33, 513, 544, 2048]
 
@@ -95,17 +96,94 @@ def test_large_batches_walk_when_the_split_scratch_would_be_large():
 
 
 def test_plan_reads_shapes_only_and_refuses_what_does_not_fit():
+    """Only empty inputs are refused: the split regime stages D in pieces,
+    so it takes any D (D = 4000 too)."""
     assert list(inspect.signature(K.plan).parameters) == ["q", "n", "d"]
     for bad in ((0, 10, 3), (4, 0, 3), (4, 10, 0)):
         with pytest.raises(ValueError, match="empty"):
             K.plan(*bad)
-    with pytest.raises(ValueError, match="shared memory"):
-        K.plan(1000, 2048, 4000)
+    p = K.plan(1000, 2048, 4000)
+    assert p.regime == "split" and p.scratch == (p.chunks + 1) * 1000 * 2048
     # past the walk's D the split regime runs, whatever its scratch
     d_max = max(d for d in range(1, 400) if K._walk_smem(d) <= K.MAX_SMEM)
     assert K.plan(1000, 2048, d_max).regime == "walk"
     p = K.plan(1000, 2048, d_max + 1)
     assert p.regime == "split" and p.scratch == (p.chunks + 1) * 1000 * 2048
+
+
+@pytest.mark.parametrize("d", [1, 20, 64, 65, 100, 295, 296, 300, 1000,
+                               4000])
+def test_split_regime_stages_any_d_in_pieces(d):
+    """The split kernel's shared memory is one piece of at most PIECE
+    coordinates: D whole up to PIECE, the same size past it."""
+    assert K._split_smem(d) == K._split_smem(min(d, K.PIECE)) <= K.MAX_SMEM
+    for q, n in ((1, 33), (10, 544), (1000, 2048)):
+        p = K.plan(q, n, d)
+        if d > 81:
+            assert p.regime == "split"
+        assert p.chunks == math.ceil(n / K.CHUNK)
+
+
+BWD_NS = [1, 31, 32, 33, 63, 64, 65, 513, 544, 2048]
+
+
+@pytest.mark.parametrize("n", BWD_NS)
+def test_bwd_tiles_partition_n_by_n_alone(n):
+    """K2's ceil(n / TILE) column tiles of TILE training points cover
+    [0, n), the last one ragged, with the same tiles at q = 1, 10 and
+    1000: the order of its sums depends on n alone."""
+    plans = [K.bwd_plan(q, n, 20) for q in (1, 10, 1000)]
+    assert len({p.tiles for p in plans}) == 1
+    s = plans[0].tiles
+    assert s == math.ceil(n / K.TILE)
+    assert (s - 1) * K.TILE < n <= s * K.TILE
+
+
+def test_bwd_plan_reads_shapes_only():
+    assert list(inspect.signature(K.bwd_plan).parameters) == ["q", "n", "d"]
+    for bad in ((0, 10, 3), (4, 0, 3), (4, 10, 0)):
+        with pytest.raises(ValueError, match="empty"):
+            K.bwd_plan(*bad)
+
+
+@pytest.mark.parametrize("q,rows", [(1, 1), (2, 1), (4, 1), (8, 1), (10, 1),
+                                    (16, 1), (17, 16), (129, 16),
+                                    (1000, 16)])
+def test_bwd_rows_per_block(q, rows):
+    """A row a block at the evaluator's buckets (q ≤ 16); BWD_ROWS rows
+    past that, so that a tile's training rows are staged once per 16
+    queries; one split block per (tile, rows)."""
+    p = K.bwd_plan(q, 544, 20)
+    assert p.rows == rows
+    assert p.blocks == p.tiles * math.ceil(q / rows)
+
+
+@pytest.mark.parametrize("q", [1, 10, 1000])
+@pytest.mark.parametrize("n,d", [(33, 5), (544, 20), (2048, 20), (544, 300)])
+def test_bwd_scratch_is_tiles_q_d_plus_one(q, n, d):
+    """D partials Σ_j c_ij b_jk and one Σ_j c_ij for each (tile, row)."""
+    p = K.bwd_plan(q, n, d)
+    assert p.scratch == p.tiles * q * (d + 1)
+
+
+def test_bwd_main_shape_spreads_over_the_sms():
+    """q = 10, n = 544: 9 tiles × 10 rows = 90 blocks (the one block a row
+    before); q = 1000, n = 2048: 32 tiles × 63 row groups."""
+    p = K.bwd_plan(10, 544, 20)
+    assert (p.rows, p.tiles, p.blocks) == (1, 9, 90) and p.blocks >= 90
+    p = K.bwd_plan(1000, 2048, 20)
+    assert (p.rows, p.tiles, p.blocks) == (16, 32, 32 * 63)
+    assert 8 * p.scratch == 32 * 1000 * 21 * 8
+
+
+@pytest.mark.parametrize("q,n,d", [(10, 100_000, 20), (1000, 50_000, 20),
+                                   (10, 544, 1000), (1000, 2048, 4000)])
+def test_bwd_plan_refuses_no_large_n_or_d(q, n, d):
+    """No shared-memory limit on n (the old kernel held a row's n
+    weights in shared memory, n ≲ 29k) or on D (pieces)."""
+    p = K.bwd_plan(q, n, d)
+    assert p.tiles == math.ceil(n / K.TILE)
+    assert p.scratch == p.tiles * q * (d + 1)
 
 
 def test_cpu_wrapper_takes_the_plain_version_and_launches_nothing():
@@ -122,5 +200,25 @@ def test_cpu_wrapper_takes_the_plain_version_and_launches_nothing():
     want = matern52_posterior_fwd_ref(xq, *args)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    assert K.launch_counts() == dict.fromkeys(K.LAUNCHES, 0)
+    assert _build._LIB is None                    # nothing built or loaded
+
+
+def test_cpu_bwd_wrapper_takes_the_plain_version_and_launches_nothing():
+    rng = np.random.default_rng(1)
+    n, d, q = 70, 4, 5
+    f64 = torch.float64
+    xq = torch.tensor(rng.uniform(0, 1, (q, d)))
+    args = (torch.tensor(rng.uniform(0, 1, (n, d))),
+            torch.tensor(rng.standard_normal(n)),
+            torch.tensor(rng.standard_normal((q, n))),
+            torch.tensor(rng.uniform(0, 1, q)),
+            torch.tensor(rng.uniform(1, 3, d)), torch.tensor(1.3, dtype=f64),
+            torch.tensor(rng.standard_normal(q)),
+            torch.tensor(rng.standard_normal(q)))
+    K.reset_launch_counts()
+    got = K.matern52_posterior_bwd_xq(xq, *args)
+    assert torch.equal(got, matern52_posterior_bwd_ref(xq, *args))
+    assert got.shape == (q, d)
     assert K.launch_counts() == dict.fromkeys(K.LAUNCHES, 0)
     assert _build._LIB is None                    # nothing built or loaded

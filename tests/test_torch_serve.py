@@ -27,7 +27,8 @@ def tiny():
                                                            attn_chunk=16)
     jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
     cfg = get_config("llama3_2_3b").reduced().replace(dtype="float32")
-    params = lm_params_from_numpy(jax.tree.map(np.asarray, unbox(jparams)))
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, unbox(jparams)),
+                                  device="cpu")
     return (jcfg, jparams), (cfg, params)
 
 
