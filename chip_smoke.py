@@ -499,10 +499,11 @@ def phase_main(dev):
 
 # ------------------------------------------------- gram kernels K3 / K4
 def gram_inputs(n1, n2, d, r, device, far=0, seed=0):
-    """x1 (n1, D), x2 (n2, D) in the unit cube (x1 = x2 when n1 = n2), the
-    last ``far`` rows of x2 replaced by _FAR pseudo-points, 1/ℓ in
-    [e⁻¹, e⁴] (R, D), σ_f² (R,) and an upstream Ḡ (R, n1, n2) that, as in
-    the masked LML, is 0 on entries of _FAR rows."""
+    """x1 (n1, D), x2 (n2, D) in the unit cube, the last ``far`` rows of x2
+    replaced by _FAR pseudo-points, 1/ℓ in [e⁻¹, e⁴] (R, D), σ_f² (R,) and
+    an upstream Ḡ (R, n1, n2) that, as in the masked LML, is 0 on entries
+    of _FAR rows.  Where n1 = n2, x1 is x2: one tensor, as the fit passes
+    it (K3/K4's symmetric path)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed + 31 * n1 + d)
@@ -517,7 +518,9 @@ def gram_inputs(n1, n2, d, r, device, far=0, seed=0):
         g[:, :, -far:] = 0.0
         if n1 == n2:
             g[:, -far:, :] = 0.0
-    return tuple(torch.tensor(v, device=device) for v in (x1, x2, ils, amp, g))
+    x1, x2, ils, amp, g = (torch.tensor(v, device=device)
+                           for v in (x1, x2, ils, amp, g))
+    return (x2 if n1 == n2 else x1), x2, ils, amp, g
 
 
 def gram_tolerances(x1, x2, ils, amp, g):
@@ -591,6 +594,45 @@ def check_gram(tag, inputs, far, err):
             float(e_i.max()), float(il_tol.max()))
 
 
+def check_gram_paths(tag, inputs, far, err):
+    """K3/K4's symmetric path (x1 is x2, ``inputs``' own) against the
+    cross path (x2 a copy): the cross path within tolerance too; K3 the
+    same bits on both, bitwise symmetric, its n1 = 1 column k(x_i, X)
+    bitwise row i; each θ row of K3 and K4 the same bits at R = 1 as at
+    R = 2, on both paths."""
+    import torch
+    from repro_torch.kernels.matern import kernel as K
+    x, _, ils, amp, g = inputs
+    n, r = x.shape[0], ils.shape[0]
+    xc = x.clone()
+    check(K.same_points(x, x) and not K.same_points(x, xc),
+          f"{tag}: sameness check")
+    check_gram(f"{tag} cross", (x, xc, ils, amp, g), far, err)
+    k = {"same": K.matern52_gram_fwd(x, x, ils, amp),
+         "copy": K.matern52_gram_fwd(x, xc, ils, amp)}
+    bwd = {"same": K.matern52_gram_bwd_theta(x, x, ils, amp, g),
+           "copy": K.matern52_gram_bwd_theta(x, xc, ils, amp, g)}
+    check(torch.equal(k["same"], k["copy"]),
+          f"{tag}: K3 symmetric path != cross path bitwise")
+    check(torch.equal(k["same"], k["same"].transpose(1, 2)),
+          f"{tag}: K3 not bitwise symmetric")
+    for i in (0, n // 2, n - 1):
+        col = K.matern52_gram_fwd(x[i:i + 1], x, ils, amp)
+        check(torch.equal(col[:, 0], k["same"][:, i]),
+              f"{tag}: K3 column {i} != row {i} of the gram")
+    for path, x2 in (("same", x), ("copy", xc)):
+        for i in range(r):
+            one = (ils[i:i + 1].contiguous(), amp[i:i + 1].contiguous())
+            k1 = K.matern52_gram_fwd(x, x2, *one)
+            di, da = K.matern52_gram_bwd_theta(x, x2, *one,
+                                               g[i:i + 1].contiguous())
+            check(torch.equal(k1[0], k[path][i]),
+                  f"{tag} {path}: K3 θ row {i} differs at R=1")
+            check(torch.equal(di[0], bwd[path][0][i])
+                  and torch.equal(da[0], bwd[path][1][i]),
+                  f"{tag} {path}: K4 θ row {i} differs at R=1")
+
+
 def phase_gram_kernels(dev, err):
     err.update(gram_fwd=0.0, gram_bwd=0.0)
     for n in (32, 544, 2048):
@@ -599,12 +641,21 @@ def phase_gram_kernels(dev, err):
             for r in (1, 2):
                 check_gram(f"gram n={n} D={d} R={r} far={far}",
                            gram_inputs(n, n, d, r, dev, far), far, err)
+        check_gram_paths(f"gram n={n} D=20 R=2 far={far}",
+                         gram_inputs(n, n, 20, 2, dev, far), far, err)
         # the incremental refit's cross column k(x_new, X): n1 = 1, R = 1
         e = check_gram(f"gram n1=1 n2={n} D=20 far={far}",
                        gram_inputs(1, n, 20, 1, dev, far), far, err)
         log(f"[kernels] gram n={n}: D ∈ (5, 20, 40), R ∈ (1, 2) and the "
             f"n1=1 column within tolerance (column: K3 |Δ| {e[0]:.3e}, "
-            f"K4 |Δ| {e[2]:.3e})")
+            f"K4 |Δ| {e[2]:.3e}); x1 is x2 and a copy: K3 bitwise equal "
+            f"and symmetric, column = row, θ rows bitwise at R=1 and 2")
+    for d in (300, 1000):              # D in pieces of 64 coordinates
+        check_gram(f"gram n=544 D={d} R=2 far=32",
+                   gram_inputs(544, 544, d, 2, dev, 32), 32, err)
+        check_gram(f"gram n1=1 n2=544 D={d} far=32",
+                   gram_inputs(1, 544, d, 1, dev, 32), 32, err)
+    log("[kernels] gram D ∈ (300, 1000) at n=544 within tolerance")
     log(f"[kernels] gram max abs err fwd {err['gram_fwd']:.3e} bwd "
         f"{err['gram_bwd']:.3e}; K4 bitwise run to run; K3 diagonal exact")
 
@@ -710,8 +761,7 @@ def phase_fit_census(dev):
                                     for k, v in dev_us.items()})
             if mode == "kernels":
                 counts = {ev.key: ev.count for ev in kernels}
-                for name in ("gram_fwd_kernel", "gram_bwd_partial_kernel",
-                             "gram_bwd_reduce_kernel"):
+                for name in ("gram_fwd_kernel", "gram_bwd_kernel"):
                     got = sum(c for k, c in counts.items() if name in k)
                     check(got == iters, f"census: {name} {got} launches in "
                           f"{iters} evaluations")
@@ -915,7 +965,7 @@ DEVICE_CLASSES = (
             "posterior_fwd_merge_kernel", "posterior_fwd_merge_walk_kernel")),
     ("k2", ("posterior_bwd_split_kernel", "posterior_bwd_merge_kernel")),
     ("k3", ("gram_fwd_kernel",)),
-    ("k4", ("gram_bwd_partial_kernel", "gram_bwd_reduce_kernel")),
+    ("k4", ("gram_bwd_kernel", "gram_bwd_merge_kernel")),
     ("memcpy", ("memcpy",)),
     ("chol_solve", ("potrf", "potrs", "trsm", "trsv", "cholesky", "magma",
                     "cusolver", "syrk", "herk", "trtri")),
@@ -1052,21 +1102,34 @@ def phase_timing(dev, state):
 
 
 def phase_gram_timing(dev):
-    """K3/K4 and their plain versions at the MAP fit's shape (R=2, n=544,
-    D=20, the bucket's 32 _FAR rows included) and at n=2048."""
+    """K3/K4 and their plain versions at the MAP fit's call (R=2, n=544,
+    D=20, the bucket's 32 _FAR rows included, x1 is x2: the symmetric
+    path) and at n=2048; at n=544 also the cross path (x2 a copy) and the
+    rank-one refit's column (n1 = 1, R = 1)."""
     from repro_torch.kernels.matern import kernel as K
     from repro_torch.kernels.matern.ref import (matern52_gram_bwd_theta_ref,
                                                 matern52_gram_ref)
     rows = []
     for n, iters in ((544, 200), (2048, 20)):
-        x1, x2, ils, amp, g = gram_inputs(n, n, 20, 2, dev, far=32)
+        x, _, ils, amp, g = gram_inputs(n, n, 20, 2, dev, far=32)
         calls = {
-            "gram_fwd": lambda: K.matern52_gram_fwd(x1, x2, ils, amp),
-            "gram_fwd_plain": lambda: matern52_gram_ref(x1, x2, ils, amp),
-            "gram_bwd": lambda: K.matern52_gram_bwd_theta(x1, x2, ils, amp,
-                                                          g),
+            "gram_fwd": lambda: K.matern52_gram_fwd(x, x, ils, amp),
+            "gram_fwd_plain": lambda: matern52_gram_ref(x, x, ils, amp),
+            "gram_bwd": lambda: K.matern52_gram_bwd_theta(x, x, ils, amp, g),
             "gram_bwd_plain": lambda: matern52_gram_bwd_theta_ref(
-                x1, x2, ils, amp, g)}
+                x, x, ils, amp, g)}
+        if n == 544:
+            xc, xi = x.clone(), x[n - 33:n - 32]
+            il1, amp1 = ils[:1].contiguous(), amp[:1].contiguous()
+            calls.update({
+                "gram_fwd_cross": lambda: K.matern52_gram_fwd(x, xc, ils,
+                                                              amp),
+                "gram_bwd_cross": lambda: K.matern52_gram_bwd_theta(
+                    x, xc, ils, amp, g),
+                "gram_fwd_column": lambda: K.matern52_gram_fwd(xi, x, il1,
+                                                               amp1),
+                "gram_fwd_column_plain": lambda: matern52_gram_ref(
+                    xi, x, il1, amp1)})
         row = dict(n=n, D=20, R=2)
         for key, fn in calls.items():
             row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(fn, iters)
@@ -1075,6 +1138,10 @@ def phase_gram_timing(dev):
         bb, bby = bound_ms(*gram_cost(2, n, n, 20, True))
         row.update(gram_fwd_bound_ms=fb, gram_fwd_bound_by=fby,
                    gram_bwd_bound_ms=bb, gram_bwd_bound_by=bby)
+        if n == 544:
+            cb, cby = bound_ms(*gram_cost(1, 1, n, 20, False))
+            row.update(gram_fwd_column_bound_ms=cb,
+                       gram_fwd_column_bound_by=cby)
         rows.append(row)
         log("[timing] " + json.dumps(row))
     return rows

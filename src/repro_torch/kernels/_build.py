@@ -4,7 +4,8 @@ Every ``kernels/*/csrc/*.cu`` of the port is compiled with its own
 ``nvcc -c`` (all started together) and the objects are linked into one
 shared library with a plain C interface, in ``build/kernels/`` at the
 repository root, loaded with ``ctypes``.  The library's name carries a
-hash of the sources and flags, so an edited source is rebuilt.  Nothing is
+hash of the sources, the headers they include (``*/csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt.  Nothing is
 built or loaded at import: the first kernel launch builds, and a build
 failure raises.
 
@@ -25,6 +26,7 @@ from typing import Dict, List, Optional, Tuple
 
 KERNELS_DIR = Path(__file__).resolve().parent
 SOURCES = tuple(sorted(KERNELS_DIR.glob("*/csrc/*.cu")))
+HEADERS = tuple(sorted(KERNELS_DIR.glob("*/csrc/*.cuh")))
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -63,7 +65,7 @@ def _nvcc() -> str:
 
 def lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"

@@ -15,259 +15,463 @@
 // What bounds them on an H100.  K3 writes 8·R·n1·n2 bytes and does 2D
 // product operations and ~14 others an entry: at the MAP fit's shape (R = 2,
 // n = 544, D = 20) 4.9 MB, 1.47 µs at 3.35 TB/s, against ~0.6 µs of f64
-// operations, so bytes bound it (also at n = 2048, D = 40).  K4 reads Ḡ (the
-// same bytes); its least work writes Σ_ij c_ij (x1_id − x2_jd)² as
-// Σ_i x1_id² rowsum_i(C) + Σ_j x2_jd² colsum_j(C) − 2 Σ_i x1_id (C·x2)_id, one
-// more product (2D operations an entry) and ~17 others, ~1.0 µs at the fit's
-// shape, so bytes bound it too (1.47 µs).  It takes the differences directly
-// instead (~5D + 17 an entry; see the last point below).  Either bound is far
-// below a launch's latency at the fit's shape, where the grid is 17×17×2
-// tiles.
+// operations, so bytes bound it (also at n = 2048).  K4 reads Ḡ (the same
+// bytes) and is bound by them too.  Both are far below a launch's latency
+// at the fit's shape, so what counts there is the length of a block's
+// dependent steps and how many blocks share the SMs.
 //
 // Design.
 //  * f64 throughout: JAX's fit builds its gram in f64 (x64); an f32 gram breaks
 //    the fit's Cholesky.
-//  * One block computes a 32×32 output tile of one θ row r (grid x over n2
-//    tiles, y over n1 tiles, z over r).  The tile's rows of x1 and x2, scaled by
-//    1/ℓ[r], and their squared norms sit in shared memory with D whole; the
-//    shared row stride is odd so a warp's column reads hit distinct banks.
-//    Lanes own consecutive columns j, so the output row is written coalesced.
-//    The ragged edges are masked, never padded.
-//  * d² is the expanded, clamped form of JAX's gram and of K1's sq_dist
-//    (posterior.cu), with the same sequential fma order over D, so K3 at
-//    x1 = x2 gives d² = 0 exactly on the diagonal.
+//  * A block computes one kT × kT = 32 × 32 tile (I, J) of one θ row r: grid
+//    (tiles, R).  The plan (kernel.py::gram_plan) gives the tiles: every
+//    tile, row-major, or, when x1 and x2 are the same points (every call of
+//    the fit), the tiles I ≤ J of the upper triangle, row-major: 153 a θ
+//    row at n = 544 (306 blocks at R = 2, over the 132 SMs), where 289 were.
+//  * Each block stages its 32 + 32 rows by cp.async, D in pieces of kPiece
+//    coordinates, scales them by 1/ℓ with every thread, and carries the
+//    |a|², |b|² chains (threads 0–63, a row each) and its a·b chains (warp w
+//    owns rows w, w + 8, w + 16, w + 24, lane = column) from piece to piece
+//    in k order: any D, the same bits as D staged whole.  The entry is
+//    matern.cuh's, so K3's k(x_i, x_j) is the same sequence of roundings as
+//    K1's k*.  Both chains are symmetric in (i, j) (fma of a product that
+//    commutes, an add that commutes), so an entry has the same bits
+//    whichever tile computes it: K3's diagonal is σ_f² exactly (d² = 0),
+//    its symmetric path gives the cross path's bits, and the n1 = 1 column
+//    gives row i of the full gram.
+//  * K3 symmetric: an off-diagonal tile writes its entries at (i, j)
+//    coalesced and, through a transposed copy in shared memory, at (j, i),
+//    coalesced too.  A diagonal tile computes and writes all its entries.
+//  * K4 weights each pair once: gs = Ḡ_ij, plus Ḡ_ji where the tile stands
+//    for both orders (i < j in a diagonal tile, every pair off it; Ḡ is
+//    never taken as symmetric), both read coalesced (the (J, I) tile by
+//    cp.async, then transposed through shared memory).  A pair's terms are
+//    c = gs (1 + √5ρ) e^{−√5ρ} (0 on the diagonal, where every difference is
+//    0) for 1/ℓ and gs k/σ_f² for σ_f²; both go to shared memory.
+//  * K4's sums, in an order fixed by (n1, n2) and the path alone, never by
+//    R, D or the grid; no atomics on values:
+//      in a tile, a coordinate's 32 row slices s_i = Σ_j c_ij (x1_ik − x2_jk)²
+//      (an fma chain over j in order; differences of the unscaled rows,
+//      restaged a piece at a time in reverse, so the last staged piece is
+//      summed first), then tree32 over the slices (pairs 16, 8, 4, 2, 1
+//      apart); the σ_f² sum the same way over Σ_j gs k/σ_f²;
+//      over a θ row's tiles (partials laid out (R, D + 1, tiles)): lane l
+//      of a warp adds tiles l, l + 32, … in order, then the lanes by the
+//      same tree.
+//    A reduction thread owns one row slice of kGroup = 4 coordinates: a
+//    step loads c_ij once (lanes along rows, odd stride) and x2_j's four
+//    coordinates (16-byte broadcast loads) for 12 f64 operations.
+//  * The merge over tiles runs in the last block of a θ row to finish
+//    (merge 0: a ticket per θ row in a wrapper-held buffer, reset by that
+//    block) or in a second kernel, a warp a coordinate (merge 1).  The two
+//    add the same partials in the same order.
 //  * _FAR pseudo-rows (x ≈ 1e6 + i): d² ~ 1e16 there, and cancellation can put
 //    any value ≥ 0 between two of them after the clamp.  Every value stays
 //    finite: exp underflows to 0 against a finite polynomial, never inf·0.
 //    The masked LML multiplies those entries by 0 and their Ḡ is 0.
-//  * K4 sums over (i, j) with a fixed order and no atomics: each block reduces
-//    its tile (fixed warp-shuffle tree, then warps in order) into one partial
-//    per (r, tile, d); a second kernel, one block per (d, r), adds a sum's
-//    partials in an order fixed by the number of tiles.  The fit's gradient
-//    is then bitwise the same run to run.
-//  * The difference (x1_id − x2_jd) is taken from the unscaled coordinates, so
-//    ∂/∂(1/ℓ) has no cancellation of its own.
+//  * a·bᵀ stays on the CUDA cores: the FP64 tensor cores (mma.sync m8n8k4)
+//    would change the order of d²'s sum, and the diagonal would no longer
+//    be σ_f² exactly.
 
-#include <cuda_runtime.h>
+#include "matern.cuh"
 
 namespace {
 
-constexpr int kTile = 32;                  // output tile is kTile × kTile
+constexpr int kT = 32;                     // tile edge
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerThread = kTile / kWarps;   // warp w owns rows w, w + 8, ...
-constexpr double kSqrt5 = 2.2360679774997896;
+constexpr int kRows = kT / kWarps;         // tile rows a thread owns (one column)
+constexpr int kTS = kT + 1;                // row stride of a tile in shared memory (odd)
+constexpr int kPiece = 64;                 // coordinates staged at a time
+constexpr int kGroup = 4;                  // coordinates of a K4 row slice
+constexpr int kBatch = 8;                  // partials a merge lane loads at once
 
-__host__ __device__ __forceinline__ int row_stride(int d) { return d | 1; }
+// row stride of the raw (unscaled) rows: a multiple of kGroup, so that a
+// slice's coordinates load as two 16-byte words
+__host__ __device__ __forceinline__ int raw_stride(int pw) { return (pw + 3) & ~3; }
 
-// Scaled rows of one tile into shared memory, with their squared norms.
-__device__ __forceinline__ void load_scaled(const double* __restrict__ x, int n, int d,
-                                            int row0, const double* il, double* dst,
-                                            double* sq, const int ld) {
-  for (int idx = threadIdx.x; idx < kTile * d; idx += kThreads) {
-    int r = idx / d, k = idx - r * d;
-    int row = row0 + r;
-    dst[r * ld + k] = row < n ? x[(size_t)row * d + k] * il[k] : 0.0;
-  }
-  __syncthreads();
-  if (threadIdx.x < kTile) {
-    double s = 0.0;
-    for (int k = 0; k < d; ++k) s = fma(dst[threadIdx.x * ld + k], dst[threadIdx.x * ld + k], s);
-    sq[threadIdx.x] = s;
-  }
+// doubles of a block's shared memory, pw = min(D, kPiece):
+//   xr [2kT][raw_stride]  raw rows of the piece (x1's tile rows, then x2's)
+//   xs [2kT][coord_stride] the same, scaled by 1/ℓ
+//   ils [pw], sq [2kT]     the piece's 1/ℓ, the rows' |·|²
+//   t0 [kT][kTS]           K3: the transposed tile; K4: Ḡ (I, J), then c
+//   t1 [kT][kTS]           K4: Ḡ (J, I), then gs k/σ_f²
+//   sl [raw_stride + 1][kTS] K4: row slices (the σ_f² sum's in the last row)
+__host__ __device__ __forceinline__ size_t smem_doubles(int pw, bool bwd) {
+  return (size_t)2 * kT * (raw_stride(pw) + coord_stride(pw)) + pw + 2 * kT + kT * kTS +
+         (bwd ? (size_t)kT * kTS + (size_t)(raw_stride(pw) + 1) * kTS : 0);
 }
 
-__device__ __forceinline__ double tile_sq_dist(const double* a, double asq, const double* b,
-                                               double bsq, int d) {
-  double ab = 0.0;
-  for (int k = 0; k < d; ++k) ab = fma(a[k], b[k], ab);
-  double d2 = (asq + bsq) - 2.0 * ab;
-  return d2 > 0.0 ? d2 : 0.0;
-}
-
-// Shared layout of both kernels: a, b (kTile × ld each), asq, bsq (kTile
-// each), il (d).
-struct Tile {
-  double *a, *b, *asq, *bsq, *il;
-  __device__ Tile(double* smem, int d) {
-    const int ld = row_stride(d);
-    a = smem;
-    b = a + kTile * ld;
-    asq = b + kTile * ld;
-    bsq = asq + kTile;
-    il = bsq + kTile;
+struct Layout {
+  double *xr, *xs, *ils, *sq, *t0, *t1, *sl;
+  __device__ Layout(double* smem, int pw) {
+    xr = smem;
+    xs = xr + 2 * kT * raw_stride(pw);
+    ils = xs + 2 * kT * coord_stride(pw);
+    sq = ils + pw;
+    t0 = sq + 2 * kT;
+    t1 = t0 + kT * kTS;
+    sl = t1 + kT * kTS;
   }
 };
 
-__device__ __forceinline__ void load_tile(const Tile& t, const double* __restrict__ x1,
-                                          const double* __restrict__ x2,
-                                          const double* __restrict__ inv_ls, int n1, int n2,
-                                          int d, int r, int row0, int col0) {
-  for (int k = threadIdx.x; k < d; k += kThreads) t.il[k] = inv_ls[(size_t)r * d + k];
-  __syncthreads();
-  const int ld = row_stride(d);
-  load_scaled(x1, n1, d, row0, t.il, t.a, t.asq, ld);
-  load_scaled(x2, n2, d, col0, t.il, t.b, t.bsq, ld);
-  __syncthreads();
+struct GramArgs {
+  const double* x1;
+  const double* x2;
+  const double* inv_ls;
+  const double* amp;
+  const double* g;                         // K4: Ḡ (R, n1, n2)
+  double* out;                             // K3: (R, n1, n2)
+  double* part;                            // K4: partials (R, D + 1, tiles)
+  unsigned* ticket;                        // K4, merge 0: (R,) zeros
+  double* d_inv;                           // K4: (R, D)
+  double* d_amp;                           // K4: (R,)
+  int n1, n2, d, tiles, tn1, tn2, sym, merge;
+};
+
+// tile t of a θ row → (I, J): row-major over the tn1 × tn2 tiles, or over
+// the upper triangle I ≤ J (sym; tn1 = tn2)
+__host__ __device__ __forceinline__ void tile_coords(int t, int tn2, int sym, int* I, int* J) {
+  if (!sym) {
+    *I = t / tn2;
+    *J = t - *I * tn2;
+    return;
+  }
+  int i = 0, row = tn2;
+  while (t >= row) {
+    t -= row;
+    ++i;
+    --row;
+  }
+  *I = i;
+  *J = i + t;
 }
 
-__global__ void __launch_bounds__(kThreads)
-gram_fwd_kernel(const double* __restrict__ x1, const double* __restrict__ x2,
-                const double* __restrict__ inv_ls, const double* __restrict__ amp,
-                double* __restrict__ out, int n1, int n2, int d) {
-  extern __shared__ double smem[];
-  const Tile t(smem, d);
-  const int r = blockIdx.z, row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
-  load_tile(t, x1, x2, inv_ls, n1, n2, d, r, row0, col0);
-
-  const int ld = row_stride(d);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = col0 + lane;
-  if (col >= n2) return;
-  const double s = amp[r];
-#pragma unroll
-  for (int p = 0; p < kRowsPerThread; ++p) {
-    const int i = warp + p * kWarps, row = row0 + i;
-    if (row >= n1) break;
-    double d2 = tile_sq_dist(t.a + i * ld, t.asq[i], t.b + lane * ld, t.bsq[lane], d);
-    double rr = sqrt(d2 + 1e-36);
-    out[((size_t)r * n1 + row) * n2 + col] =
-        s * (1.0 + kSqrt5 * rr + (5.0 / 3.0) * d2) * exp(-kSqrt5 * rr);
-  }
+__host__ __device__ __forceinline__ int tile_count(int n1, int n2, int sym) {
+  const int tn1 = (n1 + kT - 1) / kT, tn2 = (n2 + kT - 1) / kT;
+  return sym ? tn1 * (tn1 + 1) / 2 : tn1 * tn2;
 }
 
-// Pass 1 of K4: one partial per (r, block, d) and (r, block, D) for σ_f².
-__global__ void __launch_bounds__(kThreads)
-gram_bwd_partial_kernel(const double* __restrict__ x1, const double* __restrict__ x2,
-                        const double* __restrict__ inv_ls, const double* __restrict__ g,
-                        double* __restrict__ partial, int n1, int n2, int d) {
-  extern __shared__ double smem[];
-  const Tile t(smem, d);
-  const int ld = row_stride(d);
-  double* wsum = t.il + d;                 // (kWarps, d + 1) per-warp sums
-  const int r = blockIdx.z, row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
-  load_tile(t, x1, x2, inv_ls, n1, n2, d, r, row0, col0);
+// tree over 32 leaves: tree32<S>(leaf, l) sums the leaves ≡ l (mod S), the
+// pairs 16 apart first; tree32<1>(leaf, 0) adds what lane 0 of a
+// __shfl_down tree (offsets 16, 8, 4, 2, 1) adds
+template <int S, typename Leaf>
+__device__ __forceinline__ double tree32(const Leaf& leaf, int l) {
+  if constexpr (S == 16)
+    return __dadd_rn(leaf(l), leaf(l + 16));
+  else
+    return __dadd_rn(tree32<2 * S>(leaf, l), tree32<2 * S>(leaf, l + S));
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = col0 + lane;
-  double c[kRowsPerThread];                // Ḡ (1 + √5ρ) e^{−√5ρ} of each owned entry
-  double ksum = 0.0;                       // Σ Ḡ k / σ_f² over owned entries
-#pragma unroll
-  for (int p = 0; p < kRowsPerThread; ++p) {
-    const int i = warp + p * kWarps, row = row0 + i;
-    c[p] = 0.0;
-    if (row < n1 && col < n2) {
-      const double gv = g[((size_t)r * n1 + row) * n2 + col];
-      double d2 = tile_sq_dist(t.a + i * ld, t.asq[i], t.b + lane * ld, t.bsq[lane], d);
-      double rr = sqrt(d2 + 1e-36);
-      double e = exp(-kSqrt5 * rr);
-      c[p] = gv * (1.0 + kSqrt5 * rr) * e;
-      ksum = fma(gv, (1.0 + kSqrt5 * rr + (5.0 / 3.0) * d2) * e, ksum);
-    }
-  }
-  const int rowc = min(col, n2 - 1);
-  for (int k = 0; k <= d; ++k) {
-    double s = 0.0;
-    if (k < d) {
-      const double xb = x2[(size_t)rowc * d + k];
-#pragma unroll
-      for (int p = 0; p < kRowsPerThread; ++p) {
-        const int row = min(row0 + warp + p * kWarps, n1 - 1);
-        const double diff = x1[(size_t)row * d + k] - xb;
-        s = fma(c[p], diff * diff, s);
-      }
-    } else {
-      s = ksum;
-    }
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) wsum[warp * (d + 1) + k] = s;
-  }
-  __syncthreads();
-  const size_t blk = ((size_t)r * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  for (int k = threadIdx.x; k <= d; k += kThreads) {
-    double s = 0.0;
-    for (int w = 0; w < kWarps; ++w) s += wsum[w * (d + 1) + k];
-    partial[blk * (d + 1) + k] = s;
+// the kT × kT tile of a row-major matrix (leading dimension ld) at src into
+// dst (row stride kTS), asynchronously, lanes along a row; zeros at rows ≥
+// vr or columns ≥ vc.  base: any valid address of the matrix.
+__device__ __forceinline__ void stage_g_tile(double* dst, const double* src, int ld, int vr,
+                                             int vc, const double* base) {
+  const int c = threadIdx.x & (kT - 1);
+  for (int rr = threadIdx.x / kT; rr < kT; rr += kThreads / kT) {
+    const bool ok = rr < vr && c < vc;
+    cp_async8(smem_u32(dst + rr * kTS + c), ok ? src + (size_t)rr * ld + c : base, ok);
   }
 }
 
-// Pass 2 of K4: one block per (d, r) adds that sum's per-tile partials in a
-// fixed order: thread t takes tiles t, t + kThreads, ... in turn, then a
-// fixed shuffle tree and the warps in order.  The order depends on the
-// number of tiles only.
-__global__ void __launch_bounds__(kThreads)
-gram_bwd_reduce_kernel(const double* __restrict__ partial, const double* __restrict__ inv_ls,
-                       const double* __restrict__ amp, double* __restrict__ d_inv_ls,
-                       double* __restrict__ d_amp, int n_blocks, int d) {
-  __shared__ double wsum[kWarps];
-  const int k = blockIdx.x, r = blockIdx.y;
-  const double* p = partial + (size_t)r * n_blocks * (d + 1) + k;
+// K4's sum of coordinate k (k = D: σ_f²) over a θ row's tiles, by one warp,
+// and its gradient entry
+__device__ __forceinline__ void merge_coord(const GramArgs& a, int r, int k, int lane) {
+  const double* p = a.part + ((size_t)r * (a.d + 1) + k) * a.tiles;
   double s = 0.0;
-  for (int b = threadIdx.x; b < n_blocks; b += kThreads) s += p[(size_t)b * (d + 1)];
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double t = 0.0;
-    for (int w = 0; w < kWarps; ++w) t += wsum[w];
-    if (k < d)
-      d_inv_ls[(size_t)r * d + k] = -(5.0 / 3.0) * amp[r] * inv_ls[(size_t)r * d + k] * t;
-    else
-      d_amp[r] = t;
+  for (int t0 = lane; t0 < a.tiles; t0 += 32 * kBatch) {
+    double v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int t = t0 + 32 * u;
+      v[u] = t < a.tiles ? __ldcg(p + t) : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (t0 + 32 * u < a.tiles) s = __dadd_rn(s, v[u]);
+  }
+  for (int off = 16; off > 0; off >>= 1) s = __dadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
+  if (lane == 0) {
+    if (k < a.d) {
+      const double il = a.inv_ls[(size_t)r * a.d + k];
+      a.d_inv[(size_t)r * a.d + k] = __dmul_rn(__dmul_rn(__dmul_rn(-5.0 / 3.0, a.amp[r]), il), s);
+    } else {
+      a.d_amp[r] = s;
+    }
   }
 }
 
-size_t tile_smem_bytes(int d) {
-  return sizeof(double) * (2 * (size_t)kTile * row_stride(d) + 2 * kTile + d);
+template <bool kBwd>
+__device__ __forceinline__ void gram_block(const GramArgs& a) {
+  extern __shared__ __align__(16) double smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = blockIdx.x, r = blockIdx.y, d = a.d;
+  int I, J;
+  tile_coords(t, a.tn2, a.sym, &I, &J);
+  const int i0 = I * kT, j0 = J * kT;
+  const bool mirror = a.sym && I != J;     // the tile stands for (I, J) and (J, I)
+  const bool diag = a.sym && I == J;
+  const int pw = d < kPiece ? d : kPiece, pr = raw_stride(pw), ps = coord_stride(pw);
+  const int npieces = (d + kPiece - 1) / kPiece;
+  const Layout L(smem, pw);
+  const double* ils_r = a.inv_ls + (size_t)r * d;
+  const double* gr = kBwd ? a.g + (size_t)r * a.n1 * a.n2 : nullptr;
+
+  auto stage_raw = [&](int k0, int kw) {
+    stage_rows(L.xr, pr, a.x1 + (size_t)i0 * d + k0, d, kT, a.n1 - i0, kw);
+    stage_rows(L.xr + kT * pr, pr, a.x2 + (size_t)j0 * d + k0, d, kT, a.n2 - j0, kw);
+  };
+
+  // |a_i|², |b_j|² (threads < 2kT, a row each) and a_i·b_j: fma chains in k
+  // order, carried over the pieces; Ḡ's tiles arrive under the first
+  double ab[kRows], nrm = 0.0;
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) ab[m] = 0.0;
+  for (int p = 0; p < npieces; ++p) {
+    const int k0 = p * kPiece, kw = d - k0 < kPiece ? d - k0 : kPiece;
+    if (p > 0) __syncthreads();            // the last piece is read
+    stage_raw(k0, kw);
+    for (int k = tid; k < kw; k += kThreads) cp_async8(smem_u32(L.ils + k), ils_r + k0 + k, true);
+    cp_async_commit();
+    if (kBwd && p == 0) {
+      stage_g_tile(L.t0, gr + (size_t)i0 * a.n2 + j0, a.n2, a.n1 - i0, a.n2 - j0, gr);
+      if (mirror)
+        stage_g_tile(L.t1, gr + (size_t)j0 * a.n2 + i0, a.n2, a.n1 - j0, a.n2 - i0, gr);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    scale_into(L.xs, ps, L.xr, pr, 2 * kT, kw, L.ils);
+    __syncthreads();
+    if (tid < 2 * kT) {
+      const double* row = L.xs + tid * ps;
+      for (int k = 0; k < kw; ++k) nrm = __fma_rn(row[k], row[k], nrm);
+    }
+    const double* b = L.xs + (kT + lane) * ps;
+    const double* arow = L.xs + warp * ps;
+    for (int k = 0; k < kw; ++k) {
+      const double bk = b[k];
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) ab[m] = __fma_rn(arow[m * kWarps * ps + k], bk, ab[m]);
+    }
+  }
+  if (tid < 2 * kT) L.sq[tid] = nrm;
+  if (kBwd) cp_async_wait<0>();
+  __syncthreads();
+
+  if constexpr (!kBwd) {
+    // ---------------------------------------------------------- K3
+    const double amp = a.amp[r];
+    double* o = a.out + (size_t)r * a.n1 * a.n2;
+    const double bsq = L.sq[kT + lane];
+    const int col = j0 + lane;
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      const int i = warp + m * kWarps;
+      const double v = matern(L.sq[i], bsq, ab[m], amp);
+      if (i0 + i < a.n1 && col < a.n2) o[(size_t)(i0 + i) * a.n2 + col] = v;
+      if (mirror) L.t0[i * kTS + lane] = v;
+    }
+    if (mirror) {                          // (j, i): the tile transposed
+      __syncthreads();
+      const int col2 = i0 + lane;
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) {
+        const int jj = warp + m * kWarps;
+        if (j0 + jj < a.n1 && col2 < a.n2)
+          o[(size_t)(j0 + jj) * a.n2 + col2] = L.t0[lane * kTS + jj];
+      }
+    }
+  } else {
+    // ---------------------------------------------------------- K4
+    // gs: Ḡ_ij, plus Ḡ_ji where the tile stands for both orders
+    double gs[kRows];
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      const int i = warp + m * kWarps;
+      double v = L.t0[i * kTS + lane];
+      if (mirror)
+        v = __dadd_rn(v, L.t1[lane * kTS + i]);
+      else if (diag)
+        v = i < lane ? __dadd_rn(v, L.t0[lane * kTS + i]) : (i == lane ? v : 0.0);
+      gs[m] = v;
+    }
+    __syncthreads();                       // t0, t1 now take the pairs' terms
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      const int i = warp + m * kWarps;
+      const double d2 = sq_dist(L.sq[i], L.sq[kT + lane], ab[m]);
+      const double rr = __dsqrt_rn(__dadd_rn(d2, 1e-36));
+      const double e = exp(__dmul_rn(-kSqrt5, rr));
+      const double q1 = __fma_rn(kSqrt5, rr, 1.0);
+      L.t0[i * kTS + lane] = diag && i == lane ? 0.0 : __dmul_rn(gs[m], __dmul_rn(q1, e));
+      L.t1[i * kTS + lane] = __dmul_rn(gs[m], __dmul_rn(__fma_rn(5.0 / 3.0, d2, q1), e));
+    }
+    __syncthreads();
+
+    // the tile's partials, the pieces from the last (still staged) to the
+    // first; the σ_f² sum with the first
+    double* part = a.part + (size_t)r * (d + 1) * a.tiles + t;
+    for (int p = npieces - 1; p >= 0; --p) {
+      const int k0 = p * kPiece, kw = d - k0 < kPiece ? d - k0 : kPiece;
+      if (p < npieces - 1) {
+        __syncthreads();                   // the slices of the last piece are read
+        stage_raw(k0, kw);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      const int groups = (kw + kGroup - 1) / kGroup;
+      const int items = (groups + (p == 0 ? 1 : 0)) * kT;
+      for (int e = tid; e < items; e += kThreads) {
+        const int gi = e / kT, i = e - gi * kT;
+        if (gi < groups) {                 // row i's slice of coordinates kb … kb + 3
+          const int kb = gi * kGroup;
+          const double2 xa = *reinterpret_cast<const double2*>(L.xr + i * pr + kb);
+          const double2 xb = *reinterpret_cast<const double2*>(L.xr + i * pr + kb + 2);
+          const double* c = L.t0 + i * kTS;
+          const double* y = L.xr + kT * pr + kb;
+          double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
+#pragma unroll 4
+          for (int j = 0; j < kT; ++j) {
+            const double cij = c[j];
+            const double2 ya = *reinterpret_cast<const double2*>(y + j * pr);
+            const double2 yb = *reinterpret_cast<const double2*>(y + j * pr + 2);
+            double df = __dsub_rn(xa.x, ya.x);
+            s0 = __fma_rn(cij, __dmul_rn(df, df), s0);
+            df = __dsub_rn(xa.y, ya.y);
+            s1 = __fma_rn(cij, __dmul_rn(df, df), s1);
+            df = __dsub_rn(xb.x, yb.x);
+            s2 = __fma_rn(cij, __dmul_rn(df, df), s2);
+            df = __dsub_rn(xb.y, yb.y);
+            s3 = __fma_rn(cij, __dmul_rn(df, df), s3);
+          }
+          double* sl = L.sl + kb * kTS + i;  // past kw: unused rows
+          sl[0] = s0;
+          sl[kTS] = s1;
+          sl[2 * kTS] = s2;
+          sl[3 * kTS] = s3;
+        } else {                           // row i's σ_f² slice
+          const double* kt = L.t1 + i * kTS;
+          double s = 0.0;
+          for (int j = 0; j < kT; ++j) s = __dadd_rn(s, kt[j]);
+          L.sl[pr * kTS + i] = s;
+        }
+      }
+      __syncthreads();
+      for (int k = tid; k < kw + (p == 0 ? 1 : 0); k += kThreads) {
+        const double* sl = L.sl + (k < kw ? k : pr) * kTS;
+        part[(size_t)(k < kw ? k0 + k : d) * a.tiles] =
+            tree32<1>([&](int l) { return sl[l]; }, 0);
+      }
+    }
+
+    if (a.merge == 0) {                    // the last block of θ row r merges
+      __shared__ int last;
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) last = atomicAdd(a.ticket + r, 1u) == (unsigned)a.tiles - 1u;
+      __syncthreads();
+      if (!last) return;
+      __threadfence();
+      for (int k = warp; k <= d; k += kWarps) merge_coord(a, r, k, lane);
+      if (tid == 0) a.ticket[r] = 0u;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) gram_fwd_kernel(const GramArgs a) {
+  gram_block<false>(a);
+}
+
+__global__ void __launch_bounds__(kThreads) gram_bwd_kernel(const GramArgs a) {
+  gram_block<true>(a);
+}
+
+// merge 1: grid (ceil((D + 1) / kWarps), R), a warp a coordinate
+__global__ void __launch_bounds__(kThreads) gram_bwd_merge_kernel(const GramArgs a) {
+  const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (k <= a.d) merge_coord(a, blockIdx.y, k, threadIdx.x & 31);
+}
+
+// GramArgs from the C entries' arguments; false if they do not hold
+// together (the plan's tile count included)
+bool make_args(GramArgs* a, int r, int n1, int n2, int d, int tiles, int sym) {
+  if (r < 1 || r > 65535 || n1 < 1 || n2 < 1 || d < 1 || (sym && n1 != n2)) return false;
+  if (tiles != tile_count(n1, n2, sym)) return false;
+  a->n1 = n1;
+  a->n2 = n2;
+  a->d = d;
+  a->tiles = tiles;
+  a->tn1 = (n1 + kT - 1) / kT;
+  a->tn2 = (n2 + kT - 1) / kT;
+  a->sym = sym ? 1 : 0;
+  return true;
+}
+
+cudaError_t launch_tiles(const void* kernel, const GramArgs& a, int r, bool bwd,
+                         cudaStream_t s) {
+  const int pw = a.d < kPiece ? a.d : kPiece;
+  const size_t smem = sizeof(double) * smem_doubles(pw, bwd);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {const_cast<GramArgs*>(&a)};
+  return cudaLaunchKernel(kernel, dim3(a.tiles, r), dim3(kThreads), args, smem, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory K3 / K4's first pass need at dimension d.
-size_t matern52_gram_smem_bytes(int d, int backward) {
-  return tile_smem_bytes(d) + (backward ? sizeof(double) * kWarps * (d + 1) : 0);
-}
+// Each returns a cudaError_t (0 on success).  tiles is gram_plan's tile
+// count for (n1, n2, symmetric); symmetric = 1 only where x1 and x2 are the
+// same points (n1 = n2), and then only the tiles I ≤ J run.
 
-// K4's scratch: doubles of per-block partials for (r, n1, n2, d).
-size_t matern52_gram_bwd_scratch(int r, int n1, int n2, int d) {
-  size_t blocks = (size_t)((n2 + kTile - 1) / kTile) * ((n1 + kTile - 1) / kTile);
-  return (size_t)r * blocks * (d + 1);
-}
-
-// Each returns a cudaError_t (0 on success).
 int matern52_gram_fwd(const double* x1, const double* x2, const double* inv_ls,
-                      const double* amp, double* out, int r, int n1, int n2, int d,
-                      void* stream) {
-  size_t smem = matern52_gram_smem_bytes(d, 0);
-  cudaError_t err = cudaFuncSetAttribute(gram_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n2 + kTile - 1) / kTile, (n1 + kTile - 1) / kTile, r);
-  gram_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(x1, x2, inv_ls, amp, out,
-                                                                  n1, n2, d);
-  return (int)cudaGetLastError();
+                      const double* amp, double* out, int r, int n1, int n2, int d, int tiles,
+                      int symmetric, void* stream) {
+  GramArgs a{};
+  if (!make_args(&a, r, n1, n2, d, tiles, symmetric)) return (int)cudaErrorInvalidValue;
+  a.x1 = x1;
+  a.x2 = x2;
+  a.inv_ls = inv_ls;
+  a.amp = amp;
+  a.out = out;
+  return (int)launch_tiles((const void*)gram_fwd_kernel, a, r, false, (cudaStream_t)stream);
 }
 
+// part holds r·(d + 1)·tiles doubles.  merge 0: one launch, the last block
+// of each θ row merges; ticket holds r zeros and is left so.  merge 1: a
+// second kernel merges (ticket unused).
 int matern52_gram_bwd_theta(const double* x1, const double* x2, const double* inv_ls,
-                            const double* amp, const double* g, double* partial,
+                            const double* amp, const double* g, double* part, unsigned* ticket,
                             double* d_inv_ls, double* d_amp, int r, int n1, int n2, int d,
-                            void* stream) {
-  size_t smem = matern52_gram_smem_bytes(d, 1);
-  cudaError_t err = cudaFuncSetAttribute(gram_bwd_partial_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n2 + kTile - 1) / kTile, (n1 + kTile - 1) / kTile, r);
+                            int tiles, int symmetric, int merge, void* stream) {
+  GramArgs a{};
+  if (!make_args(&a, r, n1, n2, d, tiles, symmetric) || part == nullptr ||
+      (merge == 0 && ticket == nullptr) || (merge != 0 && merge != 1))
+    return (int)cudaErrorInvalidValue;
+  a.x1 = x1;
+  a.x2 = x2;
+  a.inv_ls = inv_ls;
+  a.amp = amp;
+  a.g = g;
+  a.part = part;
+  a.ticket = ticket;
+  a.d_inv = d_inv_ls;
+  a.d_amp = d_amp;
+  a.merge = merge;
   cudaStream_t s = (cudaStream_t)stream;
-  gram_bwd_partial_kernel<<<grid, kThreads, smem, s>>>(x1, x2, inv_ls, g, partial, n1, n2, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gram_bwd_reduce_kernel<<<dim3(d + 1, r), kThreads, 0, s>>>(partial, inv_ls, amp, d_inv_ls,
-                                                             d_amp, (int)(grid.x * grid.y), d);
-  return (int)cudaGetLastError();
+  cudaError_t err = launch_tiles((const void*)gram_bwd_kernel, a, r, true, s);
+  if (err != cudaSuccess || merge == 0) return (int)err;
+  void* args[] = {&a};
+  return (int)cudaLaunchKernel((const void*)gram_bwd_merge_kernel,
+                               dim3((d + 1 + kWarps - 1) / kWarps, r), dim3(kThreads), args,
+                               0, s);
 }
 
 }  // extern "C"

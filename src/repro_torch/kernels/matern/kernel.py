@@ -17,9 +17,17 @@ the kernels replace, what bounds them and why they look as they do):
 ``csrc/gram.cu`` holds the gram matrix of the GP fit:
 
 * :func:`matern52_gram_fwd` (K3): the (R, n1, n2) cross-gram for R θ rows;
-* :func:`matern52_gram_bwd_theta` (K4): its gradient in (1/ℓ, σ_f²).
+* :func:`matern52_gram_bwd_theta` (K4): its gradient in (1/ℓ, σ_f²), in
+  one launch (the last block of a θ row merges the tiles' partials).
 
-Both sources are built with the port's other kernels into one library
+:func:`gram_plan` gives both their tiles, blocks, D pieces and K4's
+scratch from the shapes and :func:`same_points`: where x1 and x2 are the
+same points (every call of the fit) only the tiles of the upper triangle
+run.  K4's sums follow an order fixed by (n1, n2) and that choice, so a
+θ row has the same bits at any R.  ``csrc/matern.cuh`` holds the Matérn
+entry both sources round alike.
+
+The sources are built with the port's other kernels into one library
 at first use (``kernels/_build.py``); nothing is built at import.
 
 Each wrapper takes the plain version (``ref.py``) for tensors on the CPU,
@@ -52,13 +60,11 @@ LAUNCHES: Dict[str, int] = {"matern52_posterior_fwd": 0,
                             "matern52_gram_fwd": 0,
                             "matern52_gram_bwd_theta": 0}
 
-_P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+_P, _I = ctypes.c_void_p, ctypes.c_int
 declare("matern52_posterior_fwd", [_P] * 10 + [_I] * 4 + [_P], _I)
 declare("matern52_posterior_bwd_xq", [_P] * 11 + [_I] * 4 + [_P], _I)
-declare("matern52_gram_smem_bytes", [_I, _I], _Z)
-declare("matern52_gram_bwd_scratch", [_I] * 4, _Z)
-declare("matern52_gram_fwd", [_P] * 5 + [_I] * 4 + [_P], _I)
-declare("matern52_gram_bwd_theta", [_P] * 8 + [_I] * 4 + [_P], _I)
+declare("matern52_gram_fwd", [_P] * 5 + [_I] * 6 + [_P], _I)
+declare("matern52_gram_bwd_theta", [_P] * 9 + [_I] * 7 + [_P], _I)
 
 
 def reset_launch_counts() -> None:
@@ -231,6 +237,81 @@ def matern52_posterior_bwd_xq(xq: Tensor, xt: Tensor, alpha: Tensor,
     return dxq
 
 
+# K3's and K4's geometry, as gram.cu has it (kT)
+GRAM_TILE = 32                   # edge of the tile a block computes
+GRAM_MERGES = {"last": 0, "pass": 1}
+GRAM_MERGE = "last"              # K4's merge of a θ row's tiles
+
+
+class GramPlan(NamedTuple):
+    """How K3 and K4 run an (R, n1, n2, D) call.  ``tiles``: the GRAM_TILE
+    × GRAM_TILE tiles of a θ row that blocks compute, row-major over the
+    (n1, n2) grid or, when ``symmetric`` (x1 and x2 the same points), over
+    its upper triangle I ≤ J; they are K4's summation units, fixed by
+    (n1, n2, symmetric).  ``blocks`` = R·tiles; ``pieces``: the pieces of
+    PIECE coordinates a block stages in turn; ``scratch``: the doubles of
+    K4's partials, R·(D + 1)·tiles."""
+    symmetric: bool
+    tiles: int
+    blocks: int
+    pieces: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=1024)
+def gram_plan(r: int, n1: int, n2: int, d: int, symmetric: bool) -> GramPlan:
+    """K3's and K4's geometry for R θ rows of an (n1, n2) gram in D
+    dimensions.  At the MAP fit's shape (R = 2, n = 544, symmetric) 153
+    tiles a θ row, 306 blocks over the 132 SMs.  Any D: a block stages D
+    in pieces.  Refuses only empty inputs (and a symmetric plan of two
+    sizes)."""
+    if min(r, n1, n2, d) < 1:
+        raise ValueError(f"empty gram input (R={r}, n1={n1}, n2={n2}, D={d})")
+    if symmetric and n1 != n2:
+        raise ValueError(f"a symmetric gram is square, not ({n1}, {n2})")
+    t1, t2 = -(-n1 // GRAM_TILE), -(-n2 // GRAM_TILE)
+    tiles = t1 * (t1 + 1) // 2 if symmetric else t1 * t2
+    return GramPlan(bool(symmetric), tiles, r * tiles, -(-d // PIECE),
+                    r * (d + 1) * tiles)
+
+
+def gram_tile(t: int, n1: int, n2: int, symmetric: bool) -> Tuple[int, int]:
+    """The tile (I, J) that block ``t`` of a θ row computes (gram.cu's
+    ``tile_coords``): row-major over every tile, or over I ≤ J."""
+    t2 = -(-n2 // GRAM_TILE)
+    if not symmetric:
+        return divmod(t, t2)
+    i, row = 0, t2
+    while t >= row:
+        t, i, row = t - row, i + 1, row - 1
+    return i, i + t
+
+
+def same_points(x1: Tensor, x2: Tensor) -> bool:
+    """True when x1 and x2 are the same points: one storage, with the same
+    offset, shape, strides, dtype and device (the same tensor, a view of
+    it, or what autograd saved of it); a copy is not."""
+    return (x1 is x2 or (
+        x1.device == x2.device and x1.dtype == x2.dtype
+        and x1.shape == x2.shape and x1.stride() == x2.stride()
+        and x1.storage_offset() == x2.storage_offset()
+        and x1.untyped_storage().data_ptr()
+        == x2.untyped_storage().data_ptr()))
+
+
+# K4's per-θ-row tickets (merge "last"), one zeroed buffer per (device,
+# stream): the last block of a row resets its ticket
+_TICKETS: Dict[Tuple[int, int], Tensor] = {}
+
+
+def _tickets(dev: torch.device, stream: int, r: int) -> Tensor:
+    buf = _TICKETS.get((dev.index, stream))
+    if buf is None or buf.numel() < r:
+        buf = torch.zeros((max(r, 64),), dtype=torch.int32, device=dev)
+        _TICKETS[(dev.index, stream)] = buf
+    return buf
+
+
 def _gram_dims(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
                amplitude: Tensor) -> Tuple[int, int, int, int]:
     if x1.ndim != 2 or x2.ndim != 2 or inv_lengthscale.ndim != 2:
@@ -243,16 +324,7 @@ def _gram_dims(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
                            ("inv_lengthscale", inv_lengthscale, (r, d)),
                            ("amplitude", amplitude, (r,))):
         check_tensor(name, x, shape, torch.float64, dev)
-    if min(r, n1, n2, d) < 1:
-        raise ValueError(f"empty gram input (R={r}, n1={n1}, n2={n2}, D={d})")
     return r, n1, n2, d
-
-
-def _gram_smem(d: int, backward: bool) -> None:
-    need = _lib().matern52_gram_smem_bytes(d, int(backward))
-    if need > MAX_SMEM:
-        raise ValueError(f"D={d} does not fit the gram kernels' shared "
-                         f"memory ({need} > {MAX_SMEM} bytes)")
 
 
 def matern52_gram_fwd(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
@@ -261,17 +333,42 @@ def matern52_gram_fwd(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
     if on_cpu(x1):
         return matern52_gram_ref(x1, x2, inv_lengthscale, amplitude)
     r, n1, n2, d = _gram_dims(x1, x2, inv_lengthscale, amplitude)
-    _gram_smem(d, backward=False)
+    p = gram_plan(r, n1, n2, d, same_points(x1, x2))
     dev = x1.device
     out = torch.empty((r, n1, n2), dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().matern52_gram_fwd(
             x1.data_ptr(), x2.data_ptr(), inv_lengthscale.data_ptr(),
-            amplitude.data_ptr(), out.data_ptr(), r, n1, n2, d, stream)
+            amplitude.data_ptr(), out.data_ptr(), r, n1, n2, d, p.tiles,
+            int(p.symmetric), stream)
     check_launch("matern52_gram_fwd", err)
     LAUNCHES["matern52_gram_fwd"] += 1
     return out
+
+
+def gram_bwd_enqueue(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
+                     amplitude: Tensor, g: Tensor, p: GramPlan,
+                     merge: str) -> Tuple[Tensor, Tensor]:
+    """K4 on checked inputs at plan ``p`` with the given merge; counts
+    nothing (the wrapper's body past its checks)."""
+    r, d = inv_lengthscale.shape
+    n1, n2 = x1.shape[0], x2.shape[0]
+    dev = x1.device
+    part = torch.empty((p.scratch,), dtype=torch.float64, device=dev)
+    d_inv = torch.empty((r, d), dtype=torch.float64, device=dev)
+    d_amp = torch.empty((r,), dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ticket = _tickets(dev, stream, r) if merge == "last" else None
+    with torch.cuda.device(dev):
+        err = _lib().matern52_gram_bwd_theta(
+            x1.data_ptr(), x2.data_ptr(), inv_lengthscale.data_ptr(),
+            amplitude.data_ptr(), g.data_ptr(), part.data_ptr(),
+            None if ticket is None else ticket.data_ptr(),
+            d_inv.data_ptr(), d_amp.data_ptr(), r, n1, n2, d, p.tiles,
+            int(p.symmetric), GRAM_MERGES[merge], stream)
+    check_launch("matern52_gram_bwd_theta", err)
+    return d_inv, d_amp
 
 
 def matern52_gram_bwd_theta(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
@@ -282,20 +379,9 @@ def matern52_gram_bwd_theta(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
         return matern52_gram_bwd_theta_ref(x1, x2, inv_lengthscale,
                                            amplitude, g)
     r, n1, n2, d = _gram_dims(x1, x2, inv_lengthscale, amplitude)
-    dev = x1.device
-    check_tensor("g", g, (r, n1, n2), torch.float64, dev)
-    _gram_smem(d, backward=True)
-    lib = _lib()
-    partial = torch.empty((lib.matern52_gram_bwd_scratch(r, n1, n2, d),),
-                          dtype=torch.float64, device=dev)
-    d_inv = torch.empty((r, d), dtype=torch.float64, device=dev)
-    d_amp = torch.empty((r,), dtype=torch.float64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.matern52_gram_bwd_theta(
-            x1.data_ptr(), x2.data_ptr(), inv_lengthscale.data_ptr(),
-            amplitude.data_ptr(), g.data_ptr(), partial.data_ptr(),
-            d_inv.data_ptr(), d_amp.data_ptr(), r, n1, n2, d, stream)
-    check_launch("matern52_gram_bwd_theta", err)
+    check_tensor("g", g, (r, n1, n2), torch.float64, x1.device)
+    p = gram_plan(r, n1, n2, d, same_points(x1, x2))
+    out = gram_bwd_enqueue(x1, x2, inv_lengthscale, amplitude, g, p,
+                           GRAM_MERGE)
     LAUNCHES["matern52_gram_bwd_theta"] += 1
-    return d_inv, d_amp
+    return out

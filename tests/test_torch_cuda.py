@@ -16,8 +16,7 @@ from repro_torch.bo.sampler import GPSampler  # noqa: E402
 from repro_torch.bo.space import BoxSpace  # noqa: E402
 from repro_torch.core.mso import MsoOptions, maximize_acqf  # noqa: E402
 from repro_torch.engine.posterior import fused_logei_acq  # noqa: E402
-from repro_torch.gp.gpr import (GPState, fit_gram, pad_gp,  # noqa: E402
-                                with_kinv)
+from repro_torch.gp.gpr import fit_gram, pad_gp, with_kinv  # noqa: E402
 from repro_torch.gp.kernels import KernelParams  # noqa: E402
 from repro_torch.kernels.matern import kernel as K  # noqa: E402
 from repro_torch.kernels.matern.ops import matern52_posterior_op  # noqa: E402,E501
@@ -207,14 +206,9 @@ def test_posterior_bwd_rows_bitwise_at_any_batch_on_card(cuda, n):
 def test_posterior_kernels_take_any_d_on_card(cuda, n, d):
     """K1 (split regime, D staged in pieces of 64) and K2 at D past what
     one block's shared memory held whole: within their stated tolerances
-    of the plain versions, and row 0 bitwise the same at q = 1 and 10."""
-    # fitted on the CPU: the gram kernels hold D whole (D ≲ 400)
-    gp = state(n, d, seed=n + d, device=torch.device("cpu"))
-    gp = GPState(*(v.to(cuda) for v in (gp.x_train, gp.y_train)),
-                 KernelParams(gp.params.log_lengthscale.to(cuda),
-                              gp.params.log_amplitude.to(cuda),
-                              gp.params.log_noise.to(cuda)),
-                 gp.chol.to(cuda), gp.alpha.to(cuda), kinv=gp.kinv.to(cuda))
+    of the plain versions, and row 0 bitwise the same at q = 1 and 10.
+    The GP is fitted on the card (its gram by K3, D in pieces too)."""
+    gp = state(n, d, seed=n + d, device=cuda)
     xt, alpha, _, ils, amp = args = args_of(gp)
     rng = np.random.default_rng(d)
     x = torch.tensor(rng.uniform(0, 1, (10, d)), device=cuda)
@@ -302,13 +296,14 @@ def gram_tolerances(x1, x2, ils, amp, g):
 
 
 def gram_inputs(n1, n2, d, r, device, far=0, seed=0):
+    """x1, x2, 1/ℓ, σ_f², Ḡ; where n1 = n2, x1 is x2 (one tensor: the fit's
+    call, K3/K4's symmetric path)."""
     rng = np.random.default_rng(seed + 31 * n1 + d)
     x1 = rng.uniform(0, 1, (n1, d))
     x2 = x1 if n1 == n2 else rng.uniform(0, 1, (n2, d))
     if far:
         x2 = x2.copy()
         x2[-far:] = 1e6 + np.arange(far)[:, None]
-        x1 = x2 if n1 == n2 else x1
     ils = np.exp(rng.uniform(-1.0, 4.0, (r, d)))
     amp = np.exp(rng.uniform(-1.0, 1.0, r))
     g = rng.standard_normal((r, n1, n2))
@@ -316,7 +311,27 @@ def gram_inputs(n1, n2, d, r, device, far=0, seed=0):
         g[:, :, -far:] = 0.0
         if n1 == n2:
             g[:, -far:, :] = 0.0
-    return tuple(torch.tensor(v, device=device) for v in (x1, x2, ils, amp, g))
+    x1, x2, ils, amp, g = (torch.tensor(v, device=device)
+                           for v in (x1, x2, ils, amp, g))
+    return (x2 if n1 == n2 else x1), x2, ils, amp, g
+
+
+def assert_gram_close(x1, x2, ils, amp, g, far, k_k, di_k, da_k):
+    """K3 and K4's outputs within their stated tolerances of the plain
+    versions (entries between two _FAR rows excepted for K3: cancellation
+    noise in any expanded d², finite; the fit multiplies them by 0)."""
+    n1, n2 = x1.shape[0], x2.shape[0]
+    k_r = matern52_gram_ref(x1, x2, ils, amp)
+    di_r, da_r = matern52_gram_bwd_theta_ref(x1, x2, ils, amp, g)
+    assert bool(torch.isfinite(k_k).all())
+    assert bool(torch.isfinite(di_k).all() and torch.isfinite(da_k).all())
+    k_tol, il_tol, amp_tol = gram_tolerances(x1, x2, ils, amp, g)
+    real = torch.ones((n1, n2), dtype=torch.bool, device=x1.device)
+    if far and n1 == n2:
+        real[-far:, -far:] = False
+    assert bool(((k_k - k_r).abs() <= k_tol)[:, real].all())
+    assert bool(((di_k - di_r).abs() <= il_tol).all())
+    assert bool(((da_k - da_r).abs() <= amp_tol).all())
 
 
 @pytest.mark.cuda
@@ -349,6 +364,73 @@ def test_gram_kernels_match_plain_versions_on_card(cuda, n1, n2, d, r, far):
     if n1 == n2:                       # K3 at x1 = x2: d² = 0 exactly
         assert torch.equal(torch.diagonal(k_k, dim1=-2, dim2=-1),
                            amp[:, None].expand(r, n1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,far", [(32, 5, 0), (77, 3, 9), (544, 20, 32),
+                                     (1000, 40, 0)])
+def test_gram_symmetric_path_bitwise_on_card(cuda, n, d, far):
+    """x1 is x2 (the fit's call: the tiles I ≤ J only, each pair once)
+    against x2 = x1.clone() (every tile): K3 gives the same bits, is
+    bitwise symmetric with σ_f² exactly on its diagonal, and its n1 = 1
+    column k(x_i, X) is bitwise row i; each θ row of K3 and K4 has the
+    same bits at R = 1 as at R = 2, on both paths; K4 repeats its bits run
+    to run; both paths are within tolerance of the plain versions."""
+    x, _, ils, amp, g = gram_inputs(n, n, d, 2, cuda, far)
+    xc = x.clone()
+    assert K.same_points(x, x) and not K.same_points(x, xc)
+    assert K.gram_plan(2, n, n, d, True).tiles < K.gram_plan(
+        2, n, n, d, False).tiles or n <= 32
+    K.reset_launch_counts()
+    k_s = K.matern52_gram_fwd(x, x, ils, amp)
+    k_c = K.matern52_gram_fwd(x, xc, ils, amp)
+    bwd = {path: [K.matern52_gram_bwd_theta(x, x2, ils, amp, g)
+                  for _ in range(2)] for path, x2 in (("same", x), ("copy", xc))}
+    rows = {path: [(K.matern52_gram_fwd(x, x2, ils[i:i + 1].contiguous(),
+                                        amp[i:i + 1].contiguous()),
+                    K.matern52_gram_bwd_theta(x, x2, ils[i:i + 1].contiguous(),
+                                              amp[i:i + 1].contiguous(),
+                                              g[i:i + 1].contiguous()))
+                   for i in range(2)] for path, x2 in (("same", x), ("copy", xc))}
+    cols = {i: K.matern52_gram_fwd(x[i:i + 1], x, ils, amp)
+            for i in (0, n // 2, n - 1)}
+    torch.cuda.synchronize()
+    assert K.launch_counts()["matern52_gram_fwd"] == 2 + 4 + 3
+    assert K.launch_counts()["matern52_gram_bwd_theta"] == 4 + 4
+    assert torch.equal(k_s, k_c)
+    assert torch.equal(k_s, k_s.transpose(1, 2))
+    assert torch.equal(torch.diagonal(k_s, dim1=-2, dim2=-1),
+                       amp[:, None].expand(2, n))
+    for i, col in cols.items():
+        assert torch.equal(col[:, 0], k_s[:, i])
+    for path, k in (("same", k_s), ("copy", k_c)):
+        (di, da), (di2, da2) = bwd[path]
+        assert torch.equal(di, di2) and torch.equal(da, da2)
+        for i, (k1, (di1, da1)) in enumerate(rows[path]):
+            assert torch.equal(k1[0], k[i])
+            assert torch.equal(di1[0], di[i]) and torch.equal(da1[0], da[i])
+        assert_gram_close(x, x, ils, amp, g, far, k, di, da)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [300, 1000])
+@pytest.mark.parametrize("n1,n2", [(33, 33), (544, 544), (1, 544), (70, 45)])
+def test_gram_kernels_take_any_d_on_card(cuda, n1, n2, d):
+    """K3 and K4 stage D in pieces of 64 coordinates: D = 300 and 1000
+    within the stated tolerances, the diagonal σ_f² exactly, K4 bitwise
+    run to run."""
+    far = 8 if n2 >= 544 else 0
+    x1, x2, ils, amp, g = gram_inputs(n1, n2, d, 2, cuda, far)
+    assert K.gram_plan(2, n1, n2, d, n1 == n2).pieces == -(-d // 64)
+    k_k = K.matern52_gram_fwd(x1, x2, ils, amp)
+    di_k, da_k = K.matern52_gram_bwd_theta(x1, x2, ils, amp, g)
+    di_2, da_2 = K.matern52_gram_bwd_theta(x1, x2, ils, amp, g)
+    torch.cuda.synchronize()
+    assert_gram_close(x1, x2, ils, amp, g, far, k_k, di_k, da_k)
+    assert torch.equal(di_k, di_2) and torch.equal(da_k, da_2)
+    if n1 == n2:
+        assert torch.equal(torch.diagonal(k_k, dim1=-2, dim2=-1),
+                           amp[:, None].expand(2, n1))
 
 
 @pytest.mark.cuda
