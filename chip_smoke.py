@@ -16,7 +16,10 @@ Phases (any failure exits nonzero; nothing is caught):
               and K2's rows a block);
               then K3 (matern52_gram_fwd) and K4 (matern52_gram_bwd_theta)
               at n ∈ {32, 544, 2048}, D ∈ {5, 20, 40}, R ∈ {1, 2}, the
-              n1 = 1 cross column and _FAR rows
+              n1 = 1 cross column and _FAR rows, x1 is x2 (the fit's
+              symmetric path) against x2 a copy (the cross path): K3
+              bitwise equal, bitwise symmetric, column = row, θ rows
+              bitwise at R = 1 and 2; D ∈ {300, 1000} at n = 544
   3. main     slice 1, the paper's D-BE suggest path through GPSampler at
               D=20, B=10 restarts, n≈512 observations: K1 = K2 = rounds,
               K3 − K4 = asks, C3 (D-BE reproduces SEQ per restart)
@@ -40,7 +43,8 @@ Phases (any failure exits nonzero; nothing is caught):
               and their plain versions beside the least time the card
               could take (bound); K1's regime and the device µs of each
               kernel its trace holds (all in the K1 class), and K2's
-              (all in the K2 class)
+              (all in the K2 class); K3/K4 at the fit's call (x1 is x2),
+              the cross path and the n1 = 1 column, and K4's µs by kernel
 Slice 3 adds, in the same run:
   - build     the flash (K6) and kvp (K5) sources join the one library
   - kernels   K6 flash_attention_fwd against its plain version on the
@@ -761,7 +765,8 @@ def phase_fit_census(dev):
                                     for k, v in dev_us.items()})
             if mode == "kernels":
                 counts = {ev.key: ev.count for ev in kernels}
-                for name in ("gram_fwd_kernel", "gram_bwd_kernel"):
+                for name in ("gram_fwd_kernel", "gram_bwd_kernel",
+                             "gram_bwd_merge_kernel"):
                     got = sum(c for k, c in counts.items() if name in k)
                     check(got == iters, f"census: {name} {got} launches in "
                           f"{iters} evaluations")
@@ -1137,7 +1142,12 @@ def phase_gram_timing(dev):
         fb, fby = bound_ms(*gram_cost(2, n, n, 20, False))
         bb, bby = bound_ms(*gram_cost(2, n, n, 20, True))
         row.update(gram_fwd_bound_ms=fb, gram_fwd_bound_by=fby,
-                   gram_bwd_bound_ms=bb, gram_bwd_bound_by=bby)
+                   gram_bwd_bound_ms=bb, gram_bwd_bound_by=bby,
+                   gram_bwd_kernel_us=kernel_us(calls["gram_bwd"], "gram_bwd",
+                                                iters))
+        us = row["gram_bwd_kernel_us"]
+        check(us and all(k in dict(DEVICE_CLASSES)["k4"] for k in us),
+              f"K4's trace holds {list(us)}, not its class")
         if n == 544:
             cb, cby = bound_ms(*gram_cost(1, 1, n, 20, False))
             row.update(gram_fwd_column_bound_ms=cb,

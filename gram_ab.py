@@ -13,9 +13,7 @@ variant.  The variants:
   K3  "same": x1 is x2, the fit's call (the tiles I ≤ J, each pair once);
       "copy": x2 a copy of x1 (every tile, the cross path);
       "column": the n1 = 1 column k(x_i, X) of the rank-one refit;
-  K4  "same" and "copy" with the merge of a θ row's tiles in its last
-      block (one launch), and "same pass" with the merge in a second
-      kernel;
+  K4  "same" and "copy";
 and, with OLD.cu, "old" for each kernel: a gram.cu whose C entries take
 no plan (the source before the symmetric path, as at commit 90e3ac7:
 ``git show 90e3ac7:src/repro_torch/kernels/matern/csrc/gram.cu >
@@ -91,10 +89,9 @@ def variants(x, xc, ils, amp, g, old):
     """{name: (kernel, call)} at one shape; every call returns what its
     wrapper returns."""
     from repro_torch.kernels.matern import kernel as K
-    n, d = x.shape
+    n = x.shape[0]
     col = n // 2
     xi = x[col:col + 1]
-    p_same = K.gram_plan(2, n, n, d, True)
     out = {}
     if old is not None:
         out["K3 old"] = ("K3", lambda: old[0](x, x, ils, amp))
@@ -105,8 +102,6 @@ def variants(x, xc, ils, amp, g, old):
         out["K4 old"] = ("K4", lambda: old[1](x, x, ils, amp, g))
     out["K4 same"] = ("K4", lambda: K.matern52_gram_bwd_theta(x, x, ils, amp,
                                                               g))
-    out["K4 same pass"] = ("K4", lambda: K.gram_bwd_enqueue(
-        x, x, ils, amp, g, p_same, "pass"))
     out["K4 copy"] = ("K4", lambda: K.matern52_gram_bwd_theta(x, xc, ils,
                                                               amp, g))
     return out

@@ -61,10 +61,13 @@
 //    A reduction thread owns one row slice of kGroup = 4 coordinates: a
 //    step loads c_ij once (lanes along rows, odd stride) and x2_j's four
 //    coordinates (16-byte broadcast loads) for 12 f64 operations.
-//  * The merge over tiles runs in the last block of a θ row to finish
-//    (merge 0: a ticket per θ row in a wrapper-held buffer, reset by that
-//    block) or in a second kernel, a warp a coordinate (merge 1).  The two
-//    add the same partials in the same order.
+//  * The merge over tiles is a second kernel, a warp a (θ row, coordinate),
+//    its lanes' loads in flight together and coalesced.  Probed against a
+//    merge in the last block of a θ row to finish (one launch, a ticket per
+//    θ row), it took less device time at both timed shapes (PERF.md, PR 18).
+//  * K4 asks for 4 blocks an SM (__launch_bounds__, 64 registers a thread):
+//    probed faster at n = 2048 than 3 blocks at 76 registers, and no slower
+//    at the fit's shape.
 //  * _FAR pseudo-rows (x ≈ 1e6 + i): d² ~ 1e16 there, and cancellation can put
 //    any value ≥ 0 between two of them after the clamp.  Every value stays
 //    finite: exp underflows to 0 against a finite polynomial, never inf·0.
@@ -123,10 +126,9 @@ struct GramArgs {
   const double* g;                         // K4: Ḡ (R, n1, n2)
   double* out;                             // K3: (R, n1, n2)
   double* part;                            // K4: partials (R, D + 1, tiles)
-  unsigned* ticket;                        // K4, merge 0: (R,) zeros
   double* d_inv;                           // K4: (R, D)
   double* d_amp;                           // K4: (R,)
-  int n1, n2, d, tiles, tn1, tn2, sym, merge;
+  int n1, n2, d, tiles, tn1, tn2, sym;
 };
 
 // tile t of a θ row → (I, J): row-major over the tn1 × tn2 tiles, or over
@@ -176,7 +178,8 @@ __device__ __forceinline__ void stage_g_tile(double* dst, const double* src, int
 }
 
 // K4's sum of coordinate k (k = D: σ_f²) over a θ row's tiles, by one warp,
-// and its gradient entry
+// and its gradient entry: lane l adds tiles l, l + 32, … in order (kBatch
+// loads in flight), then the lanes by the tree pairs 16, 8, 4, 2, 1 apart
 __device__ __forceinline__ void merge_coord(const GramArgs& a, int r, int k, int lane) {
   const double* p = a.part + ((size_t)r * (a.d + 1) + k) * a.tiles;
   double s = 0.0;
@@ -185,7 +188,7 @@ __device__ __forceinline__ void merge_coord(const GramArgs& a, int r, int k, int
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int t = t0 + 32 * u;
-      v[u] = t < a.tiles ? __ldcg(p + t) : 0.0;
+      v[u] = t < a.tiles ? p[t] : 0.0;
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u)
@@ -271,8 +274,9 @@ __device__ __forceinline__ void gram_block(const GramArgs& a) {
 #pragma unroll
     for (int m = 0; m < kRows; ++m) {
       const int i = warp + m * kWarps;
+      if (i0 + i >= a.n1) break;           // a warp's rows past n1 (the n1 = 1 column)
       const double v = matern(L.sq[i], bsq, ab[m], amp);
-      if (i0 + i < a.n1 && col < a.n2) o[(size_t)(i0 + i) * a.n2 + col] = v;
+      if (col < a.n2) o[(size_t)(i0 + i) * a.n2 + col] = v;
       if (mirror) L.t0[i * kTS + lane] = v;
     }
     if (mirror) {                          // (j, i): the tile transposed
@@ -368,18 +372,6 @@ __device__ __forceinline__ void gram_block(const GramArgs& a) {
             tree32<1>([&](int l) { return sl[l]; }, 0);
       }
     }
-
-    if (a.merge == 0) {                    // the last block of θ row r merges
-      __shared__ int last;
-      __threadfence();
-      __syncthreads();
-      if (tid == 0) last = atomicAdd(a.ticket + r, 1u) == (unsigned)a.tiles - 1u;
-      __syncthreads();
-      if (!last) return;
-      __threadfence();
-      for (int k = warp; k <= d; k += kWarps) merge_coord(a, r, k, lane);
-      if (tid == 0) a.ticket[r] = 0u;
-    }
   }
 }
 
@@ -387,11 +379,11 @@ __global__ void __launch_bounds__(kThreads) gram_fwd_kernel(const GramArgs a) {
   gram_block<false>(a);
 }
 
-__global__ void __launch_bounds__(kThreads) gram_bwd_kernel(const GramArgs a) {
+__global__ void __launch_bounds__(kThreads, 4) gram_bwd_kernel(const GramArgs a) {
   gram_block<true>(a);
 }
 
-// merge 1: grid (ceil((D + 1) / kWarps), R), a warp a coordinate
+// grid (ceil((D + 1) / kWarps), R), a warp a coordinate
 __global__ void __launch_bounds__(kThreads) gram_bwd_merge_kernel(const GramArgs a) {
   const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (k <= a.d) merge_coord(a, blockIdx.y, k, threadIdx.x & 31);
@@ -444,16 +436,14 @@ int matern52_gram_fwd(const double* x1, const double* x2, const double* inv_ls,
   return (int)launch_tiles((const void*)gram_fwd_kernel, a, r, false, (cudaStream_t)stream);
 }
 
-// part holds r·(d + 1)·tiles doubles.  merge 0: one launch, the last block
-// of each θ row merges; ticket holds r zeros and is left so.  merge 1: a
-// second kernel merges (ticket unused).
+// part holds r·(d + 1)·tiles doubles.  Two launches: the tiles' partials,
+// then their merge.
 int matern52_gram_bwd_theta(const double* x1, const double* x2, const double* inv_ls,
-                            const double* amp, const double* g, double* part, unsigned* ticket,
-                            double* d_inv_ls, double* d_amp, int r, int n1, int n2, int d,
-                            int tiles, int symmetric, int merge, void* stream) {
+                            const double* amp, const double* g, double* part, double* d_inv_ls,
+                            double* d_amp, int r, int n1, int n2, int d, int tiles,
+                            int symmetric, void* stream) {
   GramArgs a{};
-  if (!make_args(&a, r, n1, n2, d, tiles, symmetric) || part == nullptr ||
-      (merge == 0 && ticket == nullptr) || (merge != 0 && merge != 1))
+  if (!make_args(&a, r, n1, n2, d, tiles, symmetric) || part == nullptr)
     return (int)cudaErrorInvalidValue;
   a.x1 = x1;
   a.x2 = x2;
@@ -461,13 +451,11 @@ int matern52_gram_bwd_theta(const double* x1, const double* x2, const double* in
   a.amp = amp;
   a.g = g;
   a.part = part;
-  a.ticket = ticket;
   a.d_inv = d_inv_ls;
   a.d_amp = d_amp;
-  a.merge = merge;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch_tiles((const void*)gram_bwd_kernel, a, r, true, s);
-  if (err != cudaSuccess || merge == 0) return (int)err;
+  if (err != cudaSuccess) return (int)err;
   void* args[] = {&a};
   return (int)cudaLaunchKernel((const void*)gram_bwd_merge_kernel,
                                dim3((d + 1 + kWarps - 1) / kWarps, r), dim3(kThreads), args,

@@ -18,7 +18,8 @@ the kernels replace, what bounds them and why they look as they do):
 
 * :func:`matern52_gram_fwd` (K3): the (R, n1, n2) cross-gram for R θ rows;
 * :func:`matern52_gram_bwd_theta` (K4): its gradient in (1/ℓ, σ_f²), in
-  one launch (the last block of a θ row merges the tiles' partials).
+  two launches: the tiles' partials to a wrapper-allocated scratch, then
+  their merge.
 
 :func:`gram_plan` gives both their tiles, blocks, D pieces and K4's
 scratch from the shapes and :func:`same_points`: where x1 and x2 are the
@@ -64,7 +65,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 declare("matern52_posterior_fwd", [_P] * 10 + [_I] * 4 + [_P], _I)
 declare("matern52_posterior_bwd_xq", [_P] * 11 + [_I] * 4 + [_P], _I)
 declare("matern52_gram_fwd", [_P] * 5 + [_I] * 6 + [_P], _I)
-declare("matern52_gram_bwd_theta", [_P] * 9 + [_I] * 7 + [_P], _I)
+declare("matern52_gram_bwd_theta", [_P] * 8 + [_I] * 6 + [_P], _I)
 
 
 def reset_launch_counts() -> None:
@@ -239,8 +240,6 @@ def matern52_posterior_bwd_xq(xq: Tensor, xt: Tensor, alpha: Tensor,
 
 # K3's and K4's geometry, as gram.cu has it (kT)
 GRAM_TILE = 32                   # edge of the tile a block computes
-GRAM_MERGES = {"last": 0, "pass": 1}
-GRAM_MERGE = "last"              # K4's merge of a θ row's tiles
 
 
 class GramPlan(NamedTuple):
@@ -299,19 +298,6 @@ def same_points(x1: Tensor, x2: Tensor) -> bool:
         == x2.untyped_storage().data_ptr()))
 
 
-# K4's per-θ-row tickets (merge "last"), one zeroed buffer per (device,
-# stream): the last block of a row resets its ticket
-_TICKETS: Dict[Tuple[int, int], Tensor] = {}
-
-
-def _tickets(dev: torch.device, stream: int, r: int) -> Tensor:
-    buf = _TICKETS.get((dev.index, stream))
-    if buf is None or buf.numel() < r:
-        buf = torch.zeros((max(r, 64),), dtype=torch.int32, device=dev)
-        _TICKETS[(dev.index, stream)] = buf
-    return buf
-
-
 def _gram_dims(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
                amplitude: Tensor) -> Tuple[int, int, int, int]:
     if x1.ndim != 2 or x2.ndim != 2 or inv_lengthscale.ndim != 2:
@@ -347,30 +333,6 @@ def matern52_gram_fwd(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
     return out
 
 
-def gram_bwd_enqueue(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
-                     amplitude: Tensor, g: Tensor, p: GramPlan,
-                     merge: str) -> Tuple[Tensor, Tensor]:
-    """K4 on checked inputs at plan ``p`` with the given merge; counts
-    nothing (the wrapper's body past its checks)."""
-    r, d = inv_lengthscale.shape
-    n1, n2 = x1.shape[0], x2.shape[0]
-    dev = x1.device
-    part = torch.empty((p.scratch,), dtype=torch.float64, device=dev)
-    d_inv = torch.empty((r, d), dtype=torch.float64, device=dev)
-    d_amp = torch.empty((r,), dtype=torch.float64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ticket = _tickets(dev, stream, r) if merge == "last" else None
-    with torch.cuda.device(dev):
-        err = _lib().matern52_gram_bwd_theta(
-            x1.data_ptr(), x2.data_ptr(), inv_lengthscale.data_ptr(),
-            amplitude.data_ptr(), g.data_ptr(), part.data_ptr(),
-            None if ticket is None else ticket.data_ptr(),
-            d_inv.data_ptr(), d_amp.data_ptr(), r, n1, n2, d, p.tiles,
-            int(p.symmetric), GRAM_MERGES[merge], stream)
-    check_launch("matern52_gram_bwd_theta", err)
-    return d_inv, d_amp
-
-
 def matern52_gram_bwd_theta(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
                             amplitude: Tensor, g: Tensor
                             ) -> Tuple[Tensor, Tensor]:
@@ -381,7 +343,17 @@ def matern52_gram_bwd_theta(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
     r, n1, n2, d = _gram_dims(x1, x2, inv_lengthscale, amplitude)
     check_tensor("g", g, (r, n1, n2), torch.float64, x1.device)
     p = gram_plan(r, n1, n2, d, same_points(x1, x2))
-    out = gram_bwd_enqueue(x1, x2, inv_lengthscale, amplitude, g, p,
-                           GRAM_MERGE)
+    dev = x1.device
+    part = torch.empty((p.scratch,), dtype=torch.float64, device=dev)
+    d_inv = torch.empty((r, d), dtype=torch.float64, device=dev)
+    d_amp = torch.empty((r,), dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _lib().matern52_gram_bwd_theta(
+            x1.data_ptr(), x2.data_ptr(), inv_lengthscale.data_ptr(),
+            amplitude.data_ptr(), g.data_ptr(), part.data_ptr(),
+            d_inv.data_ptr(), d_amp.data_ptr(), r, n1, n2, d, p.tiles,
+            int(p.symmetric), stream)
+    check_launch("matern52_gram_bwd_theta", err)
     LAUNCHES["matern52_gram_bwd_theta"] += 1
-    return out
+    return d_inv, d_amp
