@@ -64,7 +64,8 @@
 //  * The merge over tiles is a second kernel, a warp a (θ row, coordinate),
 //    its lanes' loads in flight together and coalesced.  Probed against a
 //    merge in the last block of a θ row to finish (one launch, a ticket per
-//    θ row), it took less device time at both timed shapes (PERF.md, PR 18).
+//    θ row), it took less device time at both timed shapes (gram_ab.py as
+//    at commit 7e90bdc, which built both).
 //  * K4 asks for 4 blocks an SM (__launch_bounds__, 64 registers a thread):
 //    probed faster at n = 2048 than 3 blocks at 76 registers, and no slower
 //    at the fit's shape.
@@ -128,11 +129,11 @@ struct GramArgs {
   double* part;                            // K4: partials (R, D + 1, tiles)
   double* d_inv;                           // K4: (R, D)
   double* d_amp;                           // K4: (R,)
-  int n1, n2, d, tiles, tn1, tn2, sym;
+  int n1, n2, d, tiles, tn2, sym;
 };
 
-// tile t of a θ row → (I, J): row-major over the tn1 × tn2 tiles, or over
-// the upper triangle I ≤ J (sym; tn1 = tn2)
+// tile t of a θ row → (I, J): row-major over the tiles, tn2 to a row, or
+// over the upper triangle I ≤ J (sym: tn2 to the first row)
 __host__ __device__ __forceinline__ void tile_coords(int t, int tn2, int sym, int* I, int* J) {
   if (!sym) {
     *I = t / tn2;
@@ -398,7 +399,6 @@ bool make_args(GramArgs* a, int r, int n1, int n2, int d, int tiles, int sym) {
   a->n2 = n2;
   a->d = d;
   a->tiles = tiles;
-  a->tn1 = (n1 + kT - 1) / kT;
   a->tn2 = (n2 + kT - 1) / kT;
   a->sym = sym ? 1 : 0;
   return true;

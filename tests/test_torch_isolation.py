@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
-``flash_ab.py`` import neither jax nor anything of the JAX package
-``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``,
+``flash_ab.py`` and ``gram_ab.py`` import neither jax nor anything of the
+JAX package ``repro``."""
 import os
 import pkgutil
 import re
@@ -17,7 +17,8 @@ PKG = os.path.join(REPO, "src", "repro_torch")
 
 
 def _sources():
-    files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "flash_ab.py")]
+    files = [os.path.join(REPO, f)
+             for f in ("chip_smoke.py", "flash_ab.py", "gram_ab.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, f) for f in names
                   if f.endswith((".py", ".cu", ".cuh"))]
@@ -34,7 +35,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         for name in names:
             importlib.import_module(name)
         sys.path.insert(0, REPO)
-        import chip_smoke, flash_ab  # noqa: F401
+        import chip_smoke, flash_ab, gram_ab  # noqa: F401
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
