@@ -1,7 +1,7 @@
-"""Build the port's GP, fused-ask and LM state from numpy arrays.
+"""Build the port's GP, fused-ask, fleet and LM state from numpy arrays.
 
-Lets both packages compute on one fitted GP, take one incremental ask
-step from one state, or run one LM's weights: the caller turns the other
+Lets both packages compute on one fitted GP, take one ask or fleet step
+from one state, or run one LM's weights: the caller turns the other
 package's state into numpy arrays (``np.asarray``) and hands them here.
 """
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.engine.ask import AskConfig, AskEngine
 from repro_torch.engine.engine import EvalEngine
+from repro_torch.engine.fleet import FleetEngine, _Block, _Study
 from repro_torch.gp.gpr import GPState
 from repro_torch.gp.kernels import KernelParams
 from repro_torch.models.lm import unstack_layers
@@ -62,6 +63,51 @@ def ask_engine_from_numpy(engine: EvalEngine, cfg: AskConfig, *, x, y, n: int,
     ask._alpha = _tensor(alpha, dev)
     ask._kinv = None if kinv is None else _tensor(kinv, dev)
     return ask
+
+
+def fleet_block_from_numpy(fleet: FleetEngine, *, x, y, theta, chol,
+                           alpha, kinv=None, studies) -> _Block:
+    """A slot block of ``fleet`` holding another fleet's block state.
+
+    ``x`` (S, b, D) and ``y`` (S, b) are the stacked padded observation
+    buffers, ``theta`` (S, P), ``chol``, ``alpha`` and ``kinv`` (fused
+    backend) the stacked fits; S must be ``fleet.cfg.slots``.
+    ``studies`` has one entry a slot: ``None`` for an idle slot, else a
+    dict with the study's ``sid`` and ``n`` (live rows), and optionally
+    ``n_fit``, ``since_refit``, ``has_factor``, ``has_theta`` and
+    ``trial`` (its bookkeeping, 0/False by default).  The studies are
+    registered and installed without admission, so the next ``step()``
+    takes the same path (incremental or full) as the source fleet's."""
+    dev = fleet.device
+    x = np.asarray(x, np.float64)
+    if x.shape[0] != fleet.cfg.slots or len(studies) != fleet.cfg.slots:
+        raise ValueError(f"a block has {fleet.cfg.slots} slots, got "
+                         f"{x.shape[0]} rows and {len(studies)} studies")
+    blk = _Block(fleet.cfg, x.shape[1], dev)
+    blk.x, blk.y = _tensor(x, dev), _tensor(y, dev)
+    blk.theta, blk.chol = _tensor(theta, dev), _tensor(chol, dev)
+    blk.alpha = _tensor(alpha, dev)
+    if blk.kinv is not None:
+        blk.kinv = _tensor(kinv, dev)
+    y = np.asarray(y, np.float64)
+    for s, rec in enumerate(studies):
+        if rec is None:
+            continue
+        st = _Study(rec["sid"])
+        n = int(rec["n"])
+        st.xs = [x[s, i].copy() for i in range(n)]
+        st.ys = [float(y[s, i]) for i in range(n)]
+        st.tags = [None] * n
+        st.n_fit = int(rec.get("n_fit", 0))
+        st.since_refit = int(rec.get("since_refit", 0))
+        st.has_factor = bool(rec.get("has_factor", False))
+        st.has_theta = bool(rec.get("has_theta", False))
+        st.trial = int(rec.get("trial", 0))
+        st.block, st.slot = blk, s
+        blk.studies[s] = st
+        fleet._studies[st.sid] = st
+    fleet._blocks.append(blk)
+    return blk
 
 
 def _lm_tensor(a, dev: torch.device) -> torch.Tensor:

@@ -108,42 +108,53 @@ def _phase_ms(program: str, *clocks: Optional[float]) -> dict:
 
 # ---------------------------------------------------------------------------
 # the per-study halves of the suggest pipeline, as functions of one padded
-# study (the reference's fleet plane stacks them; here AskEngine calls them)
+# study (AskEngine) or of S stacked studies (the fleet plane, which JAX gets
+# by vmapping them): x (S, b, D), y (S, b), n_valid an (S,) tensor, θ and
+# the factors leading with S
 # ---------------------------------------------------------------------------
 
-def refit_core(x, y, n_valid: int, thetas, tlo, tup, *, dim: int,
+def _valid(x: Tensor, n_valid) -> Tensor:
+    """(b,) or (S, b) mask of the live rows: ``n_valid`` an int or an (S,)
+    tensor of per-slot counts."""
+    n = torch.as_tensor(n_valid, device=x.device)
+    return torch.arange(x.shape[-2], device=x.device) < n[..., None]
+
+
+def refit_core(x, y, n_valid, thetas, tlo, tup, *, dim: int,
                kernel: str, backend: str, fit_opts: LbfgsbOptions):
     """Full-refit core: masked standardize → multi-start MAP fit → (for
     the fused posterior backend) K⁻¹.
 
     Returns ``(y_std, valid, theta, chol, alpha, kinv, fit_evals)`` with
     ``kinv`` ``None`` on the ``"cholesky"`` backend; ``fit_evals`` (the
-    fit's batched objective evaluations) is the port's addition.
+    fit's batched objective evaluations) is the port's addition.  Stacked,
+    θ inits and bounds are (S, R, P) and every study's fit shares one
+    lockstep solve.
     """
-    b = x.shape[0]
-    valid = torch.arange(b, device=x.device) < n_valid
+    b = x.shape[-2]
+    valid = _valid(x, n_valid)
     y_std, _, _ = standardize_masked(-y, valid)
     theta, chol, alpha, _, fit_evals = fit_padded_core(
         x, y_std, valid, thetas, tlo, tup,
         dim=dim, kernel=kernel, opts=fit_opts)
     kinv = None
     if backend != "cholesky":
-        kinv = _cho_solve(chol, torch.eye(b, dtype=x.dtype,
-                                          device=x.device)).contiguous()
+        eye = torch.eye(b, dtype=x.dtype, device=x.device)
+        kinv = _cho_solve(chol, eye.expand(chol.shape)).contiguous()
     return y_std, valid, theta, chol, alpha, kinv, fit_evals
 
 
-def incr_core(x, y, n_valid: int, theta, chol, kinv, *, dim: int,
+def incr_core(x, y, n_valid, theta, chol, kinv, *, dim: int,
               kernel: str):
     """Incremental-refit core: masked standardize → rank-one Cholesky /
-    bordered-K⁻¹ append at fixed θ (O(n²)).
+    bordered-K⁻¹ append at fixed θ (O(n²)); stacked, each slot appends
+    its own row ``n_valid[s] − 1``.
 
     Returns ``(y_std, valid, params, chol, alpha, kinv, ok)``; ``ok``
     flags a numerically sound Schur complement (callers fall back to
     :func:`refit_core` when it is False).
     """
-    b = x.shape[0]
-    valid = torch.arange(b, device=x.device) < n_valid
+    valid = _valid(x, n_valid)
     y_std, _, _ = standardize_masked(-y, valid)
     params = unpack_theta(theta, dim)
     chol_new, alpha, kinv_new, ok = incremental_update(
@@ -156,12 +167,13 @@ def restart_points(draws: Tensor, x: Tensor, y_std: Tensor, valid: Tensor
     """Restart stack: the incumbent + the (B−1, D) uniform ``draws``.
 
     Returns ``(x0 (B, D), best_val)``, the incumbent's standardized,
-    maximization-scale objective value.
+    maximization-scale objective value; stacked, (S, B, D) and (S,).
     """
     masked = torch.where(valid, y_std, -torch.inf)
-    best_val = masked.max()
-    inc = x[torch.argmax(masked)]
-    return torch.cat([inc[None], draws], 0), best_val
+    best_val = masked.max(-1).values
+    i = torch.argmax(masked, -1)
+    inc = torch.take_along_dim(x, i[..., None, None], -2)      # (..., 1, D)
+    return torch.cat([inc, draws], -2), best_val
 
 
 class AskEngine:

@@ -128,6 +128,27 @@ class EvalEngine:
 
         return fun_batched
 
+    def fleet_device_fun(self, states, plan: EvalPlan):
+        """Batched ``(S, B, q·D) → ((S, B), (S, B, q·D))`` evaluation for
+        the fleet's leading-batch lockstep solver.
+
+        ``states = (gp, best)`` holds S studies' acquisition states stacked
+        along a leading study axis (every tensor of the
+        :class:`~repro_torch.gp.gpr.GPState` leads with S; ``best`` is
+        (S,)): row s of the batch is scored against study s.  One forward
+        and one backward a call, so on the card one K1 and one K2 launch
+        for every study of the block (JAX vmaps the acquisition instead).
+        """
+        gp, best = states
+        state = (gp, best[:, None])
+
+        def fun_batched(X: Tensor) -> Tuple[Tensor, Tensor]:
+            f, g = self._neg_value_and_grad(
+                state, X.reshape(X.shape[:2] + plan.point_shape))
+            return f, g.reshape(X.shape)
+
+        return fun_batched
+
     def run_lockstep(self, state, x0: Tensor, lower: Tensor, upper: Tensor,
                      opts: LbfgsbOptions, plan: EvalPlan) -> LbfgsbResult:
         """dbe_vec: the whole multi-start solve on the device (masked

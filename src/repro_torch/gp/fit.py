@@ -68,6 +68,11 @@ def fit_padded_core(x, y, valid, thetas, lower, upper, *, dim: int,
     Returns ``(theta_best, chol, alpha, iterations, rounds)``: ``rounds``
     is the number of batched objective evaluations (one value-and-gradient
     over all restarts each), a count the reference does not return.
+
+    Stacked studies (the fleet): x (S, b, D), y and valid (S, b), θ inits
+    and bounds (S, R, P).  Every study's restarts run in one lockstep
+    solve, so an evaluation is one gram (on the card one K3 and one K4
+    launch) for all S·R rows; the result leads with S.
     """
     def value_and_grad(tb: Tensor) -> Tuple[Tensor, Tensor]:
         with torch.enable_grad():
@@ -78,12 +83,13 @@ def fit_padded_core(x, y, valid, thetas, lower, upper, *, dim: int,
         return f.detach(), g
 
     res = lbfgsb_minimize(value_and_grad, thetas, lower, upper, opts)
-    theta_best = res.x[torch.argmin(res.f)]
+    best = torch.argmin(res.f, dim=-1, keepdim=True)         # (..., 1)
+    theta_best = torch.take_along_dim(res.x, best[..., None], -2)[..., 0, :]
     p = unpack_theta(theta_best, dim)
 
     v = valid.to(x.dtype)
     K = gram(x, p, kernel)
-    K = K * (v[:, None] * v[None, :]) + torch.diag(1.0 - v)
+    K = K * (v[..., :, None] * v[..., None, :]) + torch.diag_embed(1.0 - v)
     L = torch.linalg.cholesky(K)
     alpha = _cho_solve(L, y * v)
     return theta_best, L, alpha, res.k, res.rounds
@@ -182,21 +188,41 @@ def standardize(y: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     return (y - mu) / sd, mu, sd
 
 
+def _tree_sum(x: Tensor) -> Tensor:
+    """Σ over the last axis in a pairwise order fixed by its length alone:
+    zero-padded to a power of two, the halves added until one is left.
+    Elementwise adds only, so a row's sum has the same bits whatever the
+    leading shape, on any device; a CUDA ``sum`` picks its order from the
+    whole tensor's shape, so a study's moments would round otherwise in a
+    fleet block than alone."""
+    n = x.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        x = torch.nn.functional.pad(x, (0, p - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
 def standardize_masked(y: Tensor, valid: Tensor
                        ) -> Tuple[Tensor, Tensor, Tensor]:
     """Masked :func:`standardize` over a padded target vector; padded
-    slots come back exactly 0."""
+    slots come back exactly 0.  Stacked targets (S, b) with masks (S, b)
+    standardize each row on its own moments, bitwise those of the row
+    alone (:func:`_tree_sum`)."""
     v = valid.to(y.dtype)
-    n = v.sum()
-    mu = (y * v).sum() / n
-    sd = torch.clamp(torch.sqrt(((y - mu) ** 2 * v).sum() / n), min=1e-10)
-    return torch.where(valid, (y - mu) / sd, 0.0), mu, sd
+    n = v.sum(-1, keepdim=True)          # a count: exact in any order
+    mu = _tree_sum(y * v)[..., None] / n
+    sd = torch.clamp(torch.sqrt(_tree_sum((y - mu) ** 2 * v)[..., None]
+                                / n), min=1e-10)
+    return torch.where(valid, (y - mu) / sd, 0.0), mu[..., 0], sd[..., 0]
 
 
 def incremental_update(
     x: Tensor,
     y_std: Tensor,
-    n_valid: int,
+    n_valid,
     params: KernelParams,
     chol: Tensor,
     kinv: Optional[Tensor] = None,
@@ -217,12 +243,18 @@ def incremental_update(
     as they were).  ``ok`` (a bool tensor) is False for a numerically
     impossible Schur complement: callers must then fall back to a full
     refit.
+
+    Stacked studies (the fleet): x (S, b, D), y_std (S, b), params and
+    factors leading with S, and ``n_valid`` an (S,) integer tensor, each
+    slot's own count; the cross columns are one K3 launch for all S.
     """
-    b = x.shape[0]
-    idx = n_valid - 1
+    b = x.shape[-2]
+    idx = torch.as_tensor(n_valid, device=x.device) - 1
     dt = x.dtype
-    valid_old = (torch.arange(b, device=x.device) < idx).to(dt)
-    k_col = KERNELS[kernel](x[idx:idx + 1], x, params)[0] * valid_old
+    valid_old = (torch.arange(b, device=x.device) < idx[..., None]).to(dt)
+    # each slot's new row, (..., 1, D)
+    x_new = torch.take_along_dim(x, idx[..., None, None], -2)
+    k_col = KERNELS[kernel](x_new, x, params)[..., 0, :] * valid_old
     k_diag = params.amplitude + params.noise + jitter
     chol_new, s = cholesky_update(chol, k_col, k_diag, idx)
     ok = torch.isfinite(s) & (s > 1e-12 * k_diag)

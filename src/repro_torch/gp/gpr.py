@@ -77,14 +77,16 @@ def with_kinv(gp: GPState) -> GPState:
                    kinv=kinv)
 
 
-def _one_hot(idx: int, n: int, like: Tensor) -> Tensor:
-    e = torch.zeros((n,), dtype=like.dtype, device=like.device)
-    e[idx] = 1.0
-    return e
+def _one_hot(idx, n: int, like: Tensor) -> Tensor:
+    """(..., n) one-hot rows at ``idx``: an int, or an integer tensor of
+    per-slot indices (...,) (the fleet's stacked studies)."""
+    idx = torch.as_tensor(idx, device=like.device)
+    return (torch.arange(n, device=like.device) == idx[..., None]).to(
+        like.dtype)
 
 
 def cholesky_update(chol: Tensor, k_col: Tensor, k_diag: Tensor,
-                    idx: int) -> Tuple[Tensor, Tensor]:
+                    idx) -> Tuple[Tensor, Tensor]:
     """Rank-one *append* update of a padded Cholesky factor, O(n²).
 
     ``chol`` is the (b, b) lower factor of ``blockdiag(K_n, I_pad)`` (the
@@ -101,31 +103,38 @@ def cholesky_update(chol: Tensor, k_col: Tensor, k_diag: Tensor,
     Returns ``(chol_new, s)`` with ``s = k_diag − ‖l₁₂‖²`` the Schur
     complement: ``s ≤ 0`` (numerically impossible K) signals the caller
     to fall back to a full refit.
+
+    Stacked: ``chol`` (S, b, b), ``k_col`` (S, b), ``k_diag`` (S,) and
+    ``idx`` an (S,) tensor (each slot's own row) update S factors at once.
     """
-    z = torch.linalg.solve_triangular(chol, k_col[:, None], upper=False)[:, 0]
-    s = k_diag - z @ z
+    z = torch.linalg.solve_triangular(chol, k_col[..., None],
+                                      upper=False)[..., 0]
+    s = k_diag - (z * z).sum(-1)
     l22 = torch.sqrt(torch.clamp(s, min=1e-300))
-    e = _one_hot(idx, chol.shape[0], chol)
+    e = _one_hot(idx, chol.shape[-1], chol)
     # z is zero at idx (masked k_col ⇒ identity block solves to 0), so the
     # new row is z with l22 dropped onto the diagonal
-    row = z + l22 * e
-    chol_new = chol * (1.0 - e)[:, None] + e[:, None] * row[None, :]
+    row = z + l22[..., None] * e
+    chol_new = (chol * (1.0 - e)[..., :, None]
+                + e[..., :, None] * row[..., None, :])
     return chol_new, s
 
 
-def kinv_update(kinv: Tensor, k_col: Tensor, s: Tensor, idx: int) -> Tensor:
+def kinv_update(kinv: Tensor, k_col: Tensor, s: Tensor, idx) -> Tensor:
     """Bordered-inverse append matching :func:`cholesky_update`, O(n²).
 
     With ``w = K⁻¹k`` (padded: zero at slots ≥ idx) and Schur complement
     ``s``, the blockwise inverse of the grown matrix, in the padded layout
     (identity at pad slots, including the old entry at ``idx``), is one
     symmetric rank-one correction: ``K⁻¹ + (w−e)(w−e)ᵀ/s − eeᵀ``.
-    Functional, and row-major like :func:`with_kinv`'s.
+    Functional, and row-major like :func:`with_kinv`'s.  Stacked like
+    :func:`cholesky_update` (per-slot ``idx``).
     """
-    w = kinv @ k_col
-    e = _one_hot(idx, kinv.shape[0], kinv)
+    w = (kinv @ k_col[..., None])[..., 0]
+    e = _one_hot(idx, kinv.shape[-1], kinv)
     t = w - e
-    return kinv + torch.outer(t, t) / s - torch.outer(e, e)
+    return (kinv + t[..., :, None] * t[..., None, :] / s[..., None, None]
+            - e[..., :, None] * e[..., None, :])
 
 
 def predict(gp: GPState, x_query: Tensor) -> Tuple[Tensor, Tensor]:
@@ -133,15 +142,17 @@ def predict(gp: GPState, x_query: Tensor) -> Tuple[Tensor, Tensor]:
 
     One batched call for all q points: the 'Batched Evaluation' of
     Algorithm 1.  The cross gram (q, n) is built once and the triangular
-    solve batches over q.
+    solve batches over q.  A stacked state (every tensor leading with S,
+    the fleet's studies) takes (S, q, D) queries → ((S, q), (S, q)).
     """
     # plain torch: autograd differentiates it in the queries
     kfn = PLAIN_KERNELS[gp.kernel]
     k_star = kfn(x_query, gp.x_train, gp.params)          # (q, n)
-    mean = k_star @ gp.alpha                              # O(q·n)
-    v = torch.linalg.solve_triangular(gp.chol, k_star.T, upper=False)
-    prior = gp.params.amplitude
-    var = torch.clamp(prior - (v * v).sum(0), min=1e-16)
+    mean = (k_star @ gp.alpha[..., None])[..., 0]         # O(q·n)
+    v = torch.linalg.solve_triangular(gp.chol, k_star.transpose(-1, -2),
+                                      upper=False)
+    prior = gp.params.amplitude[..., None]
+    var = torch.clamp(prior - (v * v).sum(-2), min=1e-16)
     return mean, var
 
 
@@ -169,15 +180,19 @@ def log_marginal_likelihood_masked(x: Tensor, y: Tensor, valid: Tensor,
     and ``y`` is zeroed there, so the result equals the exact LML of the
     valid subset.  The params may carry leading batch dimensions (one θ
     per row, as in the batched MAP fit); the result then has them too.
+    Stacked studies: x (S, b, D), y and valid (S, b) with params leading
+    (S, R) give (S, R), each study's rows over its own data.
     """
     v = valid.to(x.dtype)
+    if x.ndim == 3:                      # a θ-row axis after the studies'
+        v, y = v[:, None], y[:, None]
     K = gram(x, params, kernel, jitter)
-    mask2 = v[:, None] * v[None, :]
-    K = K * mask2 + torch.diag(1.0 - v)
+    mask2 = v[..., :, None] * v[..., None, :]
+    K = K * mask2 + torch.diag_embed(1.0 - v)
     yv = y * v
     L = torch.linalg.cholesky(K)
     alpha = _cho_solve(L, yv.expand(L.shape[:-1]))
-    n_valid = v.sum()
+    n_valid = v.sum(-1)
     logdiag = torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
     return (-0.5 * (yv * alpha).sum(-1)
             - (logdiag * v).sum(-1)

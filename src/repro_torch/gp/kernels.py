@@ -47,12 +47,25 @@ def init_params(dim: int, dtype=torch.float64, device=None) -> KernelParams:
     )
 
 
+def _theta_axes(x: Tensor, lead: int) -> Tensor:
+    """Stacked points (S, n, D) against θ with ``lead`` leading dims (S,
+    R, ...): singleton axes after S, so study s meets its own θ rows.
+    One study's (n, D) broadcast as they are."""
+    if x.ndim <= 2 or lead <= x.ndim - 2:
+        return x
+    return x.reshape(x.shape[:-2] + (1,) * (lead - x.ndim + 2)
+                     + x.shape[-2:])
+
+
 def _sq_dists(x1: Tensor, x2: Tensor, inv_ls: Tensor) -> Tensor:
     """Scaled squared distances, (..., n1, n2). Numerically clamped at 0.
 
     ``inv_ls`` (..., D) may carry leading θ-batch dimensions (the batched
     MAP fit passes one row per restart); the result then has them too.
+    Stacked points (S, n, D) meet θ rows (S, ..., D) study by study.
     """
+    lead = inv_ls.ndim - 1
+    x1, x2 = _theta_axes(x1, lead), _theta_axes(x2, lead)
     a = x1 * inv_ls[..., None, :]
     b = x2 * inv_ls[..., None, :]
     # ||a-b||^2 = |a|^2 + |b|^2 - 2ab ; clamp negatives from cancellation
@@ -77,18 +90,22 @@ def matern52_plain(x1: Tensor, x2: Tensor, params: KernelParams) -> Tensor:
 
 def matern52(x1: Tensor, x2: Tensor, params: KernelParams) -> Tensor:
     """Matérn-5/2 cross covariance, (..., n1, n2), one per θ row of
-    ``params`` (log_lengthscale (..., D), log_amplitude (...)).
+    ``params`` (log_lengthscale (..., D), log_amplitude (...)).  Stacked
+    points x1 (S, n1, D), x2 (S, n2, D) take θ with leading dims (S, ...):
+    study s's rows meet its own points (the fleet's study axis).
 
     On CUDA tensors this is the gram kernel K3, differentiable in θ through
-    K4 (``kernels.matern.ops.matern52_gram_op``); x1 and x2 then take no
-    gradient.  On the CPU it is :func:`matern52_plain`.
+    K4 (``kernels.matern.ops.matern52_gram_op``): one launch for every θ
+    row of every study; x1 and x2 then take no gradient.  On the CPU it is
+    :func:`matern52_plain`.
     """
     if x1.device.type != "cuda":
         return matern52_plain(x1, x2, params)
     lead = params.log_lengthscale.shape[:-1]
     d = params.log_lengthscale.shape[-1]
-    inv_ls = torch.exp(-params.log_lengthscale).reshape(-1, d)
-    amp = params.amplitude.reshape(-1)
+    studies = x1.shape[:-2]              # () or (S,)
+    inv_ls = torch.exp(-params.log_lengthscale).reshape(studies + (-1, d))
+    amp = params.amplitude.reshape(studies + (-1,))
     k = matern52_gram_op(x1, x2, inv_ls, amp)
     return k.reshape(lead + k.shape[-2:])
 
@@ -110,6 +127,6 @@ def gram(x: Tensor, params: KernelParams, kernel: str = "matern52",
     """Training gram matrix with noise + jitter on the diagonal,
     (..., n, n) for θ rows with leading dimensions (...)."""
     k = KERNELS[kernel](x, x, params)
-    n = x.shape[0]
+    n = x.shape[-2]
     eye = torch.eye(n, dtype=k.dtype, device=k.device)
     return k + (params.noise + jitter)[..., None, None] * eye

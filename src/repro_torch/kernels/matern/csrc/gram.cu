@@ -24,7 +24,10 @@
 //  * f64 throughout: JAX's fit builds its gram in f64 (x64); an f32 gram breaks
 //    the fit's Cholesky.
 //  * A block computes one kT × kT = 32 × 32 tile (I, J) of one θ row r: grid
-//    (tiles, R).  The plan (kernel.py::gram_plan) gives the tiles: every
+//    (tiles, R).  With a study axis, x1 (S, n1, D) and x2 (S, n2, D) hold S
+//    studies' points and the R = S · rps θ rows come rps to a study: row r
+//    reads study r / rps's points, and nothing else changes, so a study's
+//    rows are bitwise those of a solo call on its points.  The plan (kernel.py::gram_plan) gives the tiles: every
 //    tile, row-major, or, when x1 and x2 are the same points (every call of
 //    the fit), the tiles I ≤ J of the upper triangle, row-major: 153 a θ
 //    row at n = 544 (306 blocks at R = 2, over the 132 SMs), where 289 were.
@@ -129,7 +132,7 @@ struct GramArgs {
   double* part;                            // K4: partials (R, D + 1, tiles)
   double* d_inv;                           // K4: (R, D)
   double* d_amp;                           // K4: (R,)
-  int n1, n2, d, tiles, tn2, sym;
+  int n1, n2, d, tiles, tn2, sym, rps;     // rps: θ rows a study
 };
 
 // tile t of a θ row → (I, J): row-major over the tiles, tn2 to a row, or
@@ -221,10 +224,13 @@ __device__ __forceinline__ void gram_block(const GramArgs& a) {
   const Layout L(smem, pw);
   const double* ils_r = a.inv_ls + (size_t)r * d;
   const double* gr = kBwd ? a.g + (size_t)r * a.n1 * a.n2 : nullptr;
+  const int st = r / a.rps;                // the study whose points row r reads
+  const double* x1 = a.x1 + (size_t)st * a.n1 * d;
+  const double* x2 = a.x2 + (size_t)st * a.n2 * d;
 
   auto stage_raw = [&](int k0, int kw) {
-    stage_rows(L.xr, pr, a.x1 + (size_t)i0 * d + k0, d, kT, a.n1 - i0, kw);
-    stage_rows(L.xr + kT * pr, pr, a.x2 + (size_t)j0 * d + k0, d, kT, a.n2 - j0, kw);
+    stage_rows(L.xr, pr, x1 + (size_t)i0 * d + k0, d, kT, a.n1 - i0, kw);
+    stage_rows(L.xr + kT * pr, pr, x2 + (size_t)j0 * d + k0, d, kT, a.n2 - j0, kw);
   };
 
   // |a_i|², |b_j|² (threads < 2kT, a row each) and a_i·b_j: fma chains in k
@@ -392,8 +398,10 @@ __global__ void __launch_bounds__(kThreads) gram_bwd_merge_kernel(const GramArgs
 
 // GramArgs from the C entries' arguments; false if they do not hold
 // together (the plan's tile count included)
-bool make_args(GramArgs* a, int r, int n1, int n2, int d, int tiles, int sym) {
+bool make_args(GramArgs* a, int r, int n1, int n2, int d, int tiles, int sym, int studies) {
   if (r < 1 || r > 65535 || n1 < 1 || n2 < 1 || d < 1 || (sym && n1 != n2)) return false;
+  if (studies < 1 || r % studies != 0) return false;
+  a->rps = r / studies;
   if (tiles != tile_count(n1, n2, sym)) return false;
   a->n1 = n1;
   a->n2 = n2;
@@ -421,13 +429,16 @@ extern "C" {
 
 // Each returns a cudaError_t (0 on success).  tiles is gram_plan's tile
 // count for (n1, n2, symmetric); symmetric = 1 only where x1 and x2 are the
-// same points (n1 = n2), and then only the tiles I ≤ J run.
+// same points (n1 = n2), and then only the tiles I ≤ J run.  x1 and x2 hold
+// `studies` studies' points one after another; the r θ rows (and out, g,
+// d_inv_ls, d_amp) come r / studies to a study.
 
 int matern52_gram_fwd(const double* x1, const double* x2, const double* inv_ls,
                       const double* amp, double* out, int r, int n1, int n2, int d, int tiles,
-                      int symmetric, void* stream) {
+                      int symmetric, int studies, void* stream) {
   GramArgs a{};
-  if (!make_args(&a, r, n1, n2, d, tiles, symmetric)) return (int)cudaErrorInvalidValue;
+  if (!make_args(&a, r, n1, n2, d, tiles, symmetric, studies))
+    return (int)cudaErrorInvalidValue;
   a.x1 = x1;
   a.x2 = x2;
   a.inv_ls = inv_ls;
@@ -441,9 +452,9 @@ int matern52_gram_fwd(const double* x1, const double* x2, const double* inv_ls,
 int matern52_gram_bwd_theta(const double* x1, const double* x2, const double* inv_ls,
                             const double* amp, const double* g, double* part, double* d_inv_ls,
                             double* d_amp, int r, int n1, int n2, int d, int tiles,
-                            int symmetric, void* stream) {
+                            int symmetric, int studies, void* stream) {
   GramArgs a{};
-  if (!make_args(&a, r, n1, n2, d, tiles, symmetric) || part == nullptr)
+  if (!make_args(&a, r, n1, n2, d, tiles, symmetric, studies) || part == nullptr)
     return (int)cudaErrorInvalidValue;
   a.x1 = x1;
   a.x2 = x2;

@@ -179,9 +179,12 @@ __device__ __forceinline__ void scale_rows(double* x, int ds, int rows, const do
 }
 
 // ------------------------------------------------------ K1 split regime
-// grid (ceil(n / kTile), S, ceil(q / kSplitRows)), kThreads threads.
-// part[(s, i, j)] = c_s[i, j]; blocks of column tile 0 also write their
-// chunk's k*_il to kst[(i, l)] for the merge.  The query and chunk rows
+// grid (ceil(n / kTile), S, studies · ceil(q / kSplitRows)), kThreads
+// threads.  part[(s, i, j)] = c_s[i, j]; blocks of column tile 0 also write
+// their chunk's k*_il to kst[(i, l)] for the merge.  A study's inputs,
+// outputs and scratch lie one after another (its scratch (S + 1)·q·n
+// doubles, part then kst), so each block reads and writes what a solo call
+// on its study would.  The query and chunk rows
 // are staged kPiece coordinates at a time (one piece up to D = kPiece),
 // the K⁻¹ tile under the first piece's chains.
 __global__ void __launch_bounds__(kThreads)
@@ -198,9 +201,16 @@ posterior_fwd_split_kernel(const double* __restrict__ xq, const double* __restri
   double* x = a + kSplitRows * ps;                    // [kChunk][pw] chunk rows (raw), a piece
 
   const int tid = threadIdx.x;
+  const int qtiles = (q + kSplitRows - 1) / kSplitRows, st = blockIdx.z / qtiles;
   const int j0 = blockIdx.x * kTile, s = blockIdx.y, l0 = s * kChunk;
-  const int i0 = blockIdx.z * kSplitRows;
-  const double amp = *amp_ptr;
+  const int i0 = (blockIdx.z - st * qtiles) * kSplitRows;
+  xq += (size_t)st * q * d;
+  xt += (size_t)st * n * d;
+  kinv += (size_t)st * n * n;
+  inv_ls += (size_t)st * d;
+  part += (size_t)st * (gridDim.y + 1) * q * n;
+  kst += (size_t)st * (gridDim.y + 1) * q * n;
+  const double amp = amp_ptr[st];
 
   // k*: thread owns query i and chunk rows l, l + 16, l + 32, l + 48
   constexpr int kM = kChunk * kSplitRows / kThreads;
@@ -273,8 +283,8 @@ posterior_fwd_split_kernel(const double* __restrict__ xq, const double* __restri
 }
 
 // ------------------------------------------------------- K1 walk regime
-// grid (ceil(n / kWalkCols), ceil(q / kWalkRows)), kWalkThreads threads;
-// writes t.  A chunk is kChunk / kStageRows stages; the last chunk's
+// grid (ceil(n / kWalkCols), ceil(q / kWalkRows), studies), kWalkThreads
+// threads; writes t.  A chunk is kChunk / kStageRows stages; the last chunk's
 // stages past n are zeros, as the split regime's rows past n.  One
 // barrier a stage: after it a thread computes its k* of the next stage
 // and then this stage's product, so that warps in the one overlap warps
@@ -297,10 +307,15 @@ posterior_fwd_walk_kernel(const double* __restrict__ xq, const double* __restric
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int kWalkWarps = kWalkThreads / 32;
-  const int j0 = blockIdx.x * kWalkCols, i0 = blockIdx.y * kWalkRows;
+  const int j0 = blockIdx.x * kWalkCols, i0 = blockIdx.y * kWalkRows, st = blockIdx.z;
   constexpr int kPerChunk = kChunk / kStageRows;
   const int nstages = (n + kChunk - 1) / kChunk * kPerChunk;
-  const double amp = *amp_ptr;
+  xq += (size_t)st * q * d;
+  xt += (size_t)st * n * d;
+  kinv += (size_t)st * n * n;
+  inv_ls += (size_t)st * d;
+  t += (size_t)st * q * n;
+  const double amp = amp_ptr[st];
   // rows 2ty + {0, 1, 16, 17}, columns 2cx + {0, 1, 128, 129}: two 16-byte
   // loads of k* and two of K⁻¹ a step; a warp's are 8 and 4 distinct
   const int ty = lane >> 2, cx = warp * 4 + (lane & 3);
@@ -418,7 +433,7 @@ __device__ __forceinline__ void finish_row(const double* msum, const double* vsu
   *var = v > kVarFloor ? v : kVarFloor;
 }
 
-// Split regime: grid (q), 32 · min(kMergeWarps, ceil(n / kTile)) threads;
+// Split regime: grid (q, studies), 32 · min(kMergeWarps, ceil(n / kTile)) threads;
 // one row, a warp per column tile (columns j and j + 32 in a lane):
 // t_ij = ((p_0 + p_1) + …) over the nparts partials part[(s, i, j)], k*
 // from kst, then mean and var.
@@ -434,8 +449,14 @@ posterior_fwd_merge_kernel(const double* __restrict__ alpha,
   double* vsum = msum + ntiles;                       // [ntiles]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int i = blockIdx.x;
+  const int i = blockIdx.x, st = blockIdx.y;
   const size_t plane = (size_t)q * n;
+  alpha += (size_t)st * n;
+  part += (size_t)st * (nparts + 1) * plane;
+  kst += (size_t)st * (nparts + 1) * plane;
+  mean += (size_t)st * q;
+  var += (size_t)st * q;
+  t += (size_t)st * plane;
 
   for (int tile = warp; tile < ntiles; tile += nwarps) {
     int j[2];
@@ -481,10 +502,10 @@ posterior_fwd_merge_kernel(const double* __restrict__ alpha,
     }
   }
   __syncthreads();
-  if (tid == 0) finish_row(msum, vsum, ntiles, *amp_ptr, mean + i, var + i);
+  if (tid == 0) finish_row(msum, vsum, ntiles, amp_ptr[st], mean + i, var + i);
 }
 
-// Walk regime: grid (ceil(q / kMergeRows)), 32 · warps threads; t is
+// Walk regime: grid (ceil(q / kMergeRows), studies), 32 · warps threads; t is
 // final.  A block takes kMergeRows query rows, a warp a column tile at a
 // time: it stages the tile's training rows in its own slice of shared
 // memory (the next tile's under this one's sums), scales them once for
@@ -509,8 +530,15 @@ posterior_fwd_merge_walk_kernel(const double* __restrict__ xq, const double* __r
   double* vsum = msum + kMergeRows * ntiles;          // [kMergeRows][ntiles]
   double* b = vsum + kMergeRows * ntiles + warp * kTile * ds;   // [kTile][ds], this warp's
 
-  const int i0 = blockIdx.x * kMergeRows;
-  const double amp = *amp_ptr;
+  const int i0 = blockIdx.x * kMergeRows, st = blockIdx.y;
+  xq += (size_t)st * q * d;
+  xt += (size_t)st * n * d;
+  alpha += (size_t)st * n;
+  inv_ls += (size_t)st * d;
+  t += (size_t)st * q * n;
+  mean += (size_t)st * q;
+  var += (size_t)st * q;
+  const double amp = amp_ptr[st];
   stage_rows(a, ds, xq + (size_t)i0 * d, d, kMergeRows, q - i0, d);
   for (int k = tid; k < d; k += blockDim.x) cp_async8(smem_u32(ils + k), inv_ls + k, true);
   cp_async_commit();
@@ -684,8 +712,8 @@ __device__ __forceinline__ double bwd_weight(double asq, double bsq, double ab, 
   return __dmul_rn(f, w);
 }
 
-// grid (ceil(n / kTile), ceil(q / R)), kThreads threads: R query rows from
-// i0 × the column tile from j0.  Writes part[(T, i, k)] = s_ikT for k < D
+// grid (ceil(n / kTile), ceil(q / R), studies), kThreads threads: R query
+// rows from i0 × the column tile from j0 of one study.  Writes part[(T, i, k)] = s_ikT for k < D
 // and csum_iT at k = D.  A thread owns the pairs (rows row0 + kRowStep·m,
 // column col); what c needs besides the chains (t, α, ḡm, ḡv, var, σ_f²)
 // is loaded into registers under the staging.  At R = 1 one block an SM is
@@ -710,11 +738,21 @@ posterior_bwd_split_kernel(const double* __restrict__ xq, const double* __restri
   double* cs = ils + pw;                              // [R][kCs] c
 
   const int tid = threadIdx.x, tile = blockIdx.x, j0 = tile * kTile, i0 = blockIdx.y * R;
+  const int st = blockIdx.z;
   const int npieces = (d + kPiece - 1) / kPiece;
+  xq += (size_t)st * q * d;
+  xt += (size_t)st * n * d;
+  alpha += (size_t)st * n;
+  t += (size_t)st * q * n;
+  var += (size_t)st * q;
+  inv_ls += (size_t)st * d;
+  gm += (size_t)st * q;
+  gv += (size_t)st * q;
+  part += (size_t)st * gridDim.x * q * (d + 1);
   const int col = tid % kTile, row0 = tid / kTile;
   const bool active = row0 < R, col_ok = j0 + col < n;
 
-  const double coef = __dmul_rn(-5.0 / 3.0, *amp_ptr);
+  const double coef = __dmul_rn(-5.0 / 3.0, amp_ptr[st]);
   const double al = col_ok ? alpha[j0 + col] : 0.0;
   double tv[kPer], gmv[kPer], gv2[kPer];
 #pragma unroll
@@ -801,7 +839,7 @@ posterior_bwd_split_kernel(const double* __restrict__ xq, const double* __restri
   }
 }
 
-// grid (ceil(q · ceil(d / 32) / kBwdMergeWarps)), a warp per (query row,
+// grid (ceil(q · ceil(d / 32) / kBwdMergeWarps), studies), a warp per (query row,
 // 32 coordinates), a lane per coordinate k: csum_i and s_ik over the
 // ntiles partials in tile order (both columns' loads kPartBatch at a time,
 // in flight together), then dxq_ik = il_k (csum_i a_ik − s_ik).
@@ -813,7 +851,11 @@ posterior_bwd_merge_kernel(const double* __restrict__ xq, const double* __restri
   const int task = blockIdx.x * kBwdMergeWarps + (threadIdx.x >> 5);
   const int i = task / kchunks, k = (task - i * kchunks) * 32 + (threadIdx.x & 31);
   if (i >= q || k >= d) return;
-  const size_t w = (size_t)d + 1, plane = (size_t)q * w;
+  const size_t w = (size_t)d + 1, plane = (size_t)q * w, st = blockIdx.y;
+  xq += st * q * d;
+  inv_ls += st * d;
+  part += st * ntiles * plane;
+  dxq += st * q * d;
   const double* row = part + (size_t)i * w;
   const double il = inv_ls[k], x = xq[(size_t)i * d + k];
   double csum = 0.0, s = 0.0;
@@ -845,10 +887,10 @@ template <int R>
 cudaError_t launch_bwd(const double* xq, const double* xt, const double* alpha,
                        const double* t, const double* var, const double* inv_ls,
                        const double* amp, const double* gm, const double* gv, double* part,
-                       double* dxq, int q, int n, int d, cudaStream_t s) {
+                       double* dxq, int q, int n, int d, int studies, cudaStream_t s) {
   const int ntiles = (n + kTile - 1) / kTile;
-  const dim3 grid(ntiles, (q + R - 1) / R);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(ntiles, (q + R - 1) / R, studies);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
   const size_t smem = bwd_split_smem(d, R);
   cudaError_t err = allow_smem((const void*)posterior_bwd_split_kernel<R>, smem);
   if (err != cudaSuccess) return err;
@@ -856,9 +898,9 @@ cudaError_t launch_bwd(const double* xq, const double* xt, const double* alpha,
                                                                amp, gm, gv, part, q, n, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long tasks = (long long)q * ((d + 31) / 32);
-  posterior_bwd_merge_kernel<<<(unsigned)((tasks + kBwdMergeWarps - 1) / kBwdMergeWarps),
-                               kBwdMergeWarps * 32, 0, s>>>(xq, inv_ls, part, ntiles, dxq, q,
-                                                            d);
+  const dim3 mgrid((unsigned)((tasks + kBwdMergeWarps - 1) / kBwdMergeWarps), studies);
+  posterior_bwd_merge_kernel<<<mgrid, kBwdMergeWarps * 32, 0, s>>>(xq, inv_ls, part, ntiles,
+                                                                   dxq, q, d);
   return cudaGetLastError();
 }
 
@@ -866,21 +908,27 @@ cudaError_t launch_bwd(const double* xq, const double* xt, const double* alpha,
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success).  regime 0 = split: scratch holds
-// (ceil(n / 64) + 1) · q · n doubles (the chunks' partials, then k*);
-// 1 = walk: scratch unused (may be null).
+// Returns a cudaError_t (0 on success).  Every input and output leads with
+// the study axis (studies ≥ 1 problems of one shape, one after another);
+// each study's results are bitwise those of a solo call on it.  regime 0 =
+// split: scratch holds studies · (ceil(n / 64) + 1) · q · n doubles (a
+// study's chunk partials, then its k*); 1 = walk: scratch unused (may be
+// null).
 // The wrapper's plan() (kernel.py) picks the regime; either gives the same
 // bits.  Two launches: the split or walk kernel, then the merge.
 int matern52_posterior_fwd(const double* xq, const double* xt, const double* alpha,
                            const double* kinv, const double* inv_ls, const double* amp,
                            double* mean, double* var, double* t, double* scratch,
-                           int q, int n, int d, int regime, void* stream) {
+                           int q, int n, int d, int studies, int regime, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (q < 1 || n < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  if (q < 1 || n < 1 || d < 1 || studies < 1 || studies > 65535)
+    return (int)cudaErrorInvalidValue;
   const int nchunks = (n + kChunk - 1) / kChunk;
   cudaError_t err;
   if (regime == 0) {
-    const dim3 grid((n + kTile - 1) / kTile, nchunks, (q + kSplitRows - 1) / kSplitRows);
+    const long long zs = (long long)studies * ((q + kSplitRows - 1) / kSplitRows);
+    if (zs > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid((n + kTile - 1) / kTile, nchunks, (unsigned)zs);
     if (scratch == nullptr || grid.y > 65535 || grid.z > 65535)
       return (int)cudaErrorInvalidValue;
     const size_t smem = split_smem(d);
@@ -889,7 +937,7 @@ int matern52_posterior_fwd(const double* xq, const double* xt, const double* alp
     posterior_fwd_split_kernel<<<grid, kThreads, smem, s>>>(
         xq, xt, kinv, inv_ls, amp, scratch, scratch + (size_t)nchunks * q * n, q, n, d);
   } else if (regime == 1) {
-    const dim3 grid((n + kWalkCols - 1) / kWalkCols, (q + kWalkRows - 1) / kWalkRows);
+    const dim3 grid((n + kWalkCols - 1) / kWalkCols, (q + kWalkRows - 1) / kWalkRows, studies);
     if (grid.y > 65535) return (int)cudaErrorInvalidValue;
     const size_t smem = walk_smem(d);
     if ((err = allow_smem((const void*)posterior_fwd_walk_kernel, smem)) != cudaSuccess)
@@ -906,7 +954,7 @@ int matern52_posterior_fwd(const double* xq, const double* xt, const double* alp
     const size_t msmem = merge_smem(n);
     if ((err = allow_smem((const void*)posterior_fwd_merge_kernel, msmem)) != cudaSuccess)
       return (int)err;
-    posterior_fwd_merge_kernel<<<q, threads, msmem, s>>>(
+    posterior_fwd_merge_kernel<<<dim3(q, studies), threads, msmem, s>>>(
         alpha, amp, scratch, nchunks, scratch + (size_t)nchunks * q * n, mean, var, t, q, n);
   } else {
     int warps = kMergeWalkWarps;             // as many as the tiles' slices fit
@@ -915,29 +963,32 @@ int matern52_posterior_fwd(const double* xq, const double* xt, const double* alp
     if (msmem > kMaxSmem) return (int)cudaErrorInvalidValue;
     if ((err = allow_smem((const void*)posterior_fwd_merge_walk_kernel, msmem)) != cudaSuccess)
       return (int)err;
-    posterior_fwd_merge_walk_kernel<<<(q + kMergeRows - 1) / kMergeRows, 32 * warps, msmem,
-                                      s>>>(xq, xt, alpha, inv_ls, amp, t, mean, var, q, n, d);
+    posterior_fwd_merge_walk_kernel<<<dim3((q + kMergeRows - 1) / kMergeRows, studies),
+                                      32 * warps, msmem, s>>>(xq, xt, alpha, inv_ls, amp, t,
+                                                              mean, var, q, n, d);
   }
   return (int)cudaGetLastError();
 }
 
-// Returns a cudaError_t (0 on success).  scratch holds ceil(n / 64) · q ·
-// (d + 1) doubles (the tiles' partials); rows (1 or 16) is the split
+// Returns a cudaError_t (0 on success).  Inputs and outputs lead with the
+// study axis, as in matern52_posterior_fwd.  scratch holds studies ·
+// ceil(n / 64) · q · (d + 1) doubles (each study's tiles' partials); rows (1 or 16) is the split
 // kernel's query rows a block, which the wrapper's bwd_plan() (kernel.py)
 // picks; either gives the same bits.  Two launches: split, then merge.
 int matern52_posterior_bwd_xq(const double* xq, const double* xt, const double* alpha,
                               const double* t, const double* var, const double* inv_ls,
                               const double* amp, const double* gm, const double* gv,
-                              double* dxq, double* scratch, int q, int n, int d, int rows,
-                              void* stream) {
+                              double* dxq, double* scratch, int q, int n, int d, int studies,
+                              int rows, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (q < 1 || n < 1 || d < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (q < 1 || n < 1 || d < 1 || studies < 1 || studies > 65535 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
   if (rows == 1)
     return (int)launch_bwd<1>(xq, xt, alpha, t, var, inv_ls, amp, gm, gv, scratch, dxq, q, n, d,
-                              s);
+                              studies, s);
   if (rows == 16)
     return (int)launch_bwd<16>(xq, xt, alpha, t, var, inv_ls, amp, gm, gv, scratch, dxq, q, n,
-                               d, s);
+                               d, studies, s);
   return (int)cudaErrorInvalidValue;
 }
 

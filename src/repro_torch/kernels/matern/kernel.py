@@ -62,10 +62,10 @@ LAUNCHES: Dict[str, int] = {"matern52_posterior_fwd": 0,
                             "matern52_gram_bwd_theta": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-declare("matern52_posterior_fwd", [_P] * 10 + [_I] * 4 + [_P], _I)
-declare("matern52_posterior_bwd_xq", [_P] * 11 + [_I] * 4 + [_P], _I)
-declare("matern52_gram_fwd", [_P] * 5 + [_I] * 6 + [_P], _I)
-declare("matern52_gram_bwd_theta", [_P] * 8 + [_I] * 6 + [_P], _I)
+declare("matern52_posterior_fwd", [_P] * 10 + [_I] * 5 + [_P], _I)
+declare("matern52_posterior_bwd_xq", [_P] * 11 + [_I] * 5 + [_P], _I)
+declare("matern52_gram_fwd", [_P] * 5 + [_I] * 7 + [_P], _I)
+declare("matern52_gram_bwd_theta", [_P] * 8 + [_I] * 7 + [_P], _I)
 
 
 def reset_launch_counts() -> None:
@@ -102,6 +102,11 @@ class PosteriorPlan(NamedTuple):
     chunks: int
     blocks: int
     scratch: int
+
+    def studies(self, s: int) -> "PosteriorPlan":
+        """The plan of a call on S stacked studies: the same regime and
+        order, S times the blocks and the scratch."""
+        return self._replace(blocks=s * self.blocks, scratch=s * self.scratch)
 
 
 def _split_smem(d: int) -> int:
@@ -154,6 +159,11 @@ class BwdPlan(NamedTuple):
     blocks: int
     scratch: int
 
+    def studies(self, s: int) -> "BwdPlan":
+        """The plan of a call on S stacked studies: the same rows and
+        order, S times the blocks and the scratch."""
+        return self._replace(blocks=s * self.blocks, scratch=s * self.scratch)
+
 
 @functools.lru_cache(maxsize=1024)
 def bwd_plan(q: int, n: int, d: int) -> BwdPlan:
@@ -169,26 +179,42 @@ def bwd_plan(q: int, n: int, d: int) -> BwdPlan:
     return BwdPlan(rows, tiles, tiles * -(-q // rows), tiles * q * (d + 1))
 
 
+def _studies(xq: Tensor) -> Tuple[int, Tuple[int, ...]]:
+    """(S, lead) of a posterior call: ``xq`` (q, D) is one study (lead
+    ()), (S, q, D) a stack of S (lead (S,))."""
+    if xq.ndim == 2:
+        return 1, ()
+    if xq.ndim == 3:
+        return xq.shape[0], (xq.shape[0],)
+    raise ValueError(f"xq must be (q, D) or (S, q, D), got {tuple(xq.shape)}")
+
+
 def matern52_posterior_fwd(xq: Tensor, xt: Tensor, alpha: Tensor,
                            kinv: Tensor, inv_lengthscale: Tensor,
                            amplitude: Tensor
                            ) -> Tuple[Tensor, Tensor, Tensor]:
-    """K1: ((q,) mean, (q,) var, (q, n) t = k* K⁻¹)."""
+    """K1: ((q,) mean, (q,) var, (q, n) t = k* K⁻¹).
+
+    With a leading study axis (xq (S, q, D), xt (S, n, D), alpha (S, n),
+    kinv (S, n, n), inv_lengthscale (S, D), amplitude (S,)) one launch
+    serves the S studies and returns (S, q), (S, q), (S, q, n); each
+    study's slice is bitwise its solo call."""
     if on_cpu(xq):
         return matern52_posterior_fwd_ref(xq, xt, alpha, kinv,
                                           inv_lengthscale, amplitude)
-    q, d = xq.shape
-    n = xt.shape[0]
+    S, lead = _studies(xq)
+    q, d = xq.shape[-2:]
+    n = xt.shape[-2]
     dev = xq.device
     for name, x, shape in (("xq", xq, (q, d)), ("xt", xt, (n, d)),
                            ("alpha", alpha, (n,)), ("kinv", kinv, (n, n)),
                            ("inv_lengthscale", inv_lengthscale, (d,)),
                            ("amplitude", amplitude, ())):
-        check_tensor(name, x, shape, torch.float64, dev)
-    p = plan(q, n, d)
-    mean = torch.empty((q,), dtype=torch.float64, device=dev)
-    var = torch.empty((q,), dtype=torch.float64, device=dev)
-    t = torch.empty((q, n), dtype=torch.float64, device=dev)
+        check_tensor(name, x, lead + shape, torch.float64, dev)
+    p = plan(q, n, d).studies(S)
+    mean = torch.empty(lead + (q,), dtype=torch.float64, device=dev)
+    var = torch.empty(lead + (q,), dtype=torch.float64, device=dev)
+    t = torch.empty(lead + (q, n), dtype=torch.float64, device=dev)
     scratch = (torch.empty((p.scratch,), dtype=torch.float64, device=dev)
                if p.scratch else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -197,7 +223,7 @@ def matern52_posterior_fwd(xq: Tensor, xt: Tensor, alpha: Tensor,
             xq.data_ptr(), xt.data_ptr(), alpha.data_ptr(), kinv.data_ptr(),
             inv_lengthscale.data_ptr(), amplitude.data_ptr(),
             mean.data_ptr(), var.data_ptr(), t.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), q, n, d,
+            None if scratch is None else scratch.data_ptr(), q, n, d, S,
             _REGIMES[p.regime], stream)
     check_launch("matern52_posterior_fwd", err)
     LAUNCHES["matern52_posterior_fwd"] += 1
@@ -208,13 +234,15 @@ def matern52_posterior_bwd_xq(xq: Tensor, xt: Tensor, alpha: Tensor,
                               t: Tensor, var: Tensor,
                               inv_lengthscale: Tensor, amplitude: Tensor,
                               g_mean: Tensor, g_var: Tensor) -> Tensor:
-    """K2: ∂(ḡm·mean + ḡv·var)/∂xq, (q, D)."""
+    """K2: ∂(ḡm·mean + ḡv·var)/∂xq, (q, D); with K1's leading study axis
+    (S, q, D) in one launch, each study's slice bitwise its solo call."""
     if on_cpu(xq):
         return matern52_posterior_bwd_ref(xq, xt, alpha, t, var,
                                           inv_lengthscale, amplitude,
                                           g_mean, g_var)
-    q, d = xq.shape
-    n = xt.shape[0]
+    S, lead = _studies(xq)
+    q, d = xq.shape[-2:]
+    n = xt.shape[-2]
     dev = xq.device
     for name, x, shape in (("xq", xq, (q, d)), ("xt", xt, (n, d)),
                            ("alpha", alpha, (n,)), ("t", t, (q, n)),
@@ -222,9 +250,9 @@ def matern52_posterior_bwd_xq(xq: Tensor, xt: Tensor, alpha: Tensor,
                            ("inv_lengthscale", inv_lengthscale, (d,)),
                            ("amplitude", amplitude, ()),
                            ("g_mean", g_mean, (q,)), ("g_var", g_var, (q,))):
-        check_tensor(name, x, shape, torch.float64, dev)
-    p = bwd_plan(q, n, d)
-    dxq = torch.empty((q, d), dtype=torch.float64, device=dev)
+        check_tensor(name, x, lead + shape, torch.float64, dev)
+    p = bwd_plan(q, n, d).studies(S)
+    dxq = torch.empty(lead + (q, d), dtype=torch.float64, device=dev)
     scratch = torch.empty((p.scratch,), dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -232,7 +260,7 @@ def matern52_posterior_bwd_xq(xq: Tensor, xt: Tensor, alpha: Tensor,
             xq.data_ptr(), xt.data_ptr(), alpha.data_ptr(), t.data_ptr(),
             var.data_ptr(), inv_lengthscale.data_ptr(), amplitude.data_ptr(),
             g_mean.data_ptr(), g_var.data_ptr(), dxq.data_ptr(),
-            scratch.data_ptr(), q, n, d, p.rows, stream)
+            scratch.data_ptr(), q, n, d, S, p.rows, stream)
     check_launch("matern52_posterior_bwd_xq", err)
     LAUNCHES["matern52_posterior_bwd_xq"] += 1
     return dxq
@@ -298,36 +326,56 @@ def same_points(x1: Tensor, x2: Tensor) -> bool:
         == x2.untyped_storage().data_ptr()))
 
 
+class GramDims(NamedTuple):
+    """A gram call's shape: S studies (lead () for one, (S,) for a
+    stack), R θ rows a study, n1 × n2 points, D dimensions."""
+    lead: Tuple[int, ...]
+    s: int
+    r: int
+    n1: int
+    n2: int
+    d: int
+
+
 def _gram_dims(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
-               amplitude: Tensor) -> Tuple[int, int, int, int]:
-    if x1.ndim != 2 or x2.ndim != 2 or inv_lengthscale.ndim != 2:
+               amplitude: Tensor) -> GramDims:
+    """x1 (n1, D), x2 (n2, D) with θ rows (R, D)/(R,); or a study axis:
+    x1 (S, n1, D), x2 (S, n2, D) with (S, R, D)/(S, R)."""
+    nd = x1.ndim
+    if nd not in (2, 3) or x2.ndim != nd or inv_lengthscale.ndim != nd:
         raise ValueError("gram kernels take x1 (n1, D), x2 (n2, D), "
-                         "inv_lengthscale (R, D), amplitude (R,)")
-    r, d = inv_lengthscale.shape
-    n1, n2 = x1.shape[0], x2.shape[0]
+                         "inv_lengthscale (R, D), amplitude (R,), or the "
+                         "same with a leading study axis S")
+    lead = tuple(x1.shape[:-2])
+    r, d = inv_lengthscale.shape[-2:]
+    n1, n2 = x1.shape[-2], x2.shape[-2]
     dev = x1.device
     for name, x, shape in (("x1", x1, (n1, d)), ("x2", x2, (n2, d)),
                            ("inv_lengthscale", inv_lengthscale, (r, d)),
                            ("amplitude", amplitude, (r,))):
-        check_tensor(name, x, shape, torch.float64, dev)
-    return r, n1, n2, d
+        check_tensor(name, x, lead + shape, torch.float64, dev)
+    return GramDims(lead, lead[0] if lead else 1, r, n1, n2, d)
 
 
 def matern52_gram_fwd(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
                       amplitude: Tensor) -> Tensor:
-    """K3: k(x1, x2) for each of R θ rows, (R, n1, n2)."""
+    """K3: k(x1, x2) for each of R θ rows, (R, n1, n2); with a study axis
+    (x (S, n, D), θ rows (S, R, D)/(S, R)) one launch for the S·R rows,
+    (S, R, n1, n2), each study's rows bitwise its solo call."""
     if on_cpu(x1):
         return matern52_gram_ref(x1, x2, inv_lengthscale, amplitude)
-    r, n1, n2, d = _gram_dims(x1, x2, inv_lengthscale, amplitude)
-    p = gram_plan(r, n1, n2, d, same_points(x1, x2))
+    g = _gram_dims(x1, x2, inv_lengthscale, amplitude)
+    rows = g.s * g.r
+    p = gram_plan(rows, g.n1, g.n2, g.d, same_points(x1, x2))
     dev = x1.device
-    out = torch.empty((r, n1, n2), dtype=torch.float64, device=dev)
+    out = torch.empty(g.lead + (g.r, g.n1, g.n2), dtype=torch.float64,
+                      device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().matern52_gram_fwd(
             x1.data_ptr(), x2.data_ptr(), inv_lengthscale.data_ptr(),
-            amplitude.data_ptr(), out.data_ptr(), r, n1, n2, d, p.tiles,
-            int(p.symmetric), stream)
+            amplitude.data_ptr(), out.data_ptr(), rows, g.n1, g.n2, g.d,
+            p.tiles, int(p.symmetric), g.s, stream)
     check_launch("matern52_gram_fwd", err)
     LAUNCHES["matern52_gram_fwd"] += 1
     return out
@@ -336,24 +384,28 @@ def matern52_gram_fwd(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
 def matern52_gram_bwd_theta(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
                             amplitude: Tensor, g: Tensor
                             ) -> Tuple[Tensor, Tensor]:
-    """K4: (∂/∂(1/ℓ) (R, D), ∂/∂σ_f² (R,)) of Σ g ⊙ K3(x1, x2, 1/ℓ, σ_f²)."""
+    """K4: (∂/∂(1/ℓ) (R, D), ∂/∂σ_f² (R,)) of Σ g ⊙ K3(x1, x2, 1/ℓ, σ_f²);
+    with K3's study axis ((S, R, D), (S, R)) in one launch."""
     if on_cpu(x1):
         return matern52_gram_bwd_theta_ref(x1, x2, inv_lengthscale,
                                            amplitude, g)
-    r, n1, n2, d = _gram_dims(x1, x2, inv_lengthscale, amplitude)
-    check_tensor("g", g, (r, n1, n2), torch.float64, x1.device)
-    p = gram_plan(r, n1, n2, d, same_points(x1, x2))
+    gd = _gram_dims(x1, x2, inv_lengthscale, amplitude)
+    check_tensor("g", g, gd.lead + (gd.r, gd.n1, gd.n2), torch.float64,
+                 x1.device)
+    rows = gd.s * gd.r
+    p = gram_plan(rows, gd.n1, gd.n2, gd.d, same_points(x1, x2))
     dev = x1.device
     part = torch.empty((p.scratch,), dtype=torch.float64, device=dev)
-    d_inv = torch.empty((r, d), dtype=torch.float64, device=dev)
-    d_amp = torch.empty((r,), dtype=torch.float64, device=dev)
+    d_inv = torch.empty(gd.lead + (gd.r, gd.d), dtype=torch.float64,
+                        device=dev)
+    d_amp = torch.empty(gd.lead + (gd.r,), dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().matern52_gram_bwd_theta(
             x1.data_ptr(), x2.data_ptr(), inv_lengthscale.data_ptr(),
             amplitude.data_ptr(), g.data_ptr(), part.data_ptr(),
-            d_inv.data_ptr(), d_amp.data_ptr(), r, n1, n2, d, p.tiles,
-            int(p.symmetric), stream)
+            d_inv.data_ptr(), d_amp.data_ptr(), rows, gd.n1, gd.n2, gd.d,
+            p.tiles, int(p.symmetric), gd.s, stream)
     check_launch("matern52_gram_bwd_theta", err)
     LAUNCHES["matern52_gram_bwd_theta"] += 1
     return d_inv, d_amp

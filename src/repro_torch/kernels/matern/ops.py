@@ -52,7 +52,8 @@ class _PosteriorFn(torch.autograd.Function):
 def matern52_posterior_op(xq: Tensor, xt: Tensor, alpha: Tensor,
                           kinv: Tensor, inv_lengthscale: Tensor,
                           amplitude: Tensor) -> Tuple[Tensor, Tensor]:
-    """Fused GP posterior ((q,) mean, (q,) var), differentiable in ``xq``.
+    """Fused GP posterior ((q,) mean, (q,) var), differentiable in ``xq``;
+    with a leading study axis on every input, ((S, q), (S, q)).
 
     ``kinv`` is the precomputed K⁻¹ of the training gram.  On the card
     every input must be contiguous (``gp.gpr.with_kinv`` builds a row-major
@@ -83,9 +84,10 @@ class _GramFn(torch.autograd.Function):
 def matern52_gram_op(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
                      amplitude: Tensor) -> Tensor:
     """(R, n1, n2) Matérn-5/2 grams of x1 (n1, D) against x2 (n2, D), one
-    per θ row of ``inv_lengthscale`` (R, D) and ``amplitude`` (R,);
-    differentiable in those two only (raises if x1 or x2 requires grad).
-    On the card every input must be contiguous."""
+    per θ row of ``inv_lengthscale`` (R, D) and ``amplitude`` (R,), or
+    (S, R, n1, n2) for S stacked studies (x (S, n, D), θ rows (S, R, D),
+    (S, R)); differentiable in the θ rows only (raises if x1 or x2
+    requires grad).  On the card every input must be contiguous."""
     return _GramFn.apply(x1, x2, inv_lengthscale, amplitude)
 
 

@@ -2,7 +2,9 @@
 
 The CPU path of the kernel wrappers, and what ``chip_smoke.py`` holds the
 kernels against on the card.  The formulas are those of
-``repro/kernels/matern/ref.py``, in float64.
+``repro/kernels/matern/ref.py``, in float64.  Each takes the kernel's
+optional leading study axis: the gram's x (S, n, D) with θ rows (S, R, D),
+the posterior's inputs all leading with S.
 """
 from __future__ import annotations
 
@@ -27,10 +29,20 @@ def _scaled_sq_dists(xq: Tensor, xt: Tensor, inv_lengthscale: Tensor):
     return a, b, torch.clamp(d2, min=0.0)
 
 
+def _theta_axis(x1: Tensor, x2: Tensor) -> Tuple[Tensor, Tensor]:
+    """Stacked points (S, n, D) get a θ-row axis, (S, 1, n, D), to meet
+    θ rows (S, R, D); one study's (n, D) broadcast as they are."""
+    if x1.ndim == 3:
+        return x1[:, None], x2[:, None]
+    return x1, x2
+
+
 def matern52_gram_ref(x1: Tensor, x2: Tensor, inv_lengthscale: Tensor,
                       amplitude: Tensor) -> Tensor:
     """k(x1, x2): (..., n1, n2).  x*: (n*, D); inv_lengthscale: (..., D);
-    amplitude: (...), one gram per θ row (plain version of kernel K3)."""
+    amplitude: (...), one gram per θ row (plain version of kernel K3).
+    Stacked x* (S, n*, D) take θ rows (S, R, D), (S, R)."""
+    x1, x2 = _theta_axis(x1, x2)
     _, _, d2 = _scaled_sq_dists(x1, x2, inv_lengthscale)
     r = torch.sqrt(d2 + 1e-36)
     return amplitude[..., None, None] * \
@@ -47,17 +59,19 @@ def matern52_gram_bwd_theta_ref(x1: Tensor, x2: Tensor,
         ∂/∂σ_f²_r   = Σ_ij g_rij k_rij / σ_f²_r
 
     x1 (n1, D), x2 (n2, D), inv_lengthscale (R, D), amplitude (R,),
-    g (R, n1, n2) → ((R, D), (R,)).  The squared differences are taken in
-    the unscaled coordinates, one dimension at a time.
+    g (R, n1, n2) → ((R, D), (R,)), or all of them with a leading study
+    axis S.  The squared differences are taken in the unscaled
+    coordinates, one dimension at a time.
     """
+    x1, x2 = _theta_axis(x1, x2)
     _, _, d2 = _scaled_sq_dists(x1, x2, inv_lengthscale)
     r = torch.sqrt(d2 + 1e-36)
     e = torch.exp(-SQRT5 * r)
     d_amp = (g * (1.0 + SQRT5 * r + (5.0 / 3.0) * d2) * e).sum((-1, -2))
     c = g * (1.0 + SQRT5 * r) * e
-    s = torch.stack([(c * (x1[:, k, None] - x2[None, :, k]) ** 2
-                      ).sum((-1, -2)) for k in range(x1.shape[1])], -1)
-    return -(5.0 / 3.0) * amplitude[:, None] * inv_lengthscale * s, d_amp
+    s = torch.stack([(c * (x1[..., :, k, None] - x2[..., None, :, k]) ** 2
+                      ).sum((-1, -2)) for k in range(x1.shape[-1])], -1)
+    return -(5.0 / 3.0) * amplitude[..., None] * inv_lengthscale * s, d_amp
 
 
 def matern52_posterior_fwd_ref(xq: Tensor, xt: Tensor, alpha: Tensor,
@@ -66,13 +80,18 @@ def matern52_posterior_fwd_ref(xq: Tensor, xt: Tensor, alpha: Tensor,
                                ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain version of kernel K1: ((q,) mean, (q,) var, (q, n) t).
 
-    ``t = k* K⁻¹`` is the residual the backward reads.
+    ``t = k* K⁻¹`` is the residual the backward reads.  With a leading
+    study axis every input and output leads with S.
     """
-    k_star = matern52_gram_ref(xq, xt, inv_lengthscale, amplitude)  # (q, n)
-    mean = k_star @ alpha
+    # (q, n), or (S, q, n): the posterior has no θ-row axis
+    _, _, d2 = _scaled_sq_dists(xq, xt, inv_lengthscale)
+    r = torch.sqrt(d2 + 1e-36)
+    k_star = amplitude[..., None, None] * \
+        (1.0 + SQRT5 * r + (5.0 / 3.0) * d2) * torch.exp(-SQRT5 * r)
+    mean = (k_star @ alpha[..., None])[..., 0]
     t = k_star @ kinv
     quad = (t * k_star).sum(-1)
-    var = torch.clamp(amplitude - quad, min=VAR_FLOOR)
+    var = torch.clamp(amplitude[..., None] - quad, min=VAR_FLOOR)
     return mean, var, t
 
 
@@ -106,7 +125,8 @@ def matern52_posterior_bwd_ref(xq: Tensor, xt: Tensor, alpha: Tensor,
     a, b, d2 = _scaled_sq_dists(xq, xt, inv_lengthscale)
     r = torch.sqrt(d2 + 1e-36)
     gv = torch.where(var > VAR_FLOOR, g_var, 0.0)
-    w = g_mean[:, None] * alpha[None, :] - 2.0 * gv[:, None] * t
-    c = -(5.0 / 3.0) * amplitude * (1.0 + SQRT5 * r) * \
+    w = g_mean[..., :, None] * alpha[..., None, :] - 2.0 * gv[..., :, None] * t
+    c = -(5.0 / 3.0) * amplitude[..., None, None] * (1.0 + SQRT5 * r) * \
         torch.exp(-SQRT5 * r) * w                                  # (q, n)
-    return inv_lengthscale * (c.sum(-1, keepdim=True) * a - c @ b)
+    return inv_lengthscale[..., None, :] * (c.sum(-1, keepdim=True) * a
+                                            - c @ b)

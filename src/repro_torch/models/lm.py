@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Tuple, Union
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -122,10 +123,14 @@ def forward(params, cfg: ModelConfig, tokens: Tensor) -> Tuple[Tensor, Tensor]:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None
                ) -> Dict[str, Tensor]:
-    """Stacked per-layer KV cache, all slots empty (position −1)."""
+    """Stacked per-layer KV cache, all slots empty (position −1), on
+    ``device``: ``None`` means the card, as at every entry point
+    (``repro_torch.resolve_device``), so pass ``device="cpu"`` on the
+    CPU."""
     _require_dense(cfg)
     return L.init_attn_cache(cfg, batch, max_len, torch_dtype(cfg),
-                             lead=(cfg.n_layers,), device=device)
+                             lead=(cfg.n_layers,),
+                             device=resolve_device(device))
 
 
 def reset_slot(cfg: ModelConfig, cache: Dict[str, Tensor], slot: int

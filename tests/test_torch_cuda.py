@@ -434,6 +434,152 @@ def test_gram_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         matern52_gram_op(x1.clone().requires_grad_(True), x2, ils, amp)
 
 
+def study_posterior_inputs(S, n, d, q, device):
+    """S studies' K1/K2 inputs stacked: study s pads its n rows with
+    3 + 7s _FAR pseudo-points (a different live count each), its own
+    1/ℓ and σ_f², and q queries, the second on a training point."""
+    gps = [state(n, d, seed=10 * s + n, device=device,
+                 n_pad=min(3 + 7 * s, n - 2)) for s in range(S)]
+    xt = torch.stack([gp.x_train for gp in gps])
+    alpha = torch.stack([gp.alpha for gp in gps])
+    kinv = torch.stack([gp.kinv for gp in gps])
+    ils = torch.stack([torch.exp(-gp.params.log_lengthscale) * (1 + 0.1 * s)
+                       for s, gp in enumerate(gps)])
+    amp = torch.stack([gp.params.amplitude * (1 + 0.05 * s)
+                       for s, gp in enumerate(gps)])
+    xq = torch.tensor(np.random.default_rng(S + n).uniform(0, 1, (S, q, d)),
+                      device=device)
+    xq[:, 1] = xt[:, 0]
+    return xq, xt, alpha, kinv, ils, amp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 8])
+@pytest.mark.parametrize("n,d", [(33, 5), (544, 20)])
+def test_posterior_study_axis_bitwise_solo_on_card(cuda, S, n, d):
+    """K1 and K2 with a leading study axis: one launch each for the S
+    studies, each study's slice bitwise its solo call, and within the
+    stated tolerances of the plain versions."""
+    xq, xt, alpha, kinv, ils, amp = study_posterior_inputs(S, n, d, 10, cuda)
+    K.reset_launch_counts()
+    m, v, t = K.matern52_posterior_fwd(xq, xt, alpha, kinv, ils, amp)
+    gm, gv = torch.ones_like(m), -0.5 * torch.ones_like(m)
+    g = K.matern52_posterior_bwd_xq(xq, xt, alpha, t, v, ils, amp, gm, gv)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["matern52_posterior_fwd"] == 1
+    assert K.launch_counts()["matern52_posterior_bwd_xq"] == 1
+    assert m.shape == v.shape == (S, 10) and t.shape == (S, 10, n)
+    m_r, v_r, t_r = matern52_posterior_fwd_ref(xq, xt, alpha, kinv, ils, amp)
+    g_r = matern52_posterior_bwd_ref(xq, xt, alpha, t_r, v_r, ils, amp,
+                                     gm, gv)
+    for s in range(S):
+        one = (xt[s], alpha[s], kinv[s], ils[s], amp[s])
+        m1, v1, t1 = K.matern52_posterior_fwd(xq[s], *one)
+        g1 = K.matern52_posterior_bwd_xq(xq[s], xt[s], alpha[s], t1, v1,
+                                         ils[s], amp[s], gm[s], gv[s])
+        for a, b in ((m1, m[s]), (v1, v[s]), (t1, t[s]), (g1, g[s])):
+            assert torch.equal(a, b)
+        a_s, kmax = float(amp[s]), float(kinv[s].abs().max())
+        torch.testing.assert_close(m[s], m_r[s], rtol=1e-11, atol=1e-11)
+        torch.testing.assert_close(t[s], t_r[s], rtol=1e-11, atol=1e-11)
+        torch.testing.assert_close(v[s], v_r[s], rtol=0,
+                                   atol=8 * n * EPS64 * a_s * a_s * kmax)
+        torch.testing.assert_close(g[s], g_r[s], rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 8])
+@pytest.mark.parametrize("n,d", [(33, 5), (544, 20)])
+def test_gram_study_axis_bitwise_solo_on_card(cuda, S, n, d):
+    """K3 and K4 with a leading study axis, x (S, n, D) and θ rows
+    (S, 2, D): one launch each for the S·2 rows; the symmetric path
+    (x1 is x2), the cross path and the n1 = 1 column each give every
+    study's slice bitwise its solo call, within the plain versions'
+    tolerances; study s has 2 + 5s _FAR rows."""
+    ins = [gram_inputs(n, n, d, 2, cuda, far=min(2 + 5 * s, n - 2), seed=s)
+           for s in range(S)]
+    x = torch.stack([i[0] for i in ins])
+    ils = torch.stack([i[2] for i in ins])
+    amp = torch.stack([i[3] for i in ins])
+    g = torch.stack([i[4] for i in ins])
+    xc, col = x.clone(), x[:, 3:4].contiguous()
+    K.reset_launch_counts()
+    k = K.matern52_gram_fwd(x, x, ils, amp)
+    di, da = K.matern52_gram_bwd_theta(x, x, ils, amp, g)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["matern52_gram_fwd"] == 1
+    assert K.launch_counts()["matern52_gram_bwd_theta"] == 1
+    assert k.shape == (S, 2, n, n) and di.shape == (S, 2, d)
+    kc = K.matern52_gram_fwd(xc, x, ils, amp)
+    dic, dac = K.matern52_gram_bwd_theta(xc, x, ils, amp, g)
+    kcol = K.matern52_gram_fwd(col, x, ils, amp)
+    assert torch.equal(kc, k) and torch.equal(kcol[:, :, 0], k[:, :, 3])
+    for s in range(S):
+        k1 = K.matern52_gram_fwd(x[s], x[s], ils[s], amp[s])
+        d1, a1 = K.matern52_gram_bwd_theta(x[s], x[s], ils[s], amp[s], g[s])
+        dc1, ac1 = K.matern52_gram_bwd_theta(xc[s], x[s], ils[s], amp[s],
+                                             g[s])
+        assert torch.equal(k1, k[s]) and torch.equal(d1, di[s])
+        assert torch.equal(a1, da[s])
+        assert torch.equal(dc1, dic[s]) and torch.equal(ac1, dac[s])
+        far = min(2 + 5 * s, n - 2)
+        assert_gram_close(x[s], x[s], ils[s], amp[s], g[s], far, k[s],
+                          di[s], da[s])
+
+
+@pytest.mark.cuda
+def test_fleet_launches_and_bits_on_card(cuda):
+    """On the card a fleet MSO round is one K1 and one K2 launch for all
+    the studies of a block, a fit evaluation one K3 and one K4; solo ==
+    company and slot permutation bitwise at a pinned width; within 1e-10
+    of the solo fused sampler."""
+    from repro_torch.bo.sampler import FleetSampler
+    space = BoxSpace.cube(3, -1.0, 1.0)
+    kw = dict(n_startup_trials=5, n_restarts=6, pad_multiple=8,
+              mso_options=MsoOptions(maxiter=40, pgtol=1e-2),
+              refit_interval=2)
+
+    def drive(fs, rounds):
+        out = []
+        for _ in range(rounds):
+            before = K.launch_counts()
+            snap0 = fs.fleet.stats_snapshot()
+            trials = fs.ask_all()
+            after, snap = K.launch_counts(), fs.fleet.stats_snapshot()
+            delta = {k: after[k] - before[k] for k in after}
+            progs = {k: snap["n_block_programs"][k]
+                     - snap0["n_block_programs"][k] for k in ("full", "incr")}
+            rounds_ = snap["n_mso_rounds"] - snap0["n_mso_rounds"]
+            evals = snap["n_fit_evals"] - snap0["n_fit_evals"]
+            assert delta["matern52_posterior_fwd"] == rounds_
+            assert delta["matern52_posterior_bwd_xq"] == rounds_
+            assert delta["matern52_gram_bwd_theta"] == evals
+            assert delta["matern52_gram_fwd"] == (evals + progs["full"]
+                                                  + progs["incr"])
+            out.append(np.array([t.x for t in trials]))
+            for i, t in enumerate(trials):
+                fs.tell(i, t.trial_id, _sphere(t.x))
+        return np.array(out)
+
+    company = drive(FleetSampler(space, n_studies=3, seed=4, slots=4, **kw),
+                    10)
+    solo = drive(FleetSampler(space, n_studies=1, seed=4, slots=4, **kw), 10)
+    np.testing.assert_array_equal(solo[:, 0], company[:, 0])
+    # against the solo pipeline in the cold-refit regime, as the
+    # reference states it (warm starts carry last-ulp differences on)
+    kw.update(refit_interval=1, warm_start=False)
+    fleet = drive(FleetSampler(space, n_studies=3, seed=4, slots=4, **kw), 8)
+    ref = GPSampler(space, strategy="dbe_vec", seed=4, **kw)
+    xs = []
+    for _ in range(8):
+        tr = ref.ask()
+        ref.tell(tr.trial_id, _sphere(tr.x))
+        xs.append(tr.x)
+    np.testing.assert_allclose(space.to_unit(fleet[:, 0]),
+                               space.to_unit(np.array(xs)), rtol=0,
+                               atol=1e-10)
+
+
 def _sphere(x):
     return float(np.sum((x - 0.4) ** 2))
 

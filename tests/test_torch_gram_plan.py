@@ -179,3 +179,44 @@ def test_library_name_follows_the_headers(tmp_path, monkeypatch):
     before = _build.lib_path()
     header.write_text("// two\n")
     assert _build.lib_path() != before
+
+
+# ------------------------------------------------------------ study axis
+@pytest.mark.parametrize("S", [1, 3, 8])
+@pytest.mark.parametrize("n,d,sym", [(544, 20, True), (33, 5, True),
+                                     (1, 20, False)])
+def test_study_axis_changes_only_blocks_and_scratch(S, n, d, sym):
+    """S studies of R = 2 θ rows are S·R rows of one launch: the same
+    tiles a row (K4's summation units), S times the blocks and scratch."""
+    one = K.gram_plan(2, n, 544 if not sym else n, d, sym)
+    many = K.gram_plan(2 * S, n, 544 if not sym else n, d, sym)
+    assert (many.tiles, many.pieces, many.symmetric) == (
+        one.tiles, one.pieces, one.symmetric)
+    assert (many.blocks, many.scratch) == (S * one.blocks, S * one.scratch)
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_gram_plain_versions_take_a_leading_study_axis(S):
+    """K3's and K4's plain versions on x (S, n, D) with θ rows (S, R, D)
+    equal the per-study calls (to 1e-13: a batched product may round
+    otherwise), each study with its own points and _FAR rows; the CPU
+    wrappers take them, and x1 is x2 stays the same points."""
+    rng = np.random.default_rng(S)
+    n, d, r = 20, 3, 2
+    x = rng.uniform(0, 1, (S, n, d))
+    for s in range(S):
+        x[s, n - 1 - s:] = 1e6 + np.arange(1 + s)[:, None]
+    x = torch.tensor(x)
+    ils = torch.tensor(np.exp(rng.uniform(-1, 1, (S, r, d))))
+    amp = torch.tensor(np.exp(rng.uniform(-1, 1, (S, r))))
+    g = torch.tensor(rng.standard_normal((S, r, n, n)))
+    assert K.same_points(x, x) and not K.same_points(x, x.clone())
+    k = K.matern52_gram_fwd(x, x, ils, amp)
+    di, da = K.matern52_gram_bwd_theta(x, x, ils, amp, g)
+    assert k.shape == (S, r, n, n) and di.shape == (S, r, d)
+    for s in range(S):
+        k1 = matern52_gram_ref(x[s], x[s], ils[s], amp[s])
+        d1, a1 = matern52_gram_bwd_theta_ref(x[s], x[s], ils[s], amp[s],
+                                             g[s])
+        for a, b in ((k1, k[s]), (d1, di[s]), (a1, da[s])):
+            torch.testing.assert_close(a, b, rtol=1e-13, atol=1e-13)

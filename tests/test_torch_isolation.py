@@ -76,4 +76,7 @@ def test_walk_finds_the_kernel_modules():
             "repro_torch.kernels.kvp.ops",
             "repro_torch.models.lm",
             "repro_torch.serve.engine",
-            "repro_torch.launch.serve"} <= names
+            "repro_torch.launch.serve",
+            "repro_torch.engine.fleet",
+            "repro_torch.bo.journal",
+            "repro_torch.ckpt.manager"} <= names

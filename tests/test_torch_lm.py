@@ -67,7 +67,7 @@ def port_forward_logits(cfg, params, toks):
 
 
 def port_decode_logits(cfg, params, toks, vector=False):
-    cache = lm.init_cache(cfg, B, S)
+    cache = lm.init_cache(cfg, B, S, device="cpu")
     outs = []
     for i in range(S):
         pos = torch.full((B,), i, dtype=torch.int32) if vector else i
@@ -158,7 +158,7 @@ def test_init_draws_jax_distributions():
 def test_reset_slot_empties_one_slot_in_place():
     cfg = reduced("float32")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0))
-    cache = lm.init_cache(cfg, 2, 8)
+    cache = lm.init_cache(cfg, 2, 8, device="cpu")
     for i in range(3):
         _, cache = lm.decode_step(params, cfg, torch.ones((2, 1), dtype=torch.long),
                                   cache, i)

@@ -222,3 +222,47 @@ def test_cpu_bwd_wrapper_takes_the_plain_version_and_launches_nothing():
     assert got.shape == (q, d)
     assert K.launch_counts() == dict.fromkeys(K.LAUNCHES, 0)
     assert _build._LIB is None                    # nothing built or loaded
+
+
+# ------------------------------------------------------------ study axis
+@pytest.mark.parametrize("S", [1, 3, 8])
+@pytest.mark.parametrize("q,n,d", [(10, 544, 20), (1, 33, 5), (1000, 2048, 20),
+                                   (10, 544, 300)])
+def test_study_axis_changes_only_blocks_and_scratch(S, q, n, d):
+    """A call on S stacked studies keeps the solo call's regime, chunks
+    (K1) and rows and tiles (K2), which fix the order of every sum, and
+    takes S times its blocks and scratch."""
+    for one in (K.plan(q, n, d), K.bwd_plan(q, n, d)):
+        many = one.studies(S)
+        assert many._replace(blocks=one.blocks, scratch=one.scratch) == one
+        assert (many.blocks, many.scratch) == (S * one.blocks,
+                                               S * one.scratch)
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_plain_versions_take_a_leading_study_axis(S):
+    """K1's and K2's plain versions on S stacked studies equal the
+    per-study calls (to 1e-14 of the terms: a batched product may round
+    otherwise than one study's), each study with its own θ and its own
+    _FAR padding; the CPU wrappers take them."""
+    rng = np.random.default_rng(S)
+    n, d, q = 24, 3, 5
+    xt = rng.uniform(0, 1, (S, n, d))
+    for s in range(S):
+        xt[s, n - 2 - s:] = 1e6 + np.arange(2 + s)[:, None]
+    args = [torch.tensor(v) for v in (
+        rng.uniform(0, 1, (S, q, d)), xt, rng.standard_normal((S, n)),
+        rng.standard_normal((S, n, n)), np.exp(rng.uniform(-1, 1, (S, d))),
+        np.exp(rng.uniform(-1, 1, (S,))))]
+    m, v, t = K.matern52_posterior_fwd(*args)
+    gm, gv = torch.ones_like(m), -0.5 * torch.ones_like(m)
+    g = K.matern52_posterior_bwd_xq(args[0], args[1], args[2], t, v,
+                                    args[4], args[5], gm, gv)
+    assert m.shape == v.shape == (S, q) and g.shape == (S, q, d)
+    for s in range(S):
+        one = [a[s] for a in args]
+        m1, v1, t1 = matern52_posterior_fwd_ref(*one)
+        g1 = matern52_posterior_bwd_ref(one[0], one[1], one[2], t1, v1,
+                                        one[4], one[5], gm[s], gv[s])
+        for a, b in ((m1, m[s]), (v1, v[s]), (t1, t[s]), (g1, g[s])):
+            torch.testing.assert_close(a, b, rtol=1e-13, atol=1e-13)
