@@ -94,9 +94,12 @@ Slice 4 adds, in the same run:
               8th trial, 536 random trials then 12 rounds across the
               544 → 576 bucket: K1 = K2 launches = MSO rounds summed over
               blocks, K4 = fit evaluations, K3 = evaluations + full and
-              rank-one programs, ≤ 3 programs per (bucket, slots); each
-              study within 1e-10 of its solo fused GPSampler over the
-              first 2 rounds, suggests/s beside the 16 run solo in turn;
+              rank-one programs, ≤ 3 programs per (bucket, slots); round
+              0 against each study's solo programs layer by layer (one
+              MAP-objective evaluation within 1e-10 of Σ|·|, the MSO
+              from the fleet's fitted state bitwise its suggestion; the
+              end-to-end distance to the solo fused GPSampler printed),
+              suggests/s beside the 16 run solo in turn;
               a rank-one and a full round traced (host ms, device ms,
               idle share); slot permutation and solo-in-a-block bitwise on
               a 3-study fleet (D=20, n=40); a 2-study fleet (D=5,
