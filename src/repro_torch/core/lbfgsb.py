@@ -135,6 +135,25 @@ def two_loop_direction(g: Tensor, s_ord: Tensor, y_ord: Tensor,
     return r
 
 
+def inv_hessian_dense(state: LbfgsbState, m: int) -> Tensor:
+    """The inverse Hessian H (B, D, D) that each row's history implies.
+
+    For the off-diagonal-artifact experiments: the two-loop recursion
+    applied to the D identity columns (all B·D of them in one batched
+    call) gives the dense matrix it represents, H e_j in column j.
+    """
+    B, D = state.x.shape
+    s_ord, y_ord, rho_ord, valid = _ordered_history(state, m)
+    eye = torch.eye(D, dtype=state.x.dtype, device=state.x.device)
+
+    def rows(t: Tensor) -> Tensor:              # (B, ...) → (B·D, ...)
+        return t.repeat_interleave(D, dim=0)
+    cols = two_loop_direction(eye.repeat(B, 1), rows(s_ord), rows(y_ord),
+                              rows(rho_ord), rows(valid),
+                              rows(state.gamma))
+    return cols.reshape(B, D, D).transpose(1, 2)
+
+
 def _init_state(fun_batched, x0, lower, upper,
                 opts: LbfgsbOptions) -> LbfgsbState:
     B, D = x0.shape
@@ -349,3 +368,110 @@ def lbfgsb_minimize(
             v = v.reshape(batch_shape + tuple(v.shape[1:]))
         out[fld.name] = v
     return LbfgsbResult(**out)
+
+
+# The reference jit-compiles the whole solve; a CUDA-graph entry is later
+# speed work (ROADMAP), so here the jit entry is the plain solve.
+lbfgsb_minimize_jit = lbfgsb_minimize
+
+
+# ---------------------------------------------------------------------------
+# dense BFGS (for the unbounded off-diagonal-artifact appendix experiments)
+# ---------------------------------------------------------------------------
+
+class BfgsState(NamedTuple):
+    x: Tensor
+    f: Tensor
+    g: Tensor
+    hinv: Tensor         # (B, D, D)
+    k: Tensor
+    status: Tensor
+
+
+def bfgs_minimize(fun_batched, x0: Tensor, *, maxiter: int = 200,
+                  gtol: float = 1e-8, maxls: int = 25,
+                  armijo_c1: float = 1e-4, shrink: float = 0.5
+                  ) -> BfgsState:
+    """Batched dense BFGS (no bounds), all rows in one lockstep loop.
+
+    Keeps the full (B, D, D) inverse Hessian so the artifact experiments
+    can inspect it directly.  Backtracking Armijo line search from a unit
+    step; the reference's statuses (CONV_PGTOL on ‖g‖∞ ≤ gtol,
+    CONV_LS_FAIL, CONV_MAXITER) and per-row iteration count ``k``.
+    """
+    B, D = x0.shape
+    dt, dev = x0.dtype, x0.device
+    f0, g0 = fun_batched(x0)
+    i32 = dict(dtype=torch.int32, device=dev)
+    eye = torch.eye(D, dtype=dt, device=dev)
+    st = BfgsState(x=x0, f=f0, g=g0, hinv=eye.expand(B, D, D).clone(),
+                   k=torch.zeros((B,), **i32),
+                   status=torch.where(g0.abs().amax(-1) <= gtol,
+                                      CONV_PGTOL, RUNNING).to(torch.int32))
+    while bool((st.status == RUNNING).any()):
+        running = st.status == RUNNING
+        d = -(st.hinv @ st.g[..., None])[..., 0]
+        bad = _dot(d, st.g) >= 0
+        d = torch.where(bad[:, None], -st.g, d)
+
+        t = torch.ones((B,), dtype=dt, device=dev)
+        acc = ~running
+        x_new, f_new, g_new = st.x, st.f, st.g
+        tries = torch.zeros((B,), **i32)
+        while bool((running & ~acc & (tries < maxls)).any()):
+            xt = st.x + t[:, None] * d
+            ft, gt = fun_batched(xt)
+            ok = ft <= st.f + armijo_c1 * _dot(st.g, xt - st.x)
+            newly = running & ~acc & ok
+            take = newly[:, None]
+            tries = tries + (running & ~acc).to(torch.int32)
+            t = torch.where(newly | acc, t, t * shrink)
+            acc = acc | newly
+            x_new = torch.where(take, xt, x_new)
+            f_new = torch.where(newly, ft, f_new)
+            g_new = torch.where(take, gt, g_new)
+        fail = running & ~acc
+        x_new = torch.where(fail[:, None], st.x, x_new)
+        f_new = torch.where(fail, st.f, f_new)
+        g_new = torch.where(fail[:, None], st.g, g_new)
+
+        sv = x_new - st.x
+        yv = g_new - st.g
+        sy = _dot(sv, yv)
+        upd = running & ~fail & (sy > 1e-12)
+        rho = 1.0 / torch.where(upd, sy, 1.0)
+        V = eye - rho[:, None, None] * (sv[:, :, None] * yv[:, None, :])
+        h_upd = V @ st.hinv @ V.transpose(1, 2) + \
+            rho[:, None, None] * (sv[:, :, None] * sv[:, None, :])
+        hinv = torch.where(upd[:, None, None], h_upd, st.hinv)
+
+        conv = g_new.abs().amax(-1) <= gtol
+        k_new = st.k + running.to(torch.int32)
+        status = st.status
+        status = torch.where(running & conv, CONV_PGTOL, status)
+        status = torch.where(running & (status == RUNNING) & fail,
+                             CONV_LS_FAIL, status)
+        status = torch.where(running & (status == RUNNING)
+                             & (k_new >= maxiter), CONV_MAXITER, status)
+        keep = running[:, None]
+        st = BfgsState(x=torch.where(keep, x_new, st.x),
+                       f=torch.where(running, f_new, st.f),
+                       g=torch.where(keep, g_new, st.g), hinv=hinv,
+                       k=k_new, status=status.to(torch.int32))
+    return st
+
+
+def make_batched_value_and_grad(f_single: Callable[[Tensor], Tensor]):
+    """Lift a single-point objective x:(D,) → () to the batched interface
+    ``(B, D) → ((B,), (B, D))``: the values of all rows in one
+    ``torch.func.vmap`` call, the gradients by one backward of their sum
+    (the rows are independent, so row r's gradient is d(Σf)/dx_r)."""
+    f_rows = torch.func.vmap(f_single)
+
+    def fun_batched(xb: Tensor) -> Tuple[Tensor, Tensor]:
+        with torch.enable_grad():
+            xb = xb.detach().requires_grad_(True)
+            f = f_rows(xb)
+            (g,) = torch.autograd.grad(f.sum(), xb)
+        return f.detach(), g
+    return fun_batched

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.core import coroutine as co
 from repro_torch.core.lbfgsb import LbfgsbOptions
-from repro_torch.engine.engine import EvalEngine
+from repro_torch.engine.engine import EvalEngine, default_engine
 from repro_torch.engine.plan import EvalPlan
 
 STRATEGIES = ("seq", "cbe", "dbe", "dbe_vec")
@@ -104,7 +104,10 @@ def maximize_acqf(
     ``x0``: (B, D) restart points, or (B, q, D) joint blocks when q > 1.
     ``engine``: reuse a long-lived :class:`EvalEngine` (a BO sampler keeps
     one per run); by default a fresh one on the device of ``acq_state``'s
-    tensors.
+    tensors, or, for a state with no tensor (``None``, as a plain
+    objective has), the process-wide :func:`default_engine` of ``acq_fn``
+    on the card.  On the CPU pass ``engine=default_engine(acq_fn, "cpu")``
+    or ``engine=EvalEngine(acq_fn, "cpu")``.
     """
     if strategy not in STRATEGIES:
         raise ValueError(f"strategy must be one of {STRATEGIES}")
@@ -123,10 +126,8 @@ def maximize_acqf(
     plan = EvalPlan.for_batch(B, D, q=q, bucketed=options.bucketed)
     if engine is None:
         dev = _state_device(acq_state)
-        if dev is None:
-            raise ValueError("no tensor in acq_state to take a device "
-                             "from; pass engine=EvalEngine(acq_fn, device)")
-        engine = EvalEngine(acq_fn, device=dev)
+        engine = (default_engine(acq_fn) if dev is None
+                  else EvalEngine(acq_fn, device=dev))
 
     # flat (B, q·D) view for the QN solvers; bounds tile across the q axis
     x0f = x0.reshape(B, plan.flat_dim)
@@ -171,3 +172,43 @@ def maximize_acqf(
                      n_evals=out.n_evals, n_rounds=out.n_rounds,
                      wall_time=wall, strategy=strategy, q=q,
                      engine_stats=engine.stats_snapshot())
+
+
+def closure_engine(acq_batched, device=None) -> EvalEngine:
+    """A reusable :class:`EvalEngine` for a plain closure ``X -> (k,)``,
+    tagged with its source closure so :func:`maximize_acqf_closure` can
+    check that an engine it is handed evaluates that closure.  ``device``
+    follows the entry-point rule (``None``: the card)."""
+    def fn(state, X):
+        del state
+        return acq_batched(X)
+    fn.__wrapped_closure__ = acq_batched
+    return EvalEngine(fn, device=device)
+
+
+def maximize_acqf_closure(acq_batched, x0, lower, upper, *,
+                          strategy="dbe", options=None, q=1, engine=None):
+    """:func:`maximize_acqf` for a plain closure ``X -> (k,)``.
+
+    Every call wraps ``acq_batched`` in a fresh state-form function, so
+    without ``engine`` each call builds its own (card) engine; pass
+    ``engine=closure_engine(acq_batched)``, built once, to share one
+    across calls (on the CPU: ``closure_engine(acq_batched, "cpu")``).
+    An engine evaluates its own captured ``acq_fn``, so one built from a
+    different closure would maximize the wrong acquisition: it is
+    rejected.
+    """
+    if engine is not None:
+        src = getattr(engine.acq_fn, "__wrapped_closure__", None)
+        if src is not acq_batched and engine.acq_fn is not acq_batched:
+            raise ValueError(
+                "engine= was built from a different closure than "
+                "acq_batched (the engine evaluates its own acq_fn); "
+                "build it with closure_engine(acq_batched)")
+
+    def fn(state, X):
+        del state
+        return acq_batched(X)
+    return maximize_acqf(fn, x0, lower, upper, acq_state=None,
+                         strategy=strategy, options=options, q=q,
+                         engine=engine)

@@ -44,7 +44,8 @@ from repro_torch.gp.fit import (FIT_OPTS, _FAR, fit_padded_core,
                                 incremental_update, pad_bucket_for,
                                 standardize_masked, theta_bounds,
                                 theta_init_grid, unpack_theta)
-from repro_torch.gp.gpr import GPState, _cho_solve
+from repro_torch import by_study
+from repro_torch.gp.gpr import GPState, kinv_from_chol
 from repro_torch.gp.kernels import KernelParams
 from repro_torch.kernels.matern.kernel import launch_counts
 from repro_torch.obs import trace as obs
@@ -131,7 +132,6 @@ def refit_core(x, y, n_valid, thetas, tlo, tup, *, dim: int,
     θ inits and bounds are (S, R, P) and every study's fit shares one
     lockstep solve.
     """
-    b = x.shape[-2]
     valid = _valid(x, n_valid)
     y_std, _, _ = standardize_masked(-y, valid)
     theta, chol, alpha, _, fit_evals = fit_padded_core(
@@ -139,8 +139,7 @@ def refit_core(x, y, n_valid, thetas, tlo, tup, *, dim: int,
         dim=dim, kernel=kernel, opts=fit_opts)
     kinv = None
     if backend != "cholesky":
-        eye = torch.eye(b, dtype=x.dtype, device=x.device)
-        kinv = _cho_solve(chol, eye.expand(chol.shape)).contiguous()
+        kinv = by_study(kinv_from_chol, chol, stacked=x.ndim == 3)
     return y_std, valid, theta, chol, alpha, kinv, fit_evals
 
 

@@ -20,6 +20,7 @@ lockstep solve makes none per round (its loop condition is one host sync).
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Tuple
 
@@ -222,3 +223,26 @@ class EvalEngine:
 
     def stats_snapshot(self) -> Dict[str, Any]:
         return self.stats.snapshot(self)
+
+
+# Casual callers (examples, one-off maximize_acqf calls with no tensor in
+# their state) get a process-wide engine per acquisition function and
+# device, as the reference does, without threading engine objects through
+# every call site.
+_DEFAULT_ENGINES: "weakref.WeakKeyDictionary[Callable, Dict]" = \
+    weakref.WeakKeyDictionary()
+
+
+def default_engine(acq_fn: AcqStateFn, device=None) -> EvalEngine:
+    """The process-wide :class:`EvalEngine` of ``acq_fn`` on ``device``
+    (``None`` means the card, as for every entry point)."""
+    dev = resolve_device(device)
+    engines = _DEFAULT_ENGINES.get(acq_fn)
+    eng = None if engines is None else engines.get(dev)
+    if eng is None:
+        eng = EvalEngine(acq_fn, device=dev)
+        try:
+            _DEFAULT_ENGINES.setdefault(acq_fn, {})[dev] = eng
+        except TypeError:          # not weak-referenceable: no cache
+            pass
+    return eng

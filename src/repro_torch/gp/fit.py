@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.lbfgsb import LbfgsbOptions, lbfgsb_minimize
+from repro_torch import by_study
 from repro_torch.gp.gpr import (GPState, _cho_solve, cholesky_update,
                                 kinv_update, log_marginal_likelihood_masked)
 from repro_torch.gp.kernels import KERNELS, KernelParams, gram
@@ -54,8 +55,9 @@ def _neg_map_objective(theta: Tensor, x: Tensor, y: Tensor, valid: Tensor,
     # one (n, n) gram per θ row: on the card one K3 launch for all R rows
     # forward, one K4 launch backward
     lml = log_marginal_likelihood_masked(x, y, valid, p, kernel)
-    # weak log-normal priors keep the fit away from degenerate corners
-    prior = (-0.5 * ((p.log_lengthscale / 2.0) ** 2).sum(-1)
+    # weak log-normal priors keep the fit away from degenerate corners;
+    # the sum over D in an order fixed by D (batch-invariant)
+    prior = (-0.5 * _tree_sum((p.log_lengthscale / 2.0) ** 2)
              - 0.5 * (p.log_amplitude / 2.0) ** 2
              - 0.5 * ((p.log_noise + 4.0) / 2.0) ** 2)
     return -(lml + prior)
@@ -72,7 +74,9 @@ def fit_padded_core(x, y, valid, thetas, lower, upper, *, dim: int,
     Stacked studies (the fleet): x (S, b, D), y and valid (S, b), θ inits
     and bounds (S, R, P).  Every study's restarts run in one lockstep
     solve, so an evaluation is one gram (on the card one K3 and one K4
-    launch) for all S·R rows; the result leads with S.
+    launch) for all S·R rows; the result leads with S.  The Cholesky
+    factorizations, solves and sums run study by study
+    (``repro_torch.by_study``), so a study's fit is bitwise its solo fit.
     """
     def value_and_grad(tb: Tensor) -> Tuple[Tensor, Tensor]:
         with torch.enable_grad():
@@ -90,9 +94,13 @@ def fit_padded_core(x, y, valid, thetas, lower, upper, *, dim: int,
     v = valid.to(x.dtype)
     K = gram(x, p, kernel)
     K = K * (v[..., :, None] * v[..., None, :]) + torch.diag_embed(1.0 - v)
-    L = torch.linalg.cholesky(K)
-    alpha = _cho_solve(L, y * v)
+    L, alpha = by_study(_chol_alpha, K, y * v, stacked=x.ndim == 3)
     return theta_best, L, alpha, res.k, res.rounds
+
+
+def _chol_alpha(K: Tensor, yv: Tensor) -> Tuple[Tensor, Tensor]:
+    L = torch.linalg.cholesky(K)
+    return L, _cho_solve(L, yv)
 
 
 def theta_bounds(dim: int, dtype=torch.float64,
@@ -246,7 +254,8 @@ def incremental_update(
 
     Stacked studies (the fleet): x (S, b, D), y_std (S, b), params and
     factors leading with S, and ``n_valid`` an (S,) integer tensor, each
-    slot's own count; the cross columns are one K3 launch for all S.
+    slot's own count; the cross columns are one K3 launch for all S, the
+    triangular solves and products study by study (``repro_torch.by_study``).
     """
     b = x.shape[-2]
     idx = torch.as_tensor(n_valid, device=x.device) - 1
@@ -256,10 +265,18 @@ def incremental_update(
     x_new = torch.take_along_dim(x, idx[..., None, None], -2)
     k_col = KERNELS[kernel](x_new, x, params)[..., 0, :] * valid_old
     k_diag = params.amplitude + params.noise + jitter
-    chol_new, s = cholesky_update(chol, k_col, k_diag, idx)
+    chol_new, s, alpha, kinv_new = by_study(
+        _append_one, chol, k_col, k_diag, idx, y_std, kinv,
+        stacked=x.ndim == 3)
     ok = torch.isfinite(s) & (s > 1e-12 * k_diag)
+    return chol_new, alpha, kinv_new, ok
+
+
+def _append_one(chol, k_col, k_diag, idx, y_std, kinv):
+    """One study's rank-one append (see :func:`incremental_update`)."""
+    chol_new, s = cholesky_update(chol, k_col, k_diag, idx)
     # y re-standardizes every trial (mean/std shift), so α is fresh either
     # way, but the solve on the updated factor is O(n²), not O(n³)
     alpha = _cho_solve(chol_new, y_std)
     kinv_new = None if kinv is None else kinv_update(kinv, k_col, s, idx)
-    return chol_new, alpha, kinv_new, ok
+    return chol_new, s, alpha, kinv_new

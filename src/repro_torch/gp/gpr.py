@@ -14,7 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.gp.kernels import PLAIN_KERNELS, KernelParams, gram
+from repro_torch import by_study
+from repro_torch.gp.kernels import KERNELS, PLAIN_KERNELS, KernelParams, gram
 
 Tensor = torch.Tensor
 
@@ -49,6 +50,14 @@ def _cho_solve(L: Tensor, b: Tensor) -> Tensor:
     return torch.cholesky_solve(b, L)
 
 
+def kinv_from_chol(L: Tensor) -> Tensor:
+    """K⁻¹ from a Cholesky factor (..., n, n), row-major."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    # cholesky_solve may hand back column-major strides; the kernels (and
+    # every round of the MSO) want K⁻¹ row-major, so pay the copy once here
+    return _cho_solve(L, eye.expand(L.shape)).contiguous()
+
+
 def fit_gram(x: Tensor, y: Tensor, params: KernelParams,
              kernel: str = "matern52", jitter: float = 1e-8) -> GPState:
     K = gram(x, params, kernel, jitter)
@@ -67,11 +76,7 @@ def with_kinv(gp: GPState) -> GPState:
     """
     if gp.kinv is not None:
         return gp
-    n = gp.x_train.shape[0]
-    eye = torch.eye(n, dtype=gp.chol.dtype, device=gp.chol.device)
-    # cholesky_solve may hand back column-major strides; the kernels (and
-    # every round of the MSO) want K⁻¹ row-major, so pay the copy once here
-    kinv = _cho_solve(gp.chol, eye).contiguous()
+    kinv = kinv_from_chol(gp.chol)
     return GPState(x_train=gp.x_train, y_train=gp.y_train, params=gp.params,
                    chol=gp.chol, alpha=gp.alpha, kernel=gp.kernel,
                    kinv=kinv)
@@ -143,17 +148,59 @@ def predict(gp: GPState, x_query: Tensor) -> Tuple[Tensor, Tensor]:
     One batched call for all q points: the 'Batched Evaluation' of
     Algorithm 1.  The cross gram (q, n) is built once and the triangular
     solve batches over q.  A stacked state (every tensor leading with S,
-    the fleet's studies) takes (S, q, D) queries → ((S, q), (S, q)).
+    the fleet's studies) takes (S, q, D) queries → ((S, q), (S, q)),
+    study by study (:func:`by_study`).
     """
+    return by_study(_predict_one, gp.x_train, gp.params.log_lengthscale,
+                    gp.params.log_amplitude, gp.params.log_noise, gp.chol,
+                    gp.alpha, x_query, gp.kernel,
+                    stacked=gp.x_train.ndim == 3)
+
+
+def _predict_one(x_train, log_ls, log_amp, log_noise, chol, alpha,
+                 x_query, kernel):
     # plain torch: autograd differentiates it in the queries
-    kfn = PLAIN_KERNELS[gp.kernel]
-    k_star = kfn(x_query, gp.x_train, gp.params)          # (q, n)
-    mean = (k_star @ gp.alpha[..., None])[..., 0]         # O(q·n)
-    v = torch.linalg.solve_triangular(gp.chol, k_star.transpose(-1, -2),
+    params = KernelParams(log_ls, log_amp, log_noise)
+    k_star = PLAIN_KERNELS[kernel](x_query, x_train, params)     # (q, n)
+    mean = (k_star @ alpha[..., None])[..., 0]                  # O(q·n)
+    v = torch.linalg.solve_triangular(chol, k_star.transpose(-1, -2),
                                       upper=False)
-    prior = gp.params.amplitude[..., None]
-    var = torch.clamp(prior - (v * v).sum(-2), min=1e-16)
+    var = torch.clamp(params.amplitude[..., None] - (v * v).sum(-2),
+                      min=1e-16)
     return mean, var
+
+
+def predict_joint(gp: GPState, x_query: Tensor, jitter: float = 1e-10
+                  ) -> Tuple[Tensor, Tensor]:
+    """Joint posterior over a q-batch: ((q,) mean, (q, q) covariance).
+
+    The q-batch acquisition (joint qLogEI) needs the cross-candidate
+    covariances, not only the diagonal :func:`predict` returns; with a
+    stacked state (leading S) the queries are (S, q, D) and the results
+    ((S, q), (S, q, q)), study by study.  Both cross grams are the plain
+    Matérn under autograd, as :func:`predict` is, on every device: the
+    gradient in ``x_query`` is one the gram kernel K3 does not give (its
+    op differentiates in θ only), so on the card too this is plain
+    PyTorch, not a kernel.
+    """
+    return by_study(_predict_joint_one, gp.x_train,
+                    gp.params.log_lengthscale, gp.params.log_amplitude,
+                    gp.params.log_noise, gp.chol, gp.alpha, x_query,
+                    gp.kernel, jitter, stacked=gp.x_train.ndim == 3)
+
+
+def _predict_joint_one(x_train, log_ls, log_amp, log_noise, chol, alpha,
+                       x_query, kernel, jitter):
+    params = KernelParams(log_ls, log_amp, log_noise)
+    kfn = PLAIN_KERNELS[kernel]
+    k_star = kfn(x_query, x_train, params)                      # (q, n)
+    mean = k_star @ alpha
+    v = torch.linalg.solve_triangular(chol, k_star.transpose(-1, -2),
+                                      upper=False)              # (n, q)
+    cov = kfn(x_query, x_query, params) - v.transpose(-1, -2) @ v
+    q = x_query.shape[-2]
+    return mean, cov + jitter * torch.eye(q, dtype=cov.dtype,
+                                          device=cov.device)
 
 
 def log_marginal_likelihood(x: Tensor, y: Tensor, params: KernelParams,
@@ -181,22 +228,31 @@ def log_marginal_likelihood_masked(x: Tensor, y: Tensor, valid: Tensor,
     valid subset.  The params may carry leading batch dimensions (one θ
     per row, as in the batched MAP fit); the result then has them too.
     Stacked studies: x (S, b, D), y and valid (S, b) with params leading
-    (S, R) give (S, R), each study's rows over its own data.
+    (S, R) give (S, R), each study's rows over its own data and bitwise
+    the study alone (:func:`by_study`).
     """
     v = valid.to(x.dtype)
-    if x.ndim == 3:                      # a θ-row axis after the studies'
-        v, y = v[:, None], y[:, None]
-    K = gram(x, params, kernel, jitter)
-    mask2 = v[..., :, None] * v[..., None, :]
-    K = K * mask2 + torch.diag_embed(1.0 - v)
+    # one (b, b) covariance per θ row of every study: on the card one K3
+    # launch forward and one K4 backward; the rest study by study
+    k = KERNELS[kernel](x, x, params)
+    return by_study(_lml_masked_one, k, y, v, params.noise + jitter,
+                    stacked=x.ndim == 3)
+
+
+def _lml_masked_one(k: Tensor, y: Tensor, v: Tensor,
+                    noise: Tensor) -> Tensor:
+    """One study's masked LML from its covariances k ((..., b, b), one per
+    θ row), targets y (b,), mask v (b,) and noise + jitter (...)."""
+    eye = torch.eye(k.shape[-1], dtype=k.dtype, device=k.device)
+    K = k + noise[..., None, None] * eye
+    K = K * (v[:, None] * v[None, :]) + torch.diag(1.0 - v)
     yv = y * v
     L = torch.linalg.cholesky(K)
     alpha = _cho_solve(L, yv.expand(L.shape[:-1]))
-    n_valid = v.sum(-1)
     logdiag = torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
     return (-0.5 * (yv * alpha).sum(-1)
             - (logdiag * v).sum(-1)
-            - 0.5 * n_valid * _LOG_2PI)
+            - 0.5 * v.sum(-1) * _LOG_2PI)
 
 
 def pad_gp(gp: GPState, multiple: int = 32) -> GPState:

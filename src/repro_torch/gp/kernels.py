@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import by_study
 from repro_torch.kernels.matern.ops import matern52_gram_op
 
 Tensor = torch.Tensor
@@ -79,13 +80,25 @@ def matern52_plain(x1: Tensor, x2: Tensor, params: KernelParams) -> Tensor:
 
     k(r) = σ_f² (1 + √5 r + 5r²/3) exp(-√5 r),  r = ||(x−x')/ℓ||.
     Differentiable by autograd in every argument; the posterior's
-    ``"cholesky"`` backend and the CPU fit use it.
+    ``"cholesky"`` backend and the CPU fit use it.  Stacked points (S, n,
+    D) go study by study (:func:`by_study`): a batched product rounds
+    otherwise than the solo one on the CPU.
     """
-    inv_ls = torch.exp(-params.log_lengthscale)
+    if x1.ndim == 3:
+        return by_study(_matern52_plain_one, x1, x2,
+                        params.log_lengthscale, params.log_amplitude,
+                        stacked=True)
+    return _matern52_plain_one(x1, x2, params.log_lengthscale,
+                               params.log_amplitude)
+
+
+def _matern52_plain_one(x1: Tensor, x2: Tensor, log_ls: Tensor,
+                        log_amp: Tensor) -> Tensor:
+    inv_ls = torch.exp(-log_ls)
     d2 = _sq_dists(x1, x2, inv_ls)
     r = torch.sqrt(d2 + 1e-36)          # eps keeps the gradient finite at r=0
     poly = 1.0 + SQRT5 * r + (5.0 / 3.0) * d2
-    return params.amplitude[..., None, None] * poly * torch.exp(-SQRT5 * r)
+    return torch.exp(log_amp)[..., None, None] * poly * torch.exp(-SQRT5 * r)
 
 
 def matern52(x1: Tensor, x2: Tensor, params: KernelParams) -> Tensor:

@@ -12,6 +12,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import by_study
+
 Tensor = torch.Tensor
 
 SQRT5 = 2.2360679774997896
@@ -81,9 +83,13 @@ def matern52_posterior_fwd_ref(xq: Tensor, xt: Tensor, alpha: Tensor,
     """Plain version of kernel K1: ((q,) mean, (q,) var, (q, n) t).
 
     ``t = k* K⁻¹`` is the residual the backward reads.  With a leading
-    study axis every input and output leads with S.
+    study axis every input and output leads with S, computed study by
+    study (``repro_torch.by_study``: a batched product rounds otherwise
+    than the solo one, on the CPU too).
     """
-    # (q, n), or (S, q, n): the posterior has no θ-row axis
+    if xq.ndim == 3:
+        return by_study(matern52_posterior_fwd_ref, xq, xt, alpha, kinv,
+                        inv_lengthscale, amplitude, stacked=True)
     _, _, d2 = _scaled_sq_dists(xq, xt, inv_lengthscale)
     r = torch.sqrt(d2 + 1e-36)
     k_star = amplitude[..., None, None] * \
@@ -120,8 +126,12 @@ def matern52_posterior_bwd_ref(xq: Tensor, xt: Tensor, alpha: Tensor,
         ∂/∂xq_i = inv_ls ⊙ ((Σ_j c_ij)·a_i − Σ_j c_ij·b_j)
 
     with ``a = xq·inv_ls``, ``b = xt·inv_ls`` and ``t = k* K⁻¹`` (K⁻¹
-    symmetric, so ∂var/∂k* = −2t).
+    symmetric, so ∂var/∂k* = −2t).  Stacked inputs go study by study.
     """
+    if xq.ndim == 3:
+        return by_study(matern52_posterior_bwd_ref, xq, xt, alpha, t, var,
+                        inv_lengthscale, amplitude, g_mean, g_var,
+                        stacked=True)
     a, b, d2 = _scaled_sq_dists(xq, xt, inv_lengthscale)
     r = torch.sqrt(d2 + 1e-36)
     gv = torch.where(var > VAR_FLOOR, g_var, 0.0)

@@ -580,6 +580,40 @@ def test_fleet_launches_and_bits_on_card(cuda):
                                atol=1e-10)
 
 
+@pytest.mark.cuda
+def test_stacked_map_objective_bitwise_each_study_on_card(cuda):
+    """One MAP-objective evaluation of an 8-study stack at the fleet's
+    width (D=20, n=536 in the 544 bucket, R=2): value and θ-gradient of
+    each study bitwise the study alone (the Cholesky, solves and sums run
+    study by study; K3/K4 take the stack in one launch)."""
+    from repro_torch.gp.fit import (_FAR, _neg_map_objective,
+                                    standardize_masked, theta_init_grid)
+    S, D, n, b = 8, 20, 536, 544
+    rng = np.random.default_rng(3)
+    x = np.full((S, b, D), _FAR) + np.arange(b)[None, :, None]
+    x[:, :n] = rng.uniform(0, 1, (S, n, D))
+    y = np.zeros((S, b))
+    y[:, :n] = np.sin(5 * x[:, :n]).sum(-1)
+    x, y = torch.tensor(x, device=cuda), torch.tensor(y, device=cuda)
+    valid = torch.arange(b, device=cuda) < n
+    valid = valid.expand(S, b)
+    ys = standardize_masked(y, valid)[0]
+    th = torch.stack([theta_init_grid(D, torch.float64, 2, s)
+                      for s in range(S)]).to(cuda)
+
+    def objective(t, *args):
+        t = t.detach().requires_grad_(True)
+        f = _neg_map_objective(t, *args, D, "matern52")
+        (g,) = torch.autograd.grad(f.sum(), t)
+        return f.detach(), g
+
+    f_all, g_all = objective(th, x, ys, valid)
+    for s in range(S):
+        f1, g1 = objective(th[s], x[s], ys[s], valid[s])
+        assert torch.equal(f_all[s], f1), s
+        assert torch.equal(g_all[s], g1), s
+
+
 def _sphere(x):
     return float(np.sum((x - 0.4) ** 2))
 

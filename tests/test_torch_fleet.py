@@ -237,18 +237,46 @@ def test_fleet_slot_permutation_bitwise():
             np.testing.assert_array_equal(xa, xb)
 
 
-def test_fleet_matches_askengine():
+@pytest.mark.parametrize("backend", ["cholesky", "fused"])
+def test_fleet_matches_askengine(backend):
     """Fleet suggestions track the solo fused pipeline to 1e-10 over a run
-    crossing a bucket boundary (a batched product or Cholesky may round
-    otherwise than the solo one), on the reference's backend for this
-    contract (JAX's "xla", the port's "cholesky")."""
-    kw = _fleet_kw(refit_interval=1, warm_start=False)
+    crossing a bucket boundary, on either posterior backend (the fit's
+    Cholesky, solves and sums, and the plain K1's products, run study by
+    study, so a study's bits do not depend on the block)."""
+    kw = _fleet_kw(refit_interval=1, warm_start=False,
+                   posterior_backend=backend)
     space = BoxSpace.cube(2, -1.0, 1.0)
     ref = GPSampler(space, strategy="dbe_vec", fused=True, seed=5, **kw)
     fleet = FleetSampler(space, n_studies=1, seed=5, slots=2, **kw)
     np.testing.assert_allclose(space.to_unit(_drive(fleet, 12)),
                                space.to_unit(_drive(ref, 12)), rtol=0,
                                atol=1e-10)
+
+
+def test_stacked_map_objective_bitwise_each_study():
+    """One MAP-objective evaluation of a 3-study stack (D=5, each study
+    with its own count of _FAR rows and its own θ inits): value and
+    θ-gradient of each study bitwise the study alone."""
+    from repro_torch.gp.fit import _neg_map_objective, standardize_masked
+    rng = np.random.default_rng(7)
+    S, b, D = 3, 24, 5
+    xs, ys = zip(*(_padded_study(rng, n, b, D) for n in (17, 20, 23)))
+    x, y = torch.stack(xs), torch.stack(ys)
+    valid = torch.arange(b) < torch.tensor([17, 20, 23])[:, None]
+    y_std = standardize_masked(y, valid)[0]
+    th = torch.stack([theta_init_grid(D, torch.float64, 2, 10 + s)
+                      for s in range(S)])
+
+    def objective(t, *args):
+        t = t.detach().requires_grad_(True)
+        f = _neg_map_objective(t, *args, D, "matern52")
+        (g,) = torch.autograd.grad(f.sum(), t)
+        return f.detach(), g
+
+    f_all, g_all = objective(th, x, y_std, valid)
+    for s in range(S):
+        f1, g1 = objective(th[s], x[s], y_std[s], valid[s])
+        assert torch.equal(f_all[s], f1) and torch.equal(g_all[s], g1), s
 
 
 # ----------------------------------------------------- scheduler economy

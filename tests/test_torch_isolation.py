@@ -1,6 +1,8 @@
 """The port stands alone: ``repro_torch``, ``chip_smoke.py``,
-``flash_ab.py``, ``gram_ab.py`` and ``kvp_ab.py`` import neither jax nor
+``flash_ab.py``, ``gram_ab.py``, ``kvp_ab.py``, ``fleet_bits_probe.py``
+and the example twins ``examples/*_torch.py`` import neither jax nor
 anything of the JAX package ``repro``."""
+import glob
 import os
 import pkgutil
 import re
@@ -14,12 +16,13 @@ pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "src", "repro_torch")
+TWINS = sorted(glob.glob(os.path.join(REPO, "examples", "*_torch.py")))
 
 
 def _sources():
     files = [os.path.join(REPO, f)
              for f in ("chip_smoke.py", "flash_ab.py", "gram_ab.py",
-                       "kvp_ab.py")]
+                       "kvp_ab.py", "fleet_bits_probe.py")] + TWINS
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, f) for f in names
                   if f.endswith((".py", ".cu", ".cuh"))]
@@ -37,6 +40,11 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             importlib.import_module(name)
         sys.path.insert(0, REPO)
         import chip_smoke, flash_ab, gram_ab, kvp_ab  # noqa: F401
+        import fleet_bits_probe  # noqa: F401
+        sys.path.insert(0, REPO + "/examples")
+        twins = {[os.path.basename(f)[:-3] for f in TWINS]!r}
+        for name in twins:
+            importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -48,6 +56,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr[-3000:]
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 20 and bad == "[]", out.stdout
+    assert len(TWINS) == 3, TWINS
 
 
 def test_no_source_names_jax_or_repro():
@@ -79,4 +88,8 @@ def test_walk_finds_the_kernel_modules():
             "repro_torch.launch.serve",
             "repro_torch.engine.fleet",
             "repro_torch.bo.journal",
-            "repro_torch.ckpt.manager"} <= names
+            "repro_torch.ckpt.manager",
+            "repro_torch.core.acquisition",
+            "repro_torch.core.lbfgsb",
+            "repro_torch.core.mso",
+            "repro_torch.gp.gpr"} <= names
