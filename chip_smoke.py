@@ -122,6 +122,32 @@ Slice 5 adds, in the same run:
               qLogEI MSO on the GP state (finite, in bounds); the
               quickstart twin (K1 = K2 = MSO rounds, K3 = K4 + fits) and
               the serve twin (K6 = layers × steps), counted alone
+Slice 6 adds, in the same run:
+  - service   BOService over a FleetSampler at the fleet phase's width (16
+              Rastrigin studies, D=20, two 8-slot blocks, B=10, R=2,
+              refit every 8th trial, 542 random trials through the
+              service's sync core), tenants gold (weight 4, studies 0–3,
+              2 GP rounds), silver (2, 4–9, 2) and bronze (1, 10–15, 1)
+              as asyncio coroutines beside svc.run() on the real clock:
+              every ask served, rung admit, K1 = K2 = MSO rounds, K4 = fit
+              evaluations, K3 = evaluations + full + rank-one programs,
+              ≤ 3 programs per (bucket, slots); study 0's first GP ask
+              shed in flight by a 1 s deadline and asked again; the same
+              schedule driven directly through FleetSampler.ask_batch,
+              bitwise; suggests/s of both, each tenant's share and ask
+              p50/p99, host ms a service_step beyond its fleet.step; the
+              snapshot schema, the Prometheus scrape, the journal's
+              timeline; a traced round (Chrome trace, svc.* and fleet.*
+              spans, device busy and idle share, programs unchanged) and
+              a guarded round (install_nan_guard: one check a program
+              call, no trip, snapshots and programs unchanged, its cost);
+              `python -m repro_torch.obs overhead`; on small fleets (D=5)
+              the overload ladder under a virtual clock (admit → reject →
+              degrade → shed_tenant → admit, the degraded tenant on the
+              solo fused ask with its launches counted), the NaN guard
+              tripping on a poisoned block, and a 2-tenant service killed
+              mid-journal and recovered with BOService.recover, bitwise;
+              the "kernels" line adds K1–K4's service launches
 Every timing line carries the card's name and power limit.
 Then it prints the card, a "kernels" JSON line (each "ms" with its
 source, "ms_from"; K6 at the serving step's shape), and the result line.
@@ -2679,6 +2705,657 @@ def phase_fleet(dev, c=FLEET):
                 solo_max_dx=max(worst), layers=layers)
 
 
+# ------------------------------------------------ slice 6: the BO service
+# The service phase's full-width traffic (the fleet phase's studies, split
+# among three tenants: name, weight, studies [a, b), GP rounds) and its
+# smaller fleets; a CPU rehearsal passes smaller ones.  The quantum covers
+# every tenant's studies in one DRR round (6 × bronze's weight 1 ≥ its 6
+# studies), so the service is uncontended and each fleet step serves every
+# queued ask, as the direct drive does.  ``deadline`` (s, real clock) is
+# shorter than a full fleet round; ``small`` sizes the ladder, NaN-trip and
+# recovery fleets.
+SERVICE = dict(D=20, slots=8, B=10, pad=32, refit_interval=8, startup=542,
+               tenants=(("gold", 4.0, 0, 4, 2), ("silver", 2.0, 4, 10, 2),
+                        ("bronze", 1.0, 10, 16, 1)),
+               quantum=6.0, deadline=1.0,
+               small=dict(D=5, B=10, pad=8, startup=6, rounds=12,
+                          kill_at=85))
+
+
+class VClock:
+    """The phase's virtual clock (``now``/``sleep`` like ``time``'s, moved
+    only by ``sleep`` and ``advance``): deadlines, backoff and the
+    overload ladder's latencies become exact."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def now(self) -> float:
+        return self.t
+
+    def sleep(self, dt: float) -> None:
+        self.t += max(0.0, float(dt))
+
+    def advance(self, dt: float) -> None:
+        self.t += float(dt)
+
+
+def timed(fn, rows):
+    """``fn`` wrapped to append (host ms to a synchronize, its result) to
+    ``rows`` at each call."""
+    import torch
+
+    def wrap(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        rows.append(((time.perf_counter() - t0) * 1e3, out))
+        return out
+    return wrap
+
+
+def step_timer(step, rows, fleet_rows):
+    """``svc.service_step`` wrapped to append (host ms, host ms of the
+    fleet steps it made, suggestions they served) to ``rows`` for each
+    call that reached a fleet step (``fleet_rows`` is fed by ``timed``
+    around ``fleet.step``)."""
+    import torch
+
+    def wrap():
+        k = len(fleet_rows)
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if len(fleet_rows) > k:
+            rows.append((ms, sum(f for f, _ in fleet_rows[k:]),
+                         sum(n for _, n in fleet_rows[k:])))
+        return out
+    return wrap
+
+
+def recorded(fs, log_):
+    """Log the fleet-level schedule a service drives (each ``ask_batch``'s
+    studies, each ``tell``) so that a twin can replay it directly."""
+    ask_batch, tell = fs.ask_batch, fs.tell
+
+    def rec_ask(studies):
+        studies = list(studies)
+        log_.append(("ask", studies))
+        return ask_batch(studies)
+
+    def rec_tell(study, trial_id, y, **kw):
+        log_.append(("tell", study, trial_id, y, kw))
+        return tell(study, trial_id, y, **kw)
+    fs.ask_batch, fs.tell = rec_ask, rec_tell
+
+
+def replay(fs, events):
+    """Drive a FleetSampler directly through a recorded schedule; returns
+    the host ms of its ask_batch calls and tells."""
+    import torch
+    t0 = time.perf_counter()
+    for ev in events:
+        if ev[0] == "ask":
+            out = fs.ask_batch(ev[1])
+            check(not any(isinstance(t, Exception) for t in out),
+                  f"direct drive: a study failed in {ev[1]}")
+        else:
+            fs.tell(ev[1], ev[2], ev[3], **ev[4])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def service_fleet(c, space, **kw):
+    from repro_torch.bo.sampler import FleetSampler
+    S = sum(b - a for _, _, a, b, _ in c["tenants"])
+    return FleetSampler(space, n_studies=S, seed=0, slots=c["slots"],
+                        **fleet_kw(c), **kw)
+
+
+def service_tenants(c):
+    from repro_torch.serve.bo_service import TenantConfig
+    return [TenantConfig(name, weight=w, studies=tuple(range(a, b)))
+            for name, w, a, b, _ in c["tenants"]]
+
+
+def sync_round(svc, obj, studies):
+    """One ask per study through the service's sync core, served, told."""
+    owner = svc._study_owner
+    reqs = [svc.submit_ask(owner[s], s) for s in studies]
+    for _ in range(4):
+        if all(r.done for r in reqs):
+            break
+        svc.service_step()
+    check(all(r.done and r.result is not None for r in reqs),
+          f"service: requests not served: {[r.state for r in reqs]}")
+    for r in reqs:
+        svc.submit_tell(r.tenant, r.study, r.result.trial_id,
+                        obj(r.result.x))
+    return reqs
+
+
+async def tenants_drive(c, svc, obj, plan, shed=None):
+    """The tenants as asyncio coroutines, one per study, beside the
+    ``svc.run()`` server task: each asks, evaluates, tells, for the rounds
+    ``plan`` ((tenant, study, rounds) rows) gives it.  With ``shed`` (a
+    list), study 0's first ask carries c["deadline"], shorter than a full
+    round: it is shed in flight (DeadlineExceeded, the one exception
+    caught), recorded, and asked again.  Returns the host ms."""
+    import asyncio
+    from repro_torch.serve.bo_service import DeadlineExceeded
+
+    async def study(name, s, rounds):
+        for r in range(rounds):
+            dl = c["deadline"] if shed is not None and (s, r) == (0, 0) \
+                else None
+            try:
+                t = await svc.ask(name, s, deadline=dl)
+            except DeadlineExceeded as e:
+                check(dl is not None and "in flight" in str(e),
+                      f"service: unexpected shed of study {s}: {e}")
+                shed.append((s, str(e)))
+                t = await svc.ask(name, s)
+            check(dl is None or shed, "service: the deadline ask of "
+                  "study 0 came back in time")
+            await svc.tell(name, s, t.trial_id, obj(t.x))
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(study(name, s, r) for name, s, r in plan))
+    return (time.perf_counter() - t0) * 1e3
+
+
+def service_ladder(c):
+    """The overload ladder under the phase's virtual clock on a small fleet
+    on the card (D = c["small"]["D"], 4 studies, tenants A (weight 2,
+    studies 0, 1) and B (weight 1, studies 2, 3)): the p99 rungs (window
+    of one completion, SLO 1 s) walk admit → reject → degrade →
+    shed_tenant as a backlog's latency grows, then de-escalate to admit.
+    B's asks under degrade run the solo fused ask on the card: the step's
+    launches are the fleet's identities plus each solo ask's own.  The
+    quantum serves one ask of each study a round (A's deficit 4 covers
+    study 0's backlog, B's 2 both its studies)."""
+    import tempfile
+    from repro_torch.bo.objectives import make_objective
+    from repro_torch.bo.sampler import FleetSampler
+    from repro_torch.bo.space import BoxSpace
+    from repro_torch.engine.fleet import FleetFullError
+    from repro_torch.kernels.matern import kernel as K
+    from repro_torch.serve.bo_service import (BOService, OverloadConfig,
+                                              TenantConfig, TenantShedError)
+    sm = c["small"]
+    d = sm["D"]
+    obj = make_objective("rastrigin", d)
+    clock = VClock()
+    with tempfile.TemporaryDirectory() as tmp:
+        fs = FleetSampler(BoxSpace.cube(d, -5.0, 5.0), n_studies=4, seed=0,
+                          slots=4, journal_dir=tmp, sleep_fn=clock.sleep,
+                          n_startup_trials=sm["startup"], n_restarts=sm["B"],
+                          pad_multiple=sm["pad"])
+        svc = BOService(fs, [TenantConfig("A", weight=2.0, studies=(0, 1)),
+                             TenantConfig("B", weight=1.0, studies=(2, 3))],
+                        overload=OverloadConfig(
+                            reject_depth=10 ** 6, degrade_depth=10 ** 6,
+                            shed_depth=10 ** 6, p99_slo=1.0, window=1,
+                            min_samples=1), quantum=2.0, clock=clock)
+        for _ in range(sm["startup"] + 2):       # two GP rounds at admit
+            sync_round(svc, obj, range(4))
+        backlog = [svc.submit_ask("A", 0) for _ in range(4)]
+        b_reqs = [svc.submit_ask("B", s) for _ in range(5) for s in (2, 3)]
+        rungs, solo, launches = [], [], dict.fromkeys(K.LAUNCHES, 0)
+        want = dict.fromkeys(K.LAUNCHES, 0)
+        for step in range(6):
+            clock.advance(1.5 if step == 0 else 1.0)
+            snap0 = fs.fleet.stats_snapshot()
+            before = K.launch_counts()
+            svc.service_step()
+            after = K.launch_counts()
+            snap = fs.fleet.stats_snapshot()
+            rung = svc.stats_snapshot()["svc_rung"]
+            rungs.append(rung)
+            if rung == "reject":
+                try:                             # the rung refuses asks
+                    svc.submit_ask("A", 1)
+                    fail("service ladder: an ask was admitted at reject")
+                except FleetFullError as e:
+                    check("rung reject" in str(e), f"ladder: {e}")
+            if rung == "degrade":
+                dm = snap["n_mso_rounds"] - snap0["n_mso_rounds"]
+                df = snap["n_fit_evals"] - snap0["n_fit_evals"]
+                dp = {k: snap["n_block_programs"][k]
+                      - snap0["n_block_programs"][k] for k in ("full",
+                                                                "incr")}
+                exp = {"matern52_posterior_fwd": dm,
+                       "matern52_posterior_bwd_xq": dm,
+                       "matern52_gram_fwd": df + dp["full"] + dp["incr"],
+                       "matern52_gram_bwd_theta": df}
+                for s in (2, 3):
+                    info = fs.samplers[s].last_ask_info
+                    check(fs.samplers[s]._fleet is None
+                          and fs.samplers[s]._ask is not None,
+                          f"ladder: degraded study {s} not on the solo ask")
+                    solo.append(info.rounds)
+                    for k, v in expected_launches(info).items():
+                        exp[k] += v
+                for k in K.LAUNCHES:
+                    d_ = after.get(k, 0) - before.get(k, 0)
+                    launches[k] += d_
+                    want[k] += exp.get(k, 0)
+        recs = fs.journal.replay()
+        moves = [(r["from"], r["rung"]) for r in recs
+                 if r["op"] == "svc_overload"]
+    snap = svc.stats_snapshot()
+    t = snap["svc_tenants"]
+    log(f"[service] ladder: rungs by step {rungs}; journaled {moves}; "
+        f"B's solo asks under degrade {len(solo)} ({sum(solo)} MSO rounds); "
+        f"launches under degrade {json.dumps(launches)}")
+    check(moves == [("admit", "reject"), ("reject", "degrade"),
+                    ("degrade", "shed_tenant"), ("shed_tenant", "admit")],
+          f"service ladder: transitions {moves}")
+    check(launches == want and launches["matern52_posterior_fwd"]
+          > sum(solo) > 0,
+          f"service ladder: launches {launches} != fleet identities + the "
+          f"solo asks' own {want}")
+    check(rungs[-1] == "admit"
+          and all(r.result is not None for r in backlog)
+          and t["B"]["is_shed"] and t["B"]["degraded"]
+          and not t["A"]["is_shed"] and not t["A"]["degraded"]
+          and sum(isinstance(r.error, TenantShedError) for r in b_reqs) == 2
+          and sum(r.result is not None for r in b_reqs) == 8,
+          f"service ladder: tenants {t}")
+    return dict(moves=moves, solo_asks=len(solo), solo_rounds=sum(solo),
+                launches=launches)
+
+
+def service_nan_trip(c):
+    """A NaN put into one block's observations on a small fleet with the
+    guard installed: NonFiniteError naming the program and the leaf,
+    after the ``nan_guard.nonfinite`` instant."""
+    from repro_torch.analysis import NonFiniteError, install_nan_guard
+    from repro_torch.bo.objectives import make_objective
+    from repro_torch.bo.sampler import FleetSampler
+    from repro_torch.bo.space import BoxSpace
+    from repro_torch.obs import trace as obs
+    sm = c["small"]
+    obj = make_objective("rastrigin", sm["D"])
+    fs = FleetSampler(BoxSpace.cube(sm["D"], -5.0, 5.0), n_studies=2,
+                      seed=0, slots=2, n_startup_trials=sm["startup"],
+                      n_restarts=sm["B"], pad_multiple=sm["pad"])
+    install_nan_guard(fs.fleet)
+    startup(fs, obj, sm["startup"] + 2)
+    fs.fleet._blocks[0].y[1, 0] = float("nan")
+    tr = obs.enable()
+    try:
+        fs.ask_all()
+        fail("NaN guard: a poisoned block passed the guard")
+    except NonFiniteError as e:
+        msg = str(e)
+    evs = [e for e in tr.events() if e["name"] == "nan_guard.nonfinite"]
+    obs.disable()
+    check(len(evs) == 1 and evs[0]["args"]["leaf"] == "[0][1]"
+          and f"'{evs[0]['args']['program']}' at leaf [0][1]" in msg,
+          f"NaN guard: {msg}; instants {evs}")
+    log(f"[service] NaN guard trip: {msg[:96]}...; instant "
+        f"{json.dumps(evs[0]['args'])}")
+    return evs[0]["args"]
+
+
+def service_recovery(c):
+    """A 2-tenant service on a small fleet (refit_interval=1) killed at a
+    journal offset and recovered with ``BOService.recover`` (the card by
+    default): the pending queue comes back in rid order and every later
+    suggestion is bitwise the uninterrupted run's."""
+    import tempfile
+    import numpy as np
+    from repro_torch.bo.journal import InjectedCrash
+    from repro_torch.bo.objectives import make_objective
+    from repro_torch.bo.sampler import FleetSampler
+    from repro_torch.bo.space import BoxSpace
+    from repro_torch.serve.bo_service import BOService, TenantConfig
+    sm = c["small"]
+    d, rounds = sm["D"], sm["rounds"]
+    obj = make_objective("rastrigin", d)
+    space = BoxSpace.cube(d, -5.0, 5.0)
+    tenants = [TenantConfig("a", weight=2.0, studies=(0,)),
+               TenantConfig("b", weight=1.0, studies=(1,))]
+    kw = dict(n_startup_trials=sm["startup"], n_restarts=sm["B"],
+              pad_multiple=sm["pad"], slots=2, refit_interval=1,
+              warm_start=False)
+
+    def script(svc, n):
+        for r in range(n):
+            if r == 7 and svc.fs.ckpt is not None:
+                svc.fs.checkpoint()
+            sync_round(svc, obj, (0, 1))
+
+    clock = VClock()
+    ref = BOService(FleetSampler([space] * 2, seed=0, sleep_fn=clock.sleep,
+                                 **kw), tenants, clock=clock)
+    script(ref, rounds)
+    with tempfile.TemporaryDirectory() as tmp:
+        clock = VClock()
+        vic = BOService(FleetSampler([space] * 2, seed=0, journal_dir=tmp,
+                                     fault_injector=KillAt(sm["kill_at"]),
+                                     sleep_fn=clock.sleep, **kw),
+                        tenants, clock=clock)
+        try:
+            script(vic, rounds)
+            fail("service recovery: the injected kill did not fire")
+        except InjectedCrash:
+            pass
+        svc, rep = BOService.recover(tmp, clock=VClock())
+        check(svc.fs.fleet.device.type == "cuda",
+              "service recovery: not on the card")
+        queued = svc.recovered["queued"]
+        ready = svc.recovered["ready"]
+        rids = [r.rid for r in queued]
+        check(rids == sorted(rids), f"service recovery: queue {rids}")
+        for i, tid in rep.pending:
+            svc.submit_tell(svc._study_owner[i], i, tid,
+                            obj(svc.fs.samplers[i].trials[tid].x))
+        for _ in range(4):
+            if all(r.done for r in queued):
+                break
+            svc.service_step()
+        for r in queued:
+            check(r.result is not None, "service recovery: queue unserved")
+            svc.submit_tell(r.tenant, r.study, r.result.trial_id,
+                            obj(r.result.x))
+        while min(len(s.trials) for s in svc.fs.samplers) < rounds:
+            sync_round(svc, obj, [i for i in range(2)
+                                  if len(svc.fs.samplers[i].trials)
+                                  < rounds])
+    for i in range(2):
+        a, b = ref.fs.samplers[i].trials, svc.fs.samplers[i].trials
+        check(len(b) >= rounds, "service recovery: too few trials")
+        for ta, tb in zip(a, b[:rounds]):
+            check(np.array_equal(ta.x, tb.x),
+                  f"service recovery: study {i} trial {ta.trial_id} "
+                  f"differs")
+    log(f"[service] recovery: killed at journal seq {sm['kill_at']} "
+        f"({rep.n_records} records, {rep.truncated_bytes} torn bytes); "
+        f"restored queue {[(r.rid, r.tenant, r.study) for r in queued]}, "
+        f"ready {[(r.rid, r.study) for r in ready]}, pending "
+        f"{rep.pending}; D={d}, {rounds} rounds: both studies bitwise the "
+        f"uninterrupted run")
+    return dict(queued=len(queued), ready=len(ready))
+
+
+def service_overhead_cli():
+    """``python -m repro_torch.obs overhead`` on this host: the disabled
+    tracer's ns per call against its 5 µs budget."""
+    run = subprocess.run([sys.executable, "-m", "repro_torch.obs",
+                          "overhead"], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=SRC), timeout=300)
+    check(run.returncode == 0, f"obs overhead: {run.stdout} {run.stderr}")
+    log(f"[service] {run.stdout.strip()}; {card()}")
+    return run.stdout.strip()
+
+
+def quantiles_ms(lat):
+    import numpy as np
+    if not lat:
+        return None, None
+    a = 1e3 * np.asarray(lat)
+    return float(np.quantile(a, 0.5)), float(np.quantile(a, 0.99))
+
+
+def phase_service(dev, c=SERVICE):
+    """BOService over the fleet at full width, three tenants as asyncio
+    coroutines beside ``svc.run()`` on the real clock, in one session:
+    the GP rounds (launch identities, the deadline shed in flight), one
+    traced round, one guarded round; then the direct drive of the same
+    schedule bitwise, schema, exposition and the journal's timeline; then
+    the ladder, NaN-trip and recovery checks on small fleets."""
+    import asyncio
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.analysis import install_nan_guard, nan_guard_stats
+    from repro_torch.bo.objectives import make_objective
+    from repro_torch.bo.space import BoxSpace
+    from repro_torch.kernels.matern import kernel as K
+    from repro_torch.obs import export, metrics
+    from repro_torch.obs import trace as obs
+    from repro_torch.serve.bo_service import BOService
+
+    D = c["D"]
+    obj = make_objective("rastrigin", D)
+    space = BoxSpace.cube(D, -5.0, 5.0)
+    tenants = service_tenants(c)
+    S = sum(len(t.studies) for t in tenants)
+    tmp = tempfile.TemporaryDirectory()
+    jdir, tdir = (os.path.join(tmp.name, n) for n in ("svc", "twin"))
+    fs = service_fleet(c, space, journal_dir=jdir)
+    check(fs.fleet.cfg.backend == "fused", "service fleet not fused")
+    svc = BOService(fs, tenants, quantum=c["quantum"])
+    events, steps, fleet_steps = [], [], []
+    recorded(fs, events)
+    fs.fleet.step = timed(fs.fleet.step, fleet_steps)
+    svc.service_step = step_timer(svc.service_step, steps, fleet_steps)
+
+    # random startup through the sync core, the journal's fsync off (it
+    # is on again, as deployed, for the GP rounds measured below)
+    fs.journal.sync = False
+    t0 = time.perf_counter()
+    for _ in range(c["startup"]):
+        sync_round(svc, obj, range(S))
+    startup_s = time.perf_counter() - t0
+    fs.journal.sync = True
+    n_start = len(steps)
+    lat0 = {t.name: len(svc.tenant_latencies(t.name)) for t in tenants}
+    served0 = svc.stats_snapshot()["svc_tenants"]
+    out = {}
+
+    async def session():
+        server = asyncio.create_task(svc.run())
+        # the GP rounds, each tenant its own number
+        out["snap0"] = fs.fleet.stats_snapshot()
+        out["n_ev0"] = len(events)
+        out["n_steps0"] = len(steps)
+        shed = out["shed"] = []
+        K.reset_launch_counts()
+        out["wall_ms"] = await tenants_drive(
+            c, svc, obj, [(name, s, r) for name, _, a, b, r in c["tenants"]
+                          for s in range(a, b)], shed)
+        out["launches"] = K.launch_counts()
+        out["snap"] = fs.fleet.stats_snapshot()
+        out["ssnap"] = svc.stats_snapshot()
+        out["n_ev1"] = len(events)
+        out["n_steps1"] = len(steps)
+        # one traced round, every study (rank-one refits): obs spans, and
+        # the card's busy time beside the host's
+        plan = [(t.name, s, 1) for t in tenants for s in t.studies]
+        tr = obs.enable()
+        with card_trace() as prof:
+            out["traced_ms"] = await tenants_drive(c, svc, obj, plan)
+            torch.cuda.synchronize()
+        out["obs_events"] = tr.events()
+        obs.disable()
+        out["prof"] = prof
+        out["compiles_traced"] = fs.fleet.stats_snapshot()[
+            "n_fleet_compiles"]
+        # one guarded round (bronze's rank-one round on its block)
+        before = fs.stats_snapshot()
+        guards = list(install_nan_guard(fs.fleet))
+        check(fs.stats_snapshot() == before,
+              "NaN guard changed the snapshot")
+        spent = out["guard_spent"] = []
+        for g in guards:
+            g._check = timed(g._check, spent)
+        out["guard_before"] = before
+        out["guard_ms"] = await tenants_drive(
+            c, svc, obj, [(tenants[-1].name, s, 1)
+                          for s in tenants[-1].studies])
+        out["guard_after"] = fs.stats_snapshot()
+        svc.stop()
+        await server
+
+    asyncio.run(session())
+
+    launches, snap0, snap, ssnap = (out[k] for k in ("launches", "snap0",
+                                                      "snap", "ssnap"))
+    shed, wall_ms, n_ev0 = out["shed"], out["wall_ms"], out["n_ev0"]
+    delta = {k: snap[k] - snap0[k] for k in ("n_mso_rounds", "n_fit_evals")}
+    progs = {k: snap["n_block_programs"][k] - snap0["n_block_programs"][k]
+             for k in ("full", "incr", "mso")}
+    n_gp = ssnap["svc_completed"] - sum(v["served"]
+                                        for v in served0.values())
+    buckets = sorted({blk.bucket for blk in fs.fleet._blocks})
+    log(f"[service] GP rounds: {n_gp} asks served in {wall_ms:.1f} ms, "
+        f"shed {shed}; launches {json.dumps(launches)}; MSO rounds "
+        f"{delta['n_mso_rounds']}, fit evaluations {delta['n_fit_evals']}, "
+        f"block programs {json.dumps(progs)}; programs "
+        f"{snap['n_fleet_compiles']} over buckets {buckets}")
+    svc_keys = {k: v for k, v in ssnap.items()
+                if k.startswith("svc_") and k != "svc_tenants"}
+    check(len(shed) == 1 and ssnap["svc_shed"] == 1
+          and ssnap["svc_deadline_miss"] == 1 and ssnap["svc_rejected"] == 0
+          and ssnap["svc_rung"] == "admit" and ssnap["svc_rung_changes"] == 0
+          and ssnap["svc_queue_depth"] == 0
+          and n_gp == sum((b - a) * r for _, _, a, b, r in c["tenants"]),
+          f"service: served {n_gp}, {json.dumps(svc_keys)}")
+    check(launches["matern52_posterior_fwd"] == delta["n_mso_rounds"] > 0
+          and launches["matern52_posterior_bwd_xq"]
+          == delta["n_mso_rounds"],
+          "service: K1/K2 launches != MSO rounds summed over blocks")
+    check(launches["matern52_gram_bwd_theta"] == delta["n_fit_evals"] > 0,
+          "service: K4 launches != fit evaluations")
+    check(launches["matern52_gram_fwd"]
+          == delta["n_fit_evals"] + progs["full"] + progs["incr"],
+          "service: K3 launches != evaluations + full + rank-one programs")
+    check(snap["n_fleet_compiles"] <= 3 * len(buckets),
+          f"service: {snap['n_fleet_compiles']} programs for {buckets}")
+    errs = metrics.validate_snapshot("bo_service", ssnap)
+    check(errs == [], f"service: snapshot schema {errs}")
+    # the deadline shed: journaled in flight, its trial left pending
+    recs = [r for r in fs.journal.replay() if r["op"] == "svc_shed"]
+    check(len(recs) == 1 and recs[0]["reason"] == "deadline exceeded in "
+          "flight" and fs.samplers[0].trials[c["startup"]].state
+          == "pending", f"service: deadline shed records {recs}")
+
+    # the same studies driven directly through the GP rounds' schedule
+    twin = service_fleet(c, space, journal_dir=tdir)
+    twin.journal.sync = False
+    replay(twin, events[:n_ev0])
+    twin.journal.sync = True
+    twin_ms = replay(twin, events[n_ev0:out["n_ev1"]])
+    n_twin = {i: len(s.trials) for i, s in enumerate(twin.samplers)}
+    worst = 0
+    for i, (a, b) in enumerate(zip(fs.samplers, twin.samplers)):
+        mine = a.trials[:n_twin[i]]
+        check(len(b.trials) > c["startup"]
+              and [t.state for t in mine[:-1]]
+              == [t.state for t in b.trials[:-1]],
+              "service: the direct drive's trials differ in number or state")
+        worst += sum(not np.array_equal(ta.x, tb.x)
+                     for ta, tb in zip(mine, b.trials))
+    gp_batches = [e[1] for e in events[n_ev0:out["n_ev1"]] if e[0] == "ask"]
+    tsnap = twin.fleet.stats_snapshot()
+    log(f"[service] direct drive of the same schedule ({len(gp_batches)} "
+        f"batches: {[len(b) for b in gp_batches]} studies; full, rank-one "
+        f"and the deadline's resubmission): {worst} suggestions differ "
+        f"(bitwise required); programs {tsnap['n_fleet_compiles']}")
+    check(worst == 0, f"service: {worst} suggestions differ from the direct "
+          f"drive's")
+    check(progs["full"] > 0 and progs["incr"] > 0
+          and tsnap["n_block_programs"] == snap["n_block_programs"],
+          f"service: block programs {snap['n_block_programs']} vs the "
+          f"direct drive's {tsnap['n_block_programs']}")
+
+    # host ms a service_step beyond its fleet.step: GP steps (the fleet
+    # served) and startup steps (it had nothing to run); idle polls of
+    # svc.run(), which reach no fleet step, are left out
+    gp = [w - f for w, f, served in steps[out["n_steps0"]:out["n_steps1"]]
+          if served]
+    st = [w - f for w, f, _ in steps[:n_start]]
+    lat = {t.name: svc.tenant_latencies(t.name)[lat0[t.name]:][
+        :ssnap["svc_tenants"][t.name]["served"] - served0[t.name]["served"]]
+        for t in tenants}
+    shares = {}
+    for t in tenants:
+        p50, p99 = quantiles_ms(lat[t.name])
+        shares[t.name] = dict(
+            weight=t.weight, weight_share=t.weight / sum(
+                u.weight for u in tenants),
+            served=len(lat[t.name]), served_share=len(lat[t.name]) / n_gp,
+            ask_p50_ms=p50, ask_p99_ms=p99)
+    thr = dict(service_suggests_per_s=n_gp / (wall_ms / 1e3),
+               direct_suggests_per_s=n_gp / (twin_ms / 1e3),
+               service_ms=wall_ms, direct_ms=twin_ms,
+               service_steps=len(gp), service_step_host_ms_beyond_fleet=dict(
+                   median=float(np.median(gp)), max=float(np.max(gp))),
+               startup_steps=len(st), startup_step_host_ms=dict(
+                   median=float(np.median(st)), max=float(np.max(st))),
+               startup_s=startup_s, tenants=shares, card=card())
+    log("[service] throughput: " + json.dumps(thr))
+
+    # the traced round: a Chrome trace with svc.* and fleet.* spans
+    bd = export.phase_breakdown(out["obs_events"])
+    ct = export.chrome_trace(out["obs_events"], "chip_smoke service")
+    dev_us = device_breakdown(out["prof"])
+    busy = sum(dev_us.values()) / 1e3
+    row = dict(host_ms=out["traced_ms"], device_ms=busy,
+               device_idle_share=1.0 - busy / out["traced_ms"],
+               device_ms_by_class={k: v / 1e3 for k, v in dev_us.items()},
+               spans={k: v for k, v in bd.items()
+                      if k.startswith(("svc.", "fleet."))}, card=card())
+    log("[service] traced round: " + json.dumps(row))
+    check(export.validate_chrome_trace(ct) == [] and busy > 0
+          and {"svc.drr_round", "svc.dispatch", "fleet.ask_batch",
+               "fleet.step"} <= set(bd),
+          f"service: traced round spans {sorted(bd)}")
+    check(out["compiles_traced"] == snap["n_fleet_compiles"]
+          == tsnap["n_fleet_compiles"],
+          f"service: programs {snap['n_fleet_compiles']} → "
+          f"{out['compiles_traced']} with the tracer on, "
+          f"{tsnap['n_fleet_compiles']} untraced")
+
+    # the guarded round: one check a program call, no trip, no program
+    before, after = out["guard_before"], out["guard_after"]
+    calls = (sum(after["n_block_programs"].values())
+             - sum(before["n_block_programs"].values()))
+    gst = nan_guard_stats(fs.fleet)
+    guard = dict(program_calls=calls, guard_checks=gst["n_guard_checks"],
+                 guard_ms=sum(ms for ms, _ in out["guard_spent"]),
+                 round_ms=out["guard_ms"], card=card())
+    log("[service] guarded round: " + json.dumps(guard))
+    check(gst["installed"] and gst["n_guard_checks"] == calls > 0
+          and after["n_fleet_compiles"] == snap["n_fleet_compiles"],
+          f"NaN guard: {gst} over {calls} program calls, programs "
+          f"{after['n_fleet_compiles']}")
+
+    # the Prometheus scrape, and the WAL timeline of the whole journal
+    final = svc.stats_snapshot()
+    reg = metrics.MetricsRegistry()
+    metrics.ingest_snapshot(reg, "bo_service", final)
+    text = reg.render_prometheus()
+    for t in tenants:
+        served = float(final["svc_tenants"][t.name]["served"])
+        check(f'repro_tenant_served{{component="bo_service",tenant='
+              f'"{t.name}"}} {served:g}' in text,
+              f"service: exposition lacks tenant {t.name}")
+    tl = export.timeline_from_journal(jdir)
+    check(export.validate_chrome_trace(tl) == []
+          and tl["otherData"]["n_records"] == fs.journal.seq,
+          "service: the journal's timeline does not validate")
+    spans = [e for e in tl["traceEvents"] if e["ph"] == "X"]
+    log(f"[service] exposition {len(text.splitlines())} lines, per-tenant "
+        f"gauges; timeline of {tl['otherData']['n_records']} journal "
+        f"records: {len(tl['traceEvents'])} events, {len(spans)} request "
+        f"spans, valid")
+    fs.journal.close()
+    twin.journal.close()
+    tmp.cleanup()
+
+    cli = service_overhead_cli()
+    ladder = service_ladder(c)
+    trip = service_nan_trip(c)
+    rec = service_recovery(c)
+    return dict(launches=launches, throughput=thr, traced=row, guard=guard,
+                ladder=ladder, nan_trip=trip, recovery=rec, overhead=cli)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found next to the script",
@@ -2717,6 +3394,7 @@ def main() -> int:
     phase_fleet_kernels(dev, err)
     fleet = phase_fleet(dev)
     fleet_t = fleet_timing(dev)
+    service = phase_service(dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2752,6 +3430,8 @@ def main() -> int:
             # the fleet path (slice 4): its launches, and the call at its
             # shape, S = 8 studies in one launch
             "fleet_launches": fleet["launches"][name],
+            # the BO service's GP rounds (slice 6), counted alone
+            "service_launches": service["launches"][name],
             # the quickstart twin's path (slice 5), counted alone
             "quickstart_launches": paper["launches"]["quickstart"][name],
             **fleet_t[key]})

@@ -505,6 +505,7 @@ _TRIAL_STATE_INV = {v: k for k, v in _TRIAL_STATE.items()}
 # the reference's posterior backends, as a journal it wrote names them
 _JAX_BACKENDS = {"xla": "cholesky", "pallas": "fused",
                  "pallas_interpret": "fused"}
+_REF_BACKENDS = {"cholesky": "xla", "fused": "pallas"}
 
 
 @dataclass
@@ -611,7 +612,8 @@ class FleetSampler:
                      if journal_dir is not None else None)
         if self.journal is not None and self.journal.seq == 0:
             # record 0 pins everything recover() needs to rebuild the
-            # fleet in an empty process (the reference's keys)
+            # fleet in an empty process (the reference's keys, and its
+            # backend names, so that its recover() reads this journal)
             self.journal.append({
                 "op": "config",
                 "lower": [sp.lower.tolist() for sp in spaces],
@@ -620,7 +622,7 @@ class FleetSampler:
                 "n_startup_trials": n_startup_trials,
                 "n_restarts": n_restarts, "pad_multiple": pad_multiple,
                 "gp_fit_restarts": gp_fit_restarts,
-                "posterior_backend": backend,
+                "posterior_backend": _REF_BACKENDS[backend],
                 "refit_interval": refit_interval,
                 "warm_start": warm_start, "max_studies": max_studies,
                 "max_queue": max_queue, "max_blocks": max_blocks,
