@@ -148,6 +148,29 @@ Slice 6 adds, in the same run:
               tripping on a poisoned block, and a 2-tenant service killed
               mid-journal and recovered with BOService.recover, bitwise;
               the "kernels" line adds K1–K4's service launches
+Slice 7 adds, in the same run:
+  - families  after serve: ServeEngine on qwen3-moe-30b-a3b (full width
+              and depth: 48 layers, 128 experts top-8, qk-norm; the
+              expert weights drawn in place, the init's peak memory
+              logged), chameleon-34b's backbone (full width, 4 of 48
+              layers) and recurrentgemma-9b (full width and depth: 12
+              (rec, rec, attn) triples and 2 recurrent layers, window
+              2048), bf16, each with serve's traffic: parameters counted
+              by element, every request decodes 32 tokens, K6 launches =
+              attention layers × steps, one program; tokens/s, ms a step,
+              steady decode's K6, product and busy device ms and idle
+              share beside the step's bound (its weight bytes over 3.35
+              TB/s); decode vs forward logits over 64 tokens (qwen3 at
+              capacity factor 100; a routing flip must be a near tie);
+              staggered and chunked prefill bitwise solo (chameleon;
+              qwen3 at capacity factor 100; not recurrentgemma, whose
+              reference lacks the property: ROADMAP C17); the card
+              against the CPU on each reduced config in f32 (qwen3 at the
+              published capacity factor, recurrentgemma past its window
+              of 64)
+  - timing    K6 at the qwen3 and recurrentgemma serving steps beside its
+              plain version, SDPA and the bound; the "kernels" line adds
+              K6's launches on the three paths and these rows
 Every timing line carries the card's name and power limit.
 Then it prints the card, a "kernels" JSON line (each "ms" with its
 source, "ms_from"; K6 at the serving step's shape), and the result line.
@@ -1327,12 +1350,13 @@ def decode_inputs(dev, b, sk, nh, kh, hd, dtype, seed, idle=True):
             torch.from_numpy(kv_pos).to(dev))
 
 
-def serving_step_inputs(dev, seed):
+def serving_step_inputs(dev, seed, nh=24, kh=8, hd=128):
     """The serving path's K6 call in steady decode: 8 slots of a 512-slot
     bf16 cache at positions 64–104 (row r at 64 + 40r/7), each having
-    written positions 0..q_pos into slots 0..q_pos, the rest −1."""
+    written positions 0..q_pos into slots 0..q_pos, the rest −1; llama3.2-3b's
+    heads by default."""
     import torch
-    q, k, v, _, _ = decode_inputs(dev, 8, 512, 24, 8, 128, torch.bfloat16,
+    q, k, v, _, _ = decode_inputs(dev, 8, 512, nh, kh, hd, torch.bfloat16,
                                   seed, idle=False)
     q_pos = torch.tensor([[64 + 40 * r // 7] for r in range(8)],
                          dtype=torch.int32, device=dev)
@@ -1627,14 +1651,16 @@ def serve_requests(rng, vocab, n, lo, hi, new):
         for i in range(n)]
 
 
-def solo_and_shared(params, cfg, slots, max_len):
+def solo_and_shared(params, cfg, slots, max_len, lens=(40, 23)):
     """Staggered admission and chunked prefill decode bitwise what each
-    request decodes alone, with the same slot count."""
+    request decodes alone (prompts of ``lens`` tokens, 12 new), with the
+    same slot count.  (Not for the hybrid family, where the reference
+    lacks the property: ROADMAP C17.)"""
     import numpy as np
     from repro_torch.serve.engine import Request, ServeEngine
     rng = np.random.default_rng(SERVE_SEED + 1)
-    pa = rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
-    pb = rng.integers(0, cfg.vocab_size, 23).astype(np.int32)
+    pa = rng.integers(0, cfg.vocab_size, lens[0]).astype(np.int32)
+    pb = rng.integers(0, cfg.vocab_size, lens[1]).astype(np.int32)
     solo = {}
     for uid, prompt in ((0, pa), (1, pb)):
         e = ServeEngine(params, cfg, slots=slots, max_len=max_len)
@@ -1646,8 +1672,8 @@ def solo_and_shared(params, cfg, slots, max_len):
         e.step()
     e.submit(Request(uid=1, prompt=pb, max_new_tokens=12))
     stag = {r.uid: r.out_tokens for r in e.run_until_drained()}
-    check(stag == solo, f"staggered admission differs from solo: {stag} "
-          f"vs {solo}")
+    check(stag == solo, f"{cfg.name}: staggered admission differs from "
+          f"solo: {stag} vs {solo}")
     e = ServeEngine(params, cfg, slots=slots, max_len=max_len,
                     prefill_chunk=4)
     e.submit(Request(uid=0, prompt=pa, max_new_tokens=12))
@@ -1656,49 +1682,154 @@ def solo_and_shared(params, cfg, slots, max_len):
           "chunked prefill did not stop after 4 steps")
     e.submit(Request(uid=1, prompt=pb, max_new_tokens=12))
     chunk = {r.uid: r.out_tokens for r in e.run_until_drained()}
-    check(chunk == solo, f"chunked prefill differs from solo: {chunk} vs "
-          f"{solo}")
+    check(chunk == solo, f"{cfg.name}: chunked prefill differs from solo: "
+          f"{chunk} vs {solo}")
     check(e.stats["compiles"] == 1, "chunked engine: more than one program")
-    log(f"[serve] staggered admission and chunked prefill (chunk 4) decode "
+    log(f"[serve] {cfg.name}: staggered admission and chunked prefill "
+        f"(chunk 4) decode "
         f"bitwise what each request decodes alone ({slots} slots; prompts "
-        f"40 and 23 tokens, 12 new)")
+        f"{lens[0]} and {lens[1]} tokens, 12 new)")
+
+
+class RouterSpy:
+    """Records each MoE call's router probabilities (the port's
+    ``moe._route``); with ``pin`` (a forward's recorded calls, its
+    sequence length and layer count), a decode step's tokens take the
+    experts that forward chose for them, gated by the decode's own
+    probabilities: decode and forward then differ by rounding alone."""
+
+    def __init__(self, pin=None):
+        self.calls, self.pin = [], pin
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe as MOE
+        self._mod, self._inner = MOE, MOE._route
+
+        def spy(x_flat, router_w, k):
+            probs, gates, idx = self._inner(x_flat, router_w, k)
+            if self.pin is not None:
+                fwd, s, n = self.pin
+                step, layer = divmod(len(self.calls), n)
+                rows = torch.arange(x_flat.shape[0],
+                                    device=x_flat.device) * s + step
+                idx = torch.topk(fwd[layer][rows], k).indices
+                gates = torch.gather(probs, 1, idx)
+                gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            self.calls.append(probs)
+            return probs, gates, idx
+        MOE._route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._route = self._inner
+
+
+def routing_flips(fwd, dec, k):
+    """{token: (gap, drift, layer)} for every token whose top-k set
+    differs between two runs' (tokens, E) router probabilities a layer,
+    at the first layer where it does: the forward's gap p_k − p_(k+1)
+    there and the token's largest |Δp| between the runs."""
+    import torch
+    flips = {}
+    for layer, (a, b) in enumerate(zip(fwd, dec)):
+        top_a = torch.sort(torch.topk(a, k).indices, 1).values
+        top_b = torch.sort(torch.topk(b, k).indices, 1).values
+        for t in torch.nonzero((top_a != top_b).any(1))[:, 0].tolist():
+            if t not in flips:
+                srt = torch.sort(a[t], descending=True).values
+                flips[t] = (float(srt[k - 1] - srt[k]),
+                            float((a[t] - b[t]).abs().max()), layer)
+    return flips
 
 
 def decode_vs_forward(params, cfg, dev, s=64):
     """Step-by-step decode logits against teacher-forced forward logits
-    over ``s`` tokens, two rows, at full width in bf16; and the greedy
-    choices of the two."""
+    over ``s`` tokens, two rows, at full width in bf16, within 5e-2 of
+    max|logit|; and the greedy choices of the two.  With experts, bf16
+    rounding (the prefill's and a decode step's products differ) flips a
+    router's choice wherever two experts lie closer than that rounding,
+    and over 48 layers most tokens meet one: every such flip must be a
+    near tie (the forward's gap p_k − p_(k+1) at most twice the token's
+    |Δp| between the runs), and the 5e-2 holds for a second decode whose
+    tokens take the forward's experts (``RouterSpy(pin=...)``).  →
+    (rel, greedy agreement, the checked rel, flips)."""
+    import contextlib
     import torch
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 2)
     toks = torch.randint(0, cfg.vocab_size, (2, s), generator=g, device=dev)
-    with torch.no_grad():
-        hid, _ = lm.forward(params, cfg, toks)
-        ref = L.lm_logits(params["embed"], cfg, hid).float()
+    moe = cfg.is_moe
+
+    def decode(spy):
         cache = lm.init_cache(cfg, 2, s, device=dev)
         outs = []
-        for i in range(s):
-            lg, cache = lm.decode_step(params, cfg, toks[:, i:i + 1], cache,
-                                       torch.full((2,), i, dtype=torch.int32,
-                                                  device=dev))
-            outs.append(lg.float())
-    dec = torch.stack(outs, 1)
-    rel = float((dec - ref).abs().max() / ref.abs().max())
+        with spy or contextlib.nullcontext():
+            for i in range(s):
+                lg, cache = lm.decode_step(
+                    params, cfg, toks[:, i:i + 1], cache,
+                    torch.full((2,), i, dtype=torch.int32, device=dev))
+                outs.append(lg.float())
+        return torch.stack(outs, 1)
+
+    spy_f, spy_d = (RouterSpy(), RouterSpy()) if moe else (None, None)
+    with torch.no_grad():
+        with spy_f or contextlib.nullcontext():
+            hid, _ = lm.forward(params, cfg, toks)
+        ref = L.lm_logits(params["embed"], cfg, hid).float()
+        dec = decode(spy_d)
+        pinned = decode(RouterSpy(pin=(spy_f.calls, s, cfg.n_layers))) \
+            if moe else dec
+    scale = ref.abs().max()
+    rel = float((dec - ref).abs().max() / scale)
+    held = float((pinned - ref).abs().max() / scale)
     agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
-    check(bool(torch.isfinite(dec).all()), "decode logits not finite")
-    check(rel <= 5e-2, f"decode vs forward logits: rel {rel} > 5e-2")
-    log(f"[serve] decode vs forward logits over {s} tokens (bf16, full "
-        f"width): max |Δ| / max |logit| {rel:.3e} (≤5e-2); greedy agree "
-        f"{agree:.3f}")
-    return rel, agree
+    check(bool(torch.isfinite(dec).all() and torch.isfinite(pinned).all()),
+          "decode logits not finite")
+    flips = {}
+    if moe:
+        n = cfg.n_layers
+        # decode calls: step-major, layer-minor, (2, E) each → (2·s, E)
+        # a layer, in the forward's token order b·s + i
+        per_layer = [torch.stack(spy_d.calls[li::n], 1).reshape(2 * s, -1)
+                     for li in range(n)]
+        flips = routing_flips(spy_f.calls, per_layer,
+                              cfg.experts_per_token)
+        ratio = max((gap / drift for gap, drift, _ in flips.values()),
+                    default=0.0)
+        log(f"[serve] {cfg.name}: {len(flips)} of {2 * s} tokens flip a "
+            f"routing choice between forward and decode (first flip "
+            f"layers {sorted(f[2] for f in flips.values())}); largest "
+            f"gap / drift {ratio:.3f} (a near tie: ≤ 2)")
+        for t, (gap, drift, layer) in flips.items():
+            check(gap <= 2 * drift, f"{cfg.name}: token {t} flipped at "
+                  f"layer {layer} at a gap {gap} > 2 × drift {drift}: not "
+                  f"a near tie")
+    log(f"[serve] {cfg.name}: decode vs forward logits over {s} tokens "
+        f"(bf16, full width): max |Δ| / max |logit| {rel:.3e}"
+        + (f", {held:.3e} with the forward's experts pinned" if moe else "")
+        + f" (≤5e-2); greedy agree {agree:.3f}")
+    check(held <= 5e-2, f"{cfg.name}: decode vs forward logits: rel {held} "
+          f"> 5e-2")
+    return rel, agree, held, len(flips)
 
 
-def card_vs_cpu(dev):
-    """The port on the card against the port on the CPU, reduced
-    llama3.2-3b in f32 (TF32 off): forward logits within 1e-5 of
-    max|logit|, and a ServeEngine's greedy tokens equal, with K6 launched
-    n_layers times a step on the card."""
+def to_device(node, d):
+    """A parameter tree (dicts and lists of tensors) on device ``d``."""
+    if isinstance(node, dict):
+        return {k: to_device(v, d) for k, v in node.items()}
+    if isinstance(node, list):
+        return [to_device(v, d) for v in node]
+    return node.to(d)
+
+
+def card_vs_cpu(dev, arch=SERVE_ARCH, lens=(4, 12), new=6, max_len=64):
+    """The port on the card against the port on the CPU, ``arch``'s
+    reduced config in f32 (TF32 off): forward logits within 1e-5 of
+    max|logit|, and a ServeEngine's greedy tokens equal (7 requests of
+    ``lens`` prompt tokens and ``new`` new ones, 3 slots), with K6
+    launched once per attention layer a step on the card."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1706,17 +1837,9 @@ def card_vs_cpu(dev):
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine
-    cfg = get_config(SERVE_ARCH).reduced().replace(dtype="float32")
+    cfg = get_config(arch).reduced().replace(dtype="float32")
     cpu = lm.init_params(cfg, torch.Generator().manual_seed(SERVE_SEED))
-
-    def to(node, d):
-        if isinstance(node, dict):
-            return {k: to(v, d) for k, v in node.items()}
-        if isinstance(node, list):
-            return [to(v, d) for v in node]
-        return node.to(d)
-
-    card = to(cpu, dev)
+    card = to_device(cpu, dev)
     toks = torch.randint(0, cfg.vocab_size, (2, 48),
                          generator=torch.Generator().manual_seed(7))
     out = {}
@@ -1726,59 +1849,51 @@ def card_vs_cpu(dev):
             out[name] = L.lm_logits(p["embed"], cfg, hid).cpu()
     rel = float((out["cuda"] - out["cpu"]).abs().max()
                 / out["cpu"].abs().max())
-    check(rel <= 1e-5, f"card vs CPU forward logits: rel {rel} > 1e-5")
-    tokens = {}
+    check(rel <= 1e-5, f"{arch}: card vs CPU forward logits: rel {rel} > "
+          f"1e-5")
+    tokens, top = {}, 0
     for name, p in (("cpu", cpu), ("cuda", card)):
-        e = ServeEngine(p, cfg, slots=3, max_len=64)
+        e = ServeEngine(p, cfg, slots=3, max_len=max_len)
         for r in serve_requests(np.random.default_rng(3), cfg.vocab_size, 7,
-                                4, 12, 6):
+                                *lens, new):
             e.submit(r)
         before = FK.LAUNCHES["flash_attention_fwd"]
         tokens[name] = {r.uid: r.out_tokens for r in e.run_until_drained()}
         launched = FK.LAUNCHES["flash_attention_fwd"] - before
-        want = cfg.n_layers * e.stats["steps"] if name == "cuda" else 0
+        want = lm.attention_layers(cfg) * e.stats["steps"] \
+            if name == "cuda" else 0
         check(launched == want == e.stats["flash_launches"],
-              f"reduced engine on {name}: {launched} K6 launches, want "
-              f"{want}")
-    check(tokens["cuda"] == tokens["cpu"], "card and CPU engines decode "
-          "different tokens")
-    log(f"[serve] card vs CPU, reduced {SERVE_ARCH} f32: forward logits rel "
+              f"reduced {arch} engine on {name}: {launched} K6 launches, "
+              f"want {want}")
+        top = max(top, int(e.positions.max()))
+    check(tokens["cuda"] == tokens["cpu"], f"{arch}: card and CPU engines "
+          f"decode different tokens")
+    if cfg.window:
+        check(top > cfg.window, f"{arch}: the ring never wrapped")
+    log(f"[serve] card vs CPU, reduced {arch} f32: forward logits rel "
         f"{rel:.3e} (≤1e-5); ServeEngine greedy tokens equal (7 requests, "
-        f"3 slots)")
+        f"3 slots, prompts {lens[0]}-{lens[1]}, {new} new, last position "
+        f"{top}" + (f", window {cfg.window}" if cfg.window else "") + ")")
     return rel
 
 
-def phase_serve(dev):
-    """ServeEngine on llama3.2-3b at full width (bf16, 28 layers, weights
-    drawn on the card from the seed), 8 slots, max_len 512: 16 requests,
-    prompts of 16–128 tokens, 32 new tokens each, the queue refilling
-    slots as requests finish.  K6 launches = 28 × steps, one program."""
+def serve_traffic(params, cfg, slots, max_len, tag):
+    """16 requests (prompts of 16–128 tokens, 32 new tokens each) through
+    a ServeEngine, the queue refilling slots as requests finish: every
+    request decodes 32 tokens inside the vocabulary, K6 launches = the
+    attention layers × steps, one program.  → (engine, row, K6
+    launches)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash import kernel as FK
     from repro_torch.models import lm
-    from repro_torch.models.config import param_counts
     from repro_torch.serve.engine import ServeEngine
-
-    cfg = get_config(SERVE_ARCH)
-    slots, max_len = 8, 512
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
-    params = lm.init_params(cfg, gen)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = lm.param_bytes(params) // 2
-    want = param_counts(cfg)["total"] + (2 * cfg.n_layers + 1) * cfg.d_model
-    check(n_params == want, f"{n_params} parameters, want {want}")
     eng = ServeEngine(params, cfg, slots=slots, max_len=max_len)
-    cache_mb = sum(t.numel() * t.element_size()
-                   for t in eng.cache.values()) / 1e6
     reqs = serve_requests(np.random.default_rng(SERVE_SEED), cfg.vocab_size,
                           16, 16, 128, 32)
     for r in reqs:
         eng.submit(r)
-
+    n_attn = lm.attention_layers(cfg)
     FK.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1788,28 +1903,34 @@ def phase_serve(dev):
     launches = FK.launch_counts()["flash_attention_fwd"]
     st = dict(eng.stats)
     check(len(done) == 16 and all(len(r.out_tokens) == 32 for r in done),
-          "not every request decoded 32 tokens")
+          f"{tag}: not every request decoded 32 tokens")
     check(all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens),
-          "a token id out of the vocabulary")
-    check(launches == cfg.n_layers * st["steps"] == st["flash_launches"],
-          f"K6 launches {launches} != {cfg.n_layers} × {st['steps']} steps")
-    check(st["compiles"] == 1, f"{st['compiles']} decode programs")
+          f"{tag}: a token id out of the vocabulary")
+    check(launches == n_attn * st["steps"] == st["flash_launches"],
+          f"{tag}: K6 launches {launches} != {n_attn} × {st['steps']} steps")
+    check(st["compiles"] == 1, f"{tag}: {st['compiles']} decode programs")
     row = dict(arch=cfg.name, slots=slots, max_len=max_len, requests=16,
                prompt_lens=[len(r.prompt) for r in reqs],
                steps=st["steps"], tokens=st["tokens"], wall_s=wall,
                tokens_per_s=st["tokens"] / wall,
                ms_per_step=wall / st["steps"] * 1e3,
-               param_gb=lm.param_bytes(params) / 1e9, n_params=n_params,
-               cache_mb=cache_mb, init_s=init_s, k6_launches=launches,
-               compiles=st["compiles"])
-    log("[serve] " + json.dumps(on_card(row)))
+               param_gb=lm.param_bytes(params) / 1e9,
+               cache_mb=st["cache_bytes"] / 1e6, attention_layers=n_attn,
+               k6_launches=launches, compiles=st["compiles"])
+    return eng, row, launches
 
-    # device time of steady decode steps: 8 slots decoding (prompts of 64)
-    rng = np.random.default_rng(SERVE_SEED + 3)
-    for r in serve_requests(rng, cfg.vocab_size, 8, 64, 64, 200):
+
+def steady_decode(eng, cfg, tag):
+    """Device time of steady decode steps: 8 slots decoding (prompts of
+    64 tokens), 20 steps traced and 20 more untraced: K6, matrix-product
+    and busy device ms a step, host ms a step, the idle share."""
+    import numpy as np
+    import torch
+    tokens0 = eng.stats["tokens"]
+    for r in serve_requests(np.random.default_rng(SERVE_SEED + 3),
+                            cfg.vocab_size, 8, 64, 64, 200):
         eng.submit(r)
-    while eng._prefilling or eng.queue or not eng.stats["tokens"] > \
-            st["tokens"]:
+    while eng._prefilling or eng.queue or not eng.stats["tokens"] > tokens0:
         eng.step()
     steps0 = eng.stats["steps"]
     with card_trace() as prof:
@@ -1820,31 +1941,216 @@ def phase_serve(dev):
         traced_ms = (time.perf_counter() - t0) * 1e3
     n = eng.stats["steps"] - steps0
     k6_us, gemm_us, busy_us = serve_device_us(prof)
-    check(k6_us > 0 and busy_us > 0, "profiler saw no K6 device time")
+    check(k6_us > 0 and busy_us > 0, f"{tag}: profiler saw no K6 device "
+          f"time")
     t0 = time.perf_counter()
     for _ in range(20):
         eng.step()
     torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t0) * 1e3
-    brk = dict(steps=n, k6_device_ms_per_step=k6_us / 1e3 / n,
-               gemm_device_ms_per_step=gemm_us / 1e3 / n,
-               device_busy_ms_per_step=busy_us / 1e3 / n,
-               traced_ms_per_step=traced_ms / n,
-               untraced_ms_per_step=untraced_ms / 20,
-               idle_share_est=max(0.0, 1.0 - busy_us / 1e3 / untraced_ms
-                                  * 20 / n),
-               positions=[int(p) for p in eng.positions])
+    return dict(steps=n, k6_device_ms_per_step=k6_us / 1e3 / n,
+                gemm_device_ms_per_step=gemm_us / 1e3 / n,
+                device_busy_ms_per_step=busy_us / 1e3 / n,
+                traced_ms_per_step=traced_ms / n,
+                untraced_ms_per_step=untraced_ms / 20,
+                idle_share_est=max(0.0, 1.0 - busy_us / 1e3 / untraced_ms
+                                   * 20 / n),
+                positions=[int(p) for p in eng.positions])
+
+
+def phase_serve(dev):
+    """ServeEngine on llama3.2-3b at full width (bf16, 28 layers, weights
+    drawn on the card from the seed), 8 slots, max_len 512: 16 requests,
+    prompts of 16–128 tokens, 32 new tokens each, the queue refilling
+    slots as requests finish.  K6 launches = 28 × steps, one program."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.config import param_counts
+
+    cfg = get_config(SERVE_ARCH)
+    slots, max_len = 8, 512
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_numel(params)
+    want = param_counts(cfg)["total"] + (2 * cfg.n_layers + 1) * cfg.d_model
+    check(n_params == want, f"{n_params} parameters, want {want}")
+    eng, row, launches = serve_traffic(params, cfg, slots, max_len, "serve")
+    row.update(n_params=n_params, init_s=init_s)
+    log("[serve] " + json.dumps(on_card(row)))
+    brk = steady_decode(eng, cfg, "serve")
     log("[serve] steady decode, 8 slots at positions ~64-104: "
         + json.dumps(on_card(brk)))
     row.update(steady=brk)
     del eng
     solo_and_shared(params, cfg, slots, max_len)
     row["decode_vs_forward_rel"], row["decode_vs_forward_greedy_agree"] = \
-        decode_vs_forward(params, cfg, dev)
+        decode_vs_forward(params, cfg, dev)[:2]
     del params
     torch.cuda.empty_cache()
     row["card_vs_cpu_rel"] = card_vs_cpu(dev)
     return row, launches
+
+
+# ------------------------------- slice 7: the moe, vlm and hybrid families
+# (arch, layers kept (None: all), capacity factor of the bitwise
+# staggered/chunked-equals-solo check (None: published; "skip": the
+# reference lacks the property, ROADMAP C17), card-vs-CPU traffic:
+# (prompt lengths, new tokens, max_len); hybrid wraps its reduced window
+# of 64)
+FAMILIES = (
+    ("qwen3-moe-30b-a3b", None, 100.0, ((4, 12), 6, 64)),
+    ("chameleon-34b", 4, None, ((4, 12), 6, 64)),
+    ("recurrentgemma-9b", None, "skip", ((40, 60), 40, 128)),
+)
+
+
+def expected_params(cfg):
+    """Parameters the port draws for ``cfg``: ``param_counts`` plus what
+    it leaves out: the norm scales (and layernorm biases), qk-norm
+    scales, and for hybrid the RG-LRU gate matrices (2·W² − W a recurrent
+    layer beyond its 3·W) and GeGLU's gate projection (d·ff a layer)."""
+    from repro_torch.models import lm
+    from repro_torch.models.config import param_counts
+    d, n = cfg.d_model, cfg.n_layers
+    want = param_counts(cfg)["total"] \
+        + (2 * n + 1) * d * (2 if cfg.norm == "layernorm" else 1)
+    if cfg.qk_norm:
+        want += 2 * cfg.head_dim * n
+    if cfg.family == "hybrid":
+        n_rec, w = n - lm.hybrid_layout(cfg)[0], cfg.lru_width
+        want += n_rec * (2 * w * w - w)
+        if cfg.activation == "geglu":
+            want += n * d * cfg.d_ff
+    return want
+
+
+def step_weight_bytes(params, cfg, slots):
+    """Weight bytes a decode step reads: every parameter but the token
+    table, of which it reads the slots' rows.  Every expert counts: the
+    reference's formulation runs all E experts each step."""
+    from repro_torch.models import lm
+    tok = params["embed"]["tok"]
+    return (lm.param_bytes(params) - tok.numel() * tok.element_size()
+            + slots * cfg.d_model * tok.element_size())
+
+
+def phase_serve_families(dev, families=FAMILIES):
+    """ServeEngine on qwen3-moe-30b-a3b (full width and depth),
+    chameleon-34b's backbone (full width, 4 layers) and recurrentgemma-9b
+    (full width and depth), bf16, weights drawn on the card from the
+    seed, each with phase_serve's traffic: K6 launches = attention layers
+    × steps, one program; tokens/s, ms a step and steady decode's device
+    ms (K6, products, busy) and idle share beside the step's bound (its
+    weight bytes over the HBM rate); decode vs forward logits (qwen3 at
+    capacity factor 100); staggered and chunked prefill bitwise solo where
+    the reference has that property; the card against the CPU on each
+    reduced config.  → ({arch: row}, {arch: K6 launches})."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    rows, launches = {}, {}
+    for arch, layers, solo_cf, cpu_traffic in families:
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
+        slots, max_len = 8, 512
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SERVE_SEED))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        peak_init = torch.cuda.max_memory_allocated()
+        n_params = lm.param_numel(params)
+        want = expected_params(cfg)
+        check(n_params == want, f"{arch}: {n_params} parameters, want {want}")
+        eng, row, launches[arch] = serve_traffic(params, cfg, slots, max_len,
+                                                 arch)
+        wbytes = step_weight_bytes(params, cfg, slots)
+        row.update(n_params=n_params, init_s=init_s,
+                   init_peak_gb=peak_init / 1e9,
+                   layers_cut_from=None if layers is None
+                   else get_config(arch).n_layers,
+                   step_weight_gb=wbytes / 1e9,
+                   step_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3)
+        log(f"[families] {arch}: " + json.dumps(on_card(row)))
+        brk = steady_decode(eng, cfg, arch)
+        brk["step_bound_ms"] = row["step_bound_ms"]
+        log(f"[families] {arch} steady decode, 8 slots at positions "
+            f"~64-104: " + json.dumps(on_card(brk)))
+        row.update(steady=brk)
+        del eng
+        dcfg = cfg.replace(moe_capacity_factor=100.0) if cfg.is_moe else cfg
+        (row["decode_vs_forward_rel"], row["decode_vs_forward_greedy_agree"],
+         row["decode_vs_forward_held_rel"], row["routing_flips"]) = \
+            decode_vs_forward(params, dcfg, dev)
+        if solo_cf == "skip":
+            log(f"[families] {arch}: staggered admission is not checked "
+                f"against solo runs: in the reference an idle row's token "
+                f"advances a live slot's recurrent state (ROADMAP C17)")
+        else:
+            scfg = cfg if solo_cf is None else cfg.replace(
+                moe_capacity_factor=solo_cf)
+            solo_and_shared(params, scfg, slots, max_len, lens=(24, 13))
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        torch.cuda.empty_cache()
+        lens, new, cpu_len = cpu_traffic
+        row["card_vs_cpu_rel"] = card_vs_cpu(dev, arch, lens, new, cpu_len)
+        row["phase_s"] = time.perf_counter() - t_phase
+        log(f"[families] {arch}: {row['phase_s']:.1f} s, peak "
+            f"{row['peak_gb']:.1f} GB allocated")
+        rows[arch] = row
+    return rows, launches
+
+
+def phase_families_timing(dev):
+    """K6 at the serving-step shapes of qwen3-moe-30b-a3b (8 slots, NH=32,
+    KH=4, hd=128) and recurrentgemma-9b (NH=16, KH=1, hd=256, window
+    2048), positions 64–104 of a 512-slot bf16 cache: device and call ms,
+    its plain version, SDPA (boolean mask, enable_gqa; timed only) and
+    the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash.ref import (flash_attention_fwd_ref,
+                                               position_mask)
+    rows = {}
+    for arch, nh, kh, hd, window in (("qwen3-moe-30b-a3b", 32, 4, 128, None),
+                                     ("recurrentgemma-9b", 16, 1, 256, 2048)):
+        q, k, v, qp, kp = serving_step_inputs(dev, 64, nh, kh, hd)
+        mask = position_mask(qp, kp, True, window)[:, None]
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        calls = {
+            "flash": lambda: FK.flash_attention_fwd(q, k, v, qp, kp,
+                                                    window=window),
+            "flash_plain": lambda: flash_attention_fwd_ref(q, k, v, qp, kp,
+                                                           window=window),
+            "flash_sdpa": lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)}
+        row = dict(shape=f"{arch} serving step B=8 Sk=512 NH={nh} KH={kh} "
+                   f"hd={hd} window={window} positions 64-104")
+        for key, fn in calls.items():
+            row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(fn, 50)
+            row[f"{key}_call_ms"] = cuda_time_ms(fn, 50)
+        row["flash_bound_ms"], row["flash_bound_by"] = flash_bound_ms(
+            *flash_cost(q, k, qp, kp, window=window))
+        row["flash_kernels"] = flash_kernels(calls["flash"])
+        check(row["flash_kernels"] == ["flash_fwd_merge_kernel",
+                                       "flash_fwd_split_kernel"],
+              f"{row['shape']}: K6 ran {row['flash_kernels']}")
+        ref = flash_attention_fwd_ref(q, k, v, qp, kp, window=window)
+        e, ok = flash_err(calls["flash"](), ref)
+        check(ok, f"{row['shape']}: K6 off its plain version by {e}")
+        row["max_abs_err"] = e
+        rows[arch] = row
+        log("[timing] " + json.dumps(on_card(row)))
+    return rows
 
 
 def kernel_us(fn, prefix, iters=3):
@@ -3388,12 +3694,21 @@ def main() -> int:
     phase_ask_breakdown(asker, obj2, ask_rows)
     timing = phase_timing(dev, state)
     gram_timing = phase_gram_timing(dev)
+    log(f"[time] slices 1-2 and the BO timing: "
+        f"{time.perf_counter() - t_start:.1f} s")
     serve_row, launches["flash_attention_fwd"] = phase_serve(dev)
+    log(f"[time] serve: {time.perf_counter() - t_start:.1f} s")
+    _, families_launches = phase_serve_families(dev)
+    log(f"[time] families: {time.perf_counter() - t_start:.1f} s")
     timing3 = phase_slice3_timing(dev)
+    families_t = phase_families_timing(dev)
     paper = phase_paper(dev, state, sampler)
+    log(f"[time] slice 3 and 7 timing, paper: "
+        f"{time.perf_counter() - t_start:.1f} s")
     phase_fleet_kernels(dev, err)
     fleet = phase_fleet(dev)
     fleet_t = fleet_timing(dev)
+    log(f"[time] fleet: {time.perf_counter() - t_start:.1f} s")
     service = phase_service(dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3457,8 +3772,17 @@ def main() -> int:
             # calls, launch gaps included
             "ms_from": row[f"{key}_ms_from"],
             "library_ms_from": row[f"{lib}_ms_from"] if lib else None,
-            # the serve twin's path (slice 5), counted alone
-            **({"serve_twin_launches": paper["launches"]["serve"]}
+            # the serve twin's path (slice 5), counted alone; the moe,
+            # vlm and hybrid serving paths (slice 7), each counted alone,
+            # and K6 at the qwen3 and recurrentgemma serving steps
+            **({"serve_twin_launches": paper["launches"]["serve"],
+                "families_launches": families_launches,
+                "families_timing": {
+                    a: {key: r[key] for key in (
+                        "flash_ms", "flash_ms_from", "flash_plain_ms",
+                        "flash_bound_ms", "flash_bound_by", "flash_sdpa_ms",
+                        "max_abs_err")}
+                    for a, r in families_t.items()}}
                if name == "flash_attention_fwd" else {})})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

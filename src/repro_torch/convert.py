@@ -17,7 +17,7 @@ from repro_torch.engine.engine import EvalEngine
 from repro_torch.engine.fleet import FleetEngine, _Block, _Study
 from repro_torch.gp.gpr import GPState
 from repro_torch.gp.kernels import KernelParams
-from repro_torch.models.lm import unstack_layers
+from repro_torch.models.lm import tensors, unstack_layers
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
@@ -123,10 +123,13 @@ def _lm_tensor(a, dev: torch.device) -> torch.Tensor:
 
 def lm_params_from_numpy(tree, device=None):
     """The port's LM parameters from the JAX package's unboxed parameter
-    tree as numpy arrays (``{"embed", "final_norm", "blocks"}``, the blocks
-    stacked over layers); ``blocks`` becomes one dictionary per layer of
-    views.  On ``device``: ``None`` means the card, as at every entry
-    point (``repro_torch.resolve_device``), and raises without one."""
+    tree as numpy arrays: ``{"embed", "final_norm", "blocks"}`` (dense,
+    moe, vlm) or ``{"embed", "final_norm", "triples", "tail"}`` (hybrid),
+    each layer stack stacked over layers.  Every stack becomes one nested
+    dictionary per layer of views; every dtype is kept (the router and
+    ``lambda_param`` stay float32 in a bfloat16 model).  On ``device``:
+    ``None`` means the card, as at every entry point
+    (``repro_torch.resolve_device``), and raises without one."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -134,8 +137,10 @@ def lm_params_from_numpy(tree, device=None):
             return {k: conv(v) for k, v in node.items()}
         return _lm_tensor(node, dev)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    blocks = conv(tree["blocks"])
-    n = next(iter(next(iter(blocks.values())).values())).shape[0]
-    out["blocks"] = unstack_layers(blocks, n)
+    out = {}
+    for key, node in tree.items():
+        out[key] = conv(node)
+        if key in ("blocks", "triples", "tail"):
+            n = next(tensors(out[key])).shape[0]
+            out[key] = unstack_layers(out[key], n)
     return out

@@ -3,6 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       [--reduced] [--device cpu] --requests 12 --prompt-len 8 --max-new 16
 
+Serves the dense, moe (qwen3-moe-30b-a3b, dbrx-132b), vlm (chameleon-34b's
+backbone) and hybrid (recurrentgemma-9b) families; ssm and encdec wait
+for ROADMAP A12.
+
 Counterpart of ``repro/launch/serve.py``.  Runs on the card unless
 ``--device cpu`` is given (and fails without one).  Weights are random,
 drawn on the device from ``--seed``.
@@ -38,8 +42,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.family == "encdec":
-        raise SystemExit("encdec serving waits for ROADMAP A12")
+    if cfg.family in ("encdec", "ssm"):
+        raise SystemExit(f"{cfg.family} serving waits for ROADMAP A12")
     dev = resolve_device(args.device)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -61,7 +65,8 @@ def main(argv=None):
           f"{eng.stats['tokens']} tokens, {eng.stats['steps']} steps, "
           f"{wall:.1f}s ({eng.stats['tokens'] / max(wall, 1e-9):.1f} tok/s), "
           f"compiles {eng.stats['compiles']}, "
-          f"flash launches {eng.stats['flash_launches']}")
+          f"flash launches {eng.stats['flash_launches']}, "
+          f"cache {eng.stats['cache_bytes'] / 1e6:.1f} MB")
     for r in done[:4]:
         print(f"  uid={r.uid} out={r.out_tokens}")
     return eng

@@ -4,8 +4,9 @@ Counterpart of ``repro/models/config.py`` (a copy: the port imports
 nothing of the JAX package).  One frozen dataclass covers all ten assigned
 families; family-specific fields are zero/empty when unused.  Exact
 assigned configs live in ``repro_torch/configs/<id>.py``; reduced smoke
-variants come from ``reduced()``.  The port's model runs the dense family
-without experts; the others are data here until ROADMAP A12 ports them.
+variants come from ``reduced()``.  The port's model runs the dense, moe,
+vlm and hybrid families; ssm and encdec are data here until ROADMAP A12
+ports them.
 The JAX config's runtime options (sharding, scan, remat, XLA attention
 chunk) are XLA settings with no counterpart here, so they are not copied.
 """

@@ -1,7 +1,7 @@
-"""Transformer building blocks of the dense LM: norms, RoPE, GQA attention,
-MLP, embeddings.
+"""Transformer building blocks of the LM: norms, RoPE, GQA attention (with
+qk-norm and the local-window ring cache), MLP, embeddings.
 
-Counterpart of the dense subset of ``repro/models/layers.py``.  Parameters
+Counterpart of ``repro/models/layers.py``.  Parameters
 are plain dictionaries of tensors with the JAX package's names and layouts
 (``wq`` (d, heads, hd), ``wo`` (heads, hd, d), ...), drawn from an explicit
 ``torch.Generator`` on its device with the JAX package's distributions.
@@ -35,9 +35,10 @@ def _normal(gen: torch.Generator, shape, dtype) -> Tensor:
 
 def _dense_init(gen: torch.Generator, shape, dtype, in_axis_size: int
                 ) -> Tensor:
-    """normal · fan_in^−½, the product taken in ``dtype`` (as JAX's)."""
+    """normal · fan_in^−½, the product taken in ``dtype`` (as JAX's), in
+    place: a stacked expert weight is allocated once."""
     scale = torch.tensor(in_axis_size ** -0.5, dtype=dtype, device=gen.device)
-    return _normal(gen, shape, dtype) * scale
+    return _normal(gen, shape, dtype).mul_(scale)
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +128,19 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
         "wv": _dense_init(gen, lead + (d, nkv, hd), dtype, d),
         "wo": _dense_init(gen, lead + (nh, hd, d), dtype, nh * hd),
     }
+    if cfg.qk_norm:
+        dev = gen.device
+        p["q_norm"] = torch.ones(lead + (hd,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones(lead + (hd,), dtype=dtype, device=dev)
     return p
+
+
+def _qk_normalize(x: Tensor, scale: Tensor) -> Tensor:
+    """RMS-normalize each head's vector: statistics and scale in float32,
+    eps 1e-6, cast back to x's dtype."""
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6)
+    return (xf * scale.float()).to(x.dtype)
 
 
 def _project(x: Tensor, w: Tensor) -> Tensor:
@@ -137,12 +150,14 @@ def _project(x: Tensor, w: Tensor) -> Tensor:
 
 
 def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
-                    *, cache: Optional[Params] = None,
+                    *, window: int = 0, cache: Optional[Params] = None,
                     cache_index: Optional[Tensor] = None,
                     tables: Optional[RopeTables] = None
                     ) -> Tuple[Tensor, Optional[Params]]:
-    """Causal attention sublayer of the dense LM.  x: (B, S, D); positions:
-    (B, S) int32.
+    """Causal attention sublayer.  x: (B, S, D); positions: (B, S) int32;
+    ``window``: local attention over the last ``window`` positions (0 =
+    none).  With ``cfg.qk_norm``, q and k are RMS-normalized per head
+    before rope.
 
     Without ``cache``: prefill / teacher-forced self-attention.  With
     ``cache`` (``k``/``v`` (B, L, KH, hd), ``pos`` (B, L)): write this
@@ -150,14 +165,18 @@ def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     0-dim ``cache_index`` writes every row at that slot; a (B,) one writes
     row b at its own slot (S must be 1), and a row with index < 0 is idle:
     it writes into the trash slot L−1 with position −1, which no query
-    sees.  ``tables``: this step's rope tables (computed here if None).
-    (The local-window ring cache of the hybrid family waits for ROADMAP
-    A12.)
+    sees.  With a window the cache is a ring (``init_attn_cache(window=)``)
+    and index i writes slot i mod L; ``pos`` keeps the masking exact
+    across wraparound.  ``tables``: this step's rope tables (computed here
+    if None).
     """
     b, s, _ = x.shape
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
+    if cfg.qk_norm:
+        q = _qk_normalize(q, p["q_norm"])
+        k = _qk_normalize(k, p["k_norm"])
     if tables is None:
         tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                              cfg.rope_fraction)
@@ -166,14 +185,15 @@ def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     v = v.contiguous()
 
     if cache is None:
-        out = attention(q, k, v, positions, positions)
+        out = attention(q, k, v, positions, positions, window=window)
     else:
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
         length = ck.shape[1]
         idx = cache_index
         if not torch.is_tensor(idx) or idx.ndim == 0:
             # uniform write index, clamped as lax.dynamic_update_slice does
-            slot = min(max(int(idx), 0), length - s)
+            slot = int(idx) % length if window else int(idx)
+            slot = min(max(slot, 0), length - s)
             ck[:, slot:slot + s] = k.to(ck.dtype)
             cv[:, slot:slot + s] = v.to(cv.dtype)
             cpos[:, slot:slot + s] = positions
@@ -181,12 +201,14 @@ def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
             if s != 1:
                 raise ValueError("a per-row cache_index needs single-token "
                                  "steps")
-            slot = torch.where(idx >= 0, idx, length - 1)
+            slot = torch.where(idx >= 0, idx % length if window else idx,
+                               length - 1)
             rows = torch.arange(b, device=x.device)
             ck[rows, slot] = k[:, 0].to(ck.dtype)
             cv[rows, slot] = v[:, 0].to(cv.dtype)
             cpos[rows, slot] = positions[:, 0]
-        out = attention(q, ck, cv, positions, cpos)
+        out = attention(q, ck, cv, positions, cpos, window=window)
+        out = _idle_rows_mean_v(out, cv, positions)
         cache = {"k": ck, "v": cv, "pos": cpos}
 
     wo = p["wo"]
@@ -194,15 +216,31 @@ def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     return y, cache
 
 
+def _idle_rows_mean_v(out: Tensor, cv: Tensor, positions: Tensor) -> Tensor:
+    """``attention_xla``'s rule for a query that sees no key (ROADMAP C9):
+    a uniform softmax over the whole cache, i.e. the mean of v.  In a
+    decode step those are exactly the idle rows (position −1; a live row
+    sees its own key), so K6's 0 there is replaced.  An idle row's output
+    reaches live rows through the MoE capacity it takes and, in the
+    hybrid family, the recurrent states it advances (C17)."""
+    nh, kh = out.shape[2], cv.shape[2]
+    vmean = cv.mean(1, dtype=torch.float32).repeat_interleave(nh // kh, 1)
+    return torch.where(positions[:, :, None, None] < 0,
+                       vmean[:, None].to(out.dtype), out)
+
+
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                    lead: Tuple[int, ...] = (), device=None) -> Params:
-    """Preallocated KV cache; ``pos`` holds each slot's absolute position
-    (−1 = empty)."""
-    shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+                    lead: Tuple[int, ...] = (), device=None,
+                    window: int = 0) -> Params:
+    """Preallocated KV cache.  Local-attention layers bound it by
+    ``window`` (a ring of min(max_len, window) slots); ``pos`` holds each
+    slot's absolute position (−1 = empty)."""
+    length = min(max_len, window) if window else max_len
+    shape = lead + (batch, length, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full(lead + (batch, max_len), -1, dtype=torch.int32,
+        "pos": torch.full(lead + (batch, length), -1, dtype=torch.int32,
                           device=device),
     }
 

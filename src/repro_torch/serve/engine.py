@@ -10,12 +10,14 @@ Prompts are fed one token a step through the same decode step, each slot
 from its own offset; ``prefill_chunk`` caps the prefill steps a ``step()``
 call may run.
 
-The engine owns its KV cache, preallocated on the parameters' device.  The
+The engine owns its decode cache (a KV cache, or for the hybrid family
+recurrent states and local-window rings), preallocated on the parameters'
+device; ``stats["cache_bytes"]`` is its size, every nested leaf.  The
 step is a :class:`~repro_torch.engine.cache.CountingJit` program, so
 ``stats["compiles"]`` counts its input signatures and must stay 1 in
 steady state.  ``stats["flash_launches"]`` counts the flash-attention
-kernel launches the steps made (one per layer per step on the card, 0 on
-the CPU).  The greedy argmax runs on the device; only the slots' next
+kernel launches the steps made (one per attention layer per step on the
+card, 0 on the CPU).  The greedy argmax runs on the device; only the slots' next
 token ids come back to the host.
 """
 from __future__ import annotations
@@ -68,7 +70,9 @@ class ServeEngine:
             name="decode_step")
         self._prefilling: set = set()     # slots mid-prefill (per-slot pos)
         self.stats: Dict[str, Any] = {"steps": 0, "tokens": 0, "wall": 0.0,
-                                      "compiles": 0, "flash_launches": 0}
+                                      "compiles": 0, "flash_launches": 0,
+                                      "cache_bytes": lm.cache_bytes(
+                                          self.cache)}
 
     # ---------------------------------------------------------------- api
     def submit(self, req: Request):

@@ -939,6 +939,15 @@ def test_kvp_rows_bitwise_at_any_q_on_card(cuda, n, d):
     assert torch.equal(VK.kvp_fwd(*args), full)
 
 
+def to_device(node, dev):
+    """A parameter tree (dicts and lists of tensors) on ``dev``."""
+    if isinstance(node, dict):
+        return {k: to_device(v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [to_device(v, dev) for v in node]
+    return node.to(dev)
+
+
 @pytest.mark.cuda
 def test_reduced_serve_engine_on_card(cuda):
     """The reduced llama3.2-3b served on the card in f32: one K6 launch per
@@ -949,16 +958,8 @@ def test_reduced_serve_engine_on_card(cuda):
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = get_config("llama3.2-3b").reduced().replace(dtype="float32")
     cpu = lm.init_params(cfg, torch.Generator().manual_seed(0))
-
-    def to(node):
-        if isinstance(node, dict):
-            return {k: to(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [to(v) for v in node]
-        return node.to(cuda)
-
     outs = {}
-    for name, params in (("cpu", cpu), ("cuda", to(cpu))):
+    for name, params in (("cpu", cpu), ("cuda", to_device(cpu, cuda))):
         eng = ServeEngine(params, cfg, slots=3, max_len=64)
         rng = np.random.default_rng(0)
         for i in range(7):
@@ -971,4 +972,46 @@ def test_reduced_serve_engine_on_card(cuda):
         assert FK.launch_counts()["flash_attention_fwd"] == want
         assert eng.stats["flash_launches"] == want
         assert eng.stats["compiles"] == 1
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b",
+                                  "chameleon-34b", "recurrentgemma-9b"])
+def test_reduced_families_on_card(cuda, arch):
+    """The reduced moe (published capacity factor: pairs drop), vlm and
+    hybrid configs in f32 on the card against the CPU: forward logits
+    within 1e-5 of max|logit|, and a ServeEngine's greedy tokens equal,
+    with one K6 launch per attention layer per step.  Hybrid at max_len
+    96 > its window of 64, so the ring wraps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 48),
+                         generator=torch.Generator().manual_seed(7))
+    logits, outs = {}, {}
+    for name, params in (("cpu", cpu), ("cuda", to_device(cpu, cuda))):
+        dev = "cpu" if name == "cpu" else cuda
+        with torch.no_grad():
+            hid, _ = lm.forward(params, cfg, toks.to(dev))
+            logits[name] = L.lm_logits(params["embed"], cfg, hid).cpu()
+        eng = ServeEngine(params, cfg, slots=3, max_len=96)
+        rng = np.random.default_rng(0)
+        for i in range(7):
+            eng.submit(Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab_size, 40 + 7 * i).astype(np.int32),
+                max_new_tokens=40))
+        FK.reset_launch_counts()
+        outs[name] = {r.uid: r.out_tokens for r in eng.run_until_drained()}
+        want = lm.attention_layers(cfg) * eng.stats["steps"] \
+            if name == "cuda" else 0
+        assert FK.launch_counts()["flash_attention_fwd"] == want
+        assert eng.stats["flash_launches"] == want
+        assert eng.stats["compiles"] == 1
+    ref = logits["cpu"]
+    assert float((logits["cuda"] - ref).abs().max() / ref.abs().max()) \
+        <= 1e-5
     assert outs["cuda"] == outs["cpu"]

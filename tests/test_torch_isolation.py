@@ -84,6 +84,8 @@ def test_walk_finds_the_kernel_modules():
             "repro_torch.kernels.flash.kernel",
             "repro_torch.kernels.kvp.ops",
             "repro_torch.models.lm",
+            "repro_torch.models.moe",
+            "repro_torch.models.rglru",
             "repro_torch.serve.engine",
             "repro_torch.launch.serve",
             "repro_torch.engine.fleet",

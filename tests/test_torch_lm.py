@@ -1,5 +1,8 @@
-"""Parity of the port's dense LM with the JAX package on the reduced
-llama3.2-3b: JAX's own parameters carried across by
+"""Parity of the port's LM with the JAX package on the reduced
+llama3.2-3b (dense), qwen3-moe-30b-a3b and dbrx-132b (moe, at the
+published capacity factor, so decode drops pairs), chameleon-34b (vlm,
+qk-norm) and recurrentgemma-9b (hybrid, with a recurrent tail and a
+ring that wraps): JAX's own parameters carried across by
 ``convert.lm_params_from_numpy``, the same tokens on both sides.
 
 * float32: ``forward`` and ``decode_step`` logits within 1e-5 of
@@ -134,10 +137,15 @@ def test_configs_and_param_counts():
 
 
 def test_other_families_raise_naming_the_roadmap():
-    for arch in ("dbrx_132b", "recurrentgemma_9b", "xlstm_1_3b"):
+    from repro_torch.serve.engine import ServeEngine
+    for arch in ("xlstm_1_3b", "whisper_base"):
         cfg = get_config(arch).reduced()
         with pytest.raises(NotImplementedError, match="A12"):
             lm.init_params(cfg, torch.Generator().manual_seed(0))
+        with pytest.raises(NotImplementedError, match="A12"):
+            lm.init_cache(cfg, 2, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):
+        ServeEngine(None, get_config("whisper_base").reduced())
 
 
 def test_init_draws_jax_distributions():
@@ -170,3 +178,263 @@ def test_reset_slot_empties_one_slot_in_place():
     assert torch.equal(cache["pos"][:, 0, :4],
                        torch.tensor([0, 1, 2, -1], dtype=torch.int32).expand(
                            cfg.n_layers, 4))
+
+
+# ---------------------------------------------------------------------------
+# moe, vlm and hybrid families
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("qwen3_moe_30b_a3b", "dbrx_132b", "chameleon_34b",
+            "recurrentgemma_9b")
+S_FAM = 20          # > the hybrid test window: the ring wraps twice
+
+
+def family_kw(arch):
+    """Hybrid: a recurrent tail (5 layers = one triple + 2) and a window
+    of 8, so S_FAM decode steps wrap its ring."""
+    return dict(n_layers=5, window=8) if arch == "recurrentgemma_9b" else {}
+
+
+def family_sides(arch, dtype, seed=0, **kw):
+    jcfg = jax_get_config(arch).reduced().replace(
+        dtype=dtype, attn_chunk=8, **family_kw(arch), **kw)
+    jparams = jlm.init_params(jax.random.PRNGKey(seed), jcfg)
+    cfg = get_config(arch).reduced().replace(dtype=dtype, **family_kw(arch),
+                                             **kw)
+    return (jcfg, jparams), (cfg, carried(jparams))
+
+
+def family_tokens(vocab, seed=3):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S_FAM)).astype(
+        np.int32)
+
+
+def jax_decode_logits(jcfg, jparams, toks, vector):
+    step = jax.jit(lambda t, c, i: jlm.decode_step(jparams, jcfg, t, c, i))
+    cache = jlm.init_cache(jcfg, B, toks.shape[1])
+    outs = []
+    for i in range(toks.shape[1]):
+        pos = jnp.full((B,), i, jnp.int32) if vector else \
+            jnp.asarray(i, jnp.int32)
+        lg, cache = step(jnp.asarray(toks[:, i:i + 1]), cache, pos)
+        outs.append(np.asarray(lg))
+    return np.stack(outs, 1)
+
+
+def port_family_decode(cfg, params, toks, vector):
+    cache = lm.init_cache(cfg, B, toks.shape[1], device="cpu")
+    outs = []
+    for i in range(toks.shape[1]):
+        pos = torch.full((B,), i, dtype=torch.int32) if vector else i
+        lg, cache = lm.decode_step(params, cfg, torch.from_numpy(
+            toks[:, i:i + 1]), cache, pos)
+        outs.append(lg.float().numpy())
+    return np.stack(outs, 1)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_families_match_jax_in_float32(arch):
+    (jcfg, jparams), (cfg, params) = family_sides(arch, "float32")
+    toks = family_tokens(cfg.vocab_size)
+    hid, jaux = jlm.forward(jparams, jcfg, jnp.asarray(toks))
+    ref = np.asarray(JL.lm_logits(jparams["embed"], jcfg, hid), np.float32)
+    phid, aux = lm.forward(params, cfg, torch.from_numpy(toks))
+    assert rel(L.lm_logits(params["embed"], cfg, phid).numpy(), ref) < 1e-5
+    assert abs(float(aux) - float(jaux)) <= 1e-5 * max(abs(float(jaux)), 1)
+    assert (float(aux) > 0) == cfg.is_moe
+    for vector in (False, True):
+        jdec = jax_decode_logits(jcfg, jparams, toks, vector)
+        assert rel(port_family_decode(cfg, params, toks, vector), jdec) < 1e-5
+
+
+def jax_router_probs(jcfg, jparams, toks):
+    """JAX's router probabilities (B·S, E) at every layer of a forward,
+    layer by layer through the package's own block, and that forward's
+    logits."""
+    x = JL.embed_tokens(jparams["embed"], jnp.asarray(toks))
+    b, s = toks.shape
+    pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None], (b, s))
+    out = []
+    for i in range(jcfg.n_layers):
+        p = jax.tree.map(lambda a: a[i], jparams["blocks"])
+        h = JL.apply_norm(p["attn_norm"], x, jcfg.norm)
+        a, _ = JL.apply_attention(p["attn"], jcfg, h, pos, window=0)
+        h = JL.apply_norm(p["mlp_norm"], x + a, jcfg.norm)
+        logits = h.reshape(b * s, -1).astype(jnp.float32) \
+            @ p["moe"]["router"].value
+        out.append(np.asarray(jax.nn.softmax(logits, -1)))
+        x, _, _ = jlm._apply_dense_block(p, jcfg, x, pos)
+    x = JL.apply_norm(jparams["final_norm"], x, jcfg.norm)
+    return out, np.asarray(JL.lm_logits(jparams["embed"], jcfg, x),
+                           np.float32)
+
+
+def port_router_probs(monkeypatch, cfg, params, toks):
+    """The port's router probabilities at every layer of ``lm.forward``
+    (and its logits)."""
+    from repro_torch.models import moe as MOE
+    seen, inner = [], MOE._route
+
+    def spy(x_flat, router_w, k):
+        out = inner(x_flat, router_w, k)
+        seen.append(out[0].numpy())
+        return out
+    monkeypatch.setattr(MOE, "_route", spy)
+    hid, _ = lm.forward(params, cfg, torch.from_numpy(toks))
+    monkeypatch.setattr(MOE, "_route", inner)
+    return seen, L.lm_logits(params["embed"], cfg, hid).float().numpy()
+
+
+def routing_flips(jprobs, probs, k):
+    """Tokens whose top-k set differs between the packages, each at its
+    first such layer, with JAX's gap p_k − p_(k+1) there and the largest
+    |Δp| of that token between the packages."""
+    flips = {}
+    for a, b in zip(jprobs, probs):
+        top_a = np.sort(np.argsort(-a, 1, kind="stable")[:, :k], 1)
+        top_b = np.sort(np.argsort(-b, 1, kind="stable")[:, :k], 1)
+        for t in np.nonzero((top_a != top_b).any(1))[0]:
+            if t not in flips:
+                srt = np.sort(a[t])[::-1]
+                flips[t] = (srt[k - 1] - srt[k], np.abs(a[t] - b[t]).max())
+    return flips
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_families_match_jax_in_bfloat16(arch, monkeypatch):
+    """Logits within 5e-2 of max|logit|.  The packages round bfloat16
+    activations at other places (see the module docstring), and a router
+    turns that drift into a discrete choice: where two experts' JAX
+    probabilities lie closer than the drift, the packages may pick
+    different ones.  So for moe (at capacity factor 100, no drops; the
+    float32 tests hold the drops exactly): every token whose top-k differs
+    is such a near tie at the first layer where it differs, at most a few
+    tokens do, and the logits of every token that attends to none of them
+    (the tokens before a row's first such tie) are within 5e-2."""
+    kw = dict(moe_capacity_factor=100.0) if "moe" in arch or "dbrx" in arch \
+        else {}
+    (jcfg, jparams), (cfg, params) = family_sides(arch, "bfloat16", **kw)
+    toks = family_tokens(cfg.vocab_size, seed=4)
+    if cfg.is_moe:
+        probs, out = port_router_probs(monkeypatch, cfg, params, toks)
+        jprobs, ref = jax_router_probs(jcfg, jparams, toks)
+        flips = routing_flips(jprobs, probs, cfg.experts_per_token)
+        assert len(flips) <= B * S_FAM // 8, flips
+        for t, (gap, drift) in flips.items():
+            assert gap <= 2 * drift and drift <= 5e-2, (t, gap, drift)
+        # causal attention carries a flip to the later tokens of its row
+        keep = np.ones((B, S_FAM), bool)
+        for t in flips:
+            keep[t // S_FAM, t % S_FAM:] = False
+        assert np.abs(out - ref)[keep].max() / np.abs(ref).max() < 5e-2
+        return
+    hid, _ = jlm.forward(jparams, jcfg, jnp.asarray(toks))
+    ref = np.asarray(JL.lm_logits(jparams["embed"], jcfg, hid), np.float32)
+    phid, _ = lm.forward(params, cfg, torch.from_numpy(toks))
+    assert rel(L.lm_logits(params["embed"], cfg, phid).float().numpy(),
+               ref) < 5e-2
+    dec = port_family_decode(cfg, params, toks[:, :6], vector=True)
+    jdec = jax_decode_logits(jcfg, jparams, toks[:, :6], vector=True)
+    assert rel(dec, jdec) < 5e-2
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_decode_matches_its_forward(arch):
+    """Without drops (capacity factor 100, as
+    tests/test_models_smoke.py::test_moe_decode_matches_forward_nodrop),
+    step-by-step decode equals the teacher-forced forward; hybrid through
+    its wrapped ring and recurrent tail."""
+    cfg = get_config(arch).reduced().replace(
+        dtype="float32", moe_capacity_factor=100.0, **family_kw(arch))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = family_tokens(cfg.vocab_size, seed=5)
+    hid, _ = lm.forward(params, cfg, torch.from_numpy(toks))
+    ref = L.lm_logits(params["embed"], cfg, hid).numpy()
+    assert rel(port_family_decode(cfg, params, toks, vector=True), ref) < 1e-5
+
+
+def test_forward_takes_embeddings():
+    cfg = get_config("chameleon_34b").reduced().replace(dtype="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(family_tokens(cfg.vocab_size))
+    emb = L.embed_tokens(params["embed"], toks)
+    a, _ = lm.forward(params, cfg, toks)
+    b, _ = lm.forward(params, cfg, None, embeddings=emb)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_init_counts_and_dtypes(arch):
+    """Parameters by element (the router and lambda_param are float32 in
+    a bfloat16 model): param_counts plus what it leaves out, the norm
+    scales (and layernorm biases), qk-norm scales, and for hybrid the RG-LRU gate matrices and
+    GeGLU's gate projection."""
+    cfg = get_config(arch).reduced().replace(**family_kw(arch))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(1))
+    d, n = cfg.d_model, cfg.n_layers
+    norms = 2 if cfg.norm == "layernorm" else 1       # scale (and bias)
+    want = param_counts(cfg)["total"] + (2 * n + 1) * d * norms
+    if cfg.qk_norm:
+        want += 2 * cfg.head_dim * n
+    if cfg.family == "hybrid":
+        n_tri, n_tail = lm.hybrid_layout(cfg)
+        n_rec, w = n - n_tri, cfg.lru_width
+        want += n_rec * (2 * w * w - w) + n * d * cfg.d_ff
+        assert len(params["triples"]) == 1 and len(params["tail"]) == 2
+        assert params["tail"][0]["rec"]["lambda_param"].dtype == \
+            torch.float32
+        assert lm.attention_layers(cfg) == 1
+    else:
+        assert lm.attention_layers(cfg) == n
+    if cfg.is_moe:
+        assert params["blocks"][0]["moe"]["router"].dtype == torch.float32
+        assert params["blocks"][0]["moe"]["w_up"].dtype == torch.bfloat16
+    assert lm.param_numel(params) == want
+
+
+def test_hybrid_cache_is_a_ring_and_reset_slot_walks_it():
+    cfg = get_config("recurrentgemma_9b").reduced().replace(
+        dtype="float32", **family_kw("recurrentgemma_9b"))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    cache = lm.init_cache(cfg, 2, 32, device="cpu")
+    assert cache["triples"]["attn"]["k"].shape == (1, 2, 8, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+    assert cache["tail"]["h"].shape == (2, 2, cfg.lru_width)
+    for i in range(11):
+        pos = torch.tensor([i, -1 if i < 3 else i - 3], dtype=torch.int32)
+        _, cache = lm.decode_step(params, cfg, torch.ones((2, 1),
+                                  dtype=torch.long), cache, pos)
+    ring = cache["triples"]["attn"]["pos"][0]
+    assert ring[0].tolist() == [8, 9, 10, 3, 4, 5, 6, 7]
+    assert ring[1].tolist() == [0, 1, 2, 3, 4, 5, 6, 7]
+    ptr = cache["tail"]["h"].data_ptr()
+    out = lm.reset_slot(cfg, cache, 1)
+    assert out["tail"]["h"].data_ptr() == ptr
+    for leaf in lm.tensors(cache):
+        assert leaf[:, 0].abs().sum() > 0
+    assert torch.all(cache["triples"]["attn"]["pos"][:, 1] == -1)
+    for leaf in (cache["triples"]["rec1"]["h"], cache["tail"]["conv"],
+                 cache["triples"]["attn"]["k"]):
+        assert not torch.any(leaf[:, 1])
+
+
+@pytest.mark.parametrize("arch", ("llama3_2_3b",) + FAMILIES)
+def test_idle_rows_match_jax(arch):
+    """Rows at position −1 ride along a decode step: their attention sees
+    no key and gets the mean of v, as in ``attention_xla`` (ROADMAP C9),
+    so their logits, the MoE capacity they take and the recurrent states
+    they advance (C17) are the reference's; every row's logits within
+    1e-5."""
+    (jcfg, jparams), (cfg, params) = family_sides(arch, "float32")
+    toks = family_tokens(cfg.vocab_size, seed=6)
+    sched = [(i, -1 if i % 3 == 1 else i // 2) for i in range(12)]
+    step = jax.jit(lambda t, c, i: jlm.decode_step(jparams, jcfg, t, c, i))
+    jcache = jlm.init_cache(jcfg, B, 12)
+    cache = lm.init_cache(cfg, B, 12, device="cpu")
+    for i, p1 in sched:
+        pos = np.array([i, p1], np.int32)
+        jl, jcache = step(jnp.asarray(toks[:, i:i + 1]), jcache,
+                          jnp.asarray(pos))
+        lg, cache = lm.decode_step(params, cfg, torch.from_numpy(
+            toks[:, i:i + 1]), cache, torch.from_numpy(pos))
+        assert rel(lg.numpy(), np.asarray(jl)) < 1e-5, (i, p1)
