@@ -171,6 +171,32 @@ Slice 7 adds, in the same run:
   - timing    K6 at the qwen3 and recurrentgemma serving steps beside its
               plain version, SDPA and the bound; the "kernels" line adds
               K6's launches on the three paths and these rows
+Slice 8 adds, in the same run:
+  - families  xlstm-1.3b (ssm: full width and depth, 6 groups of 7 mLSTM
+              + 1 sLSTM blocks, bf16) with serve's traffic: 2,121,060,352
+              parameters by element, a 2,831,160,576-byte cache at 8 slots,
+              no K6 launch, one program; steady decode's busy, cuBLAS and
+              other device ms beside the step's bound (weights plus the
+              states read and written once); decode (step form) vs
+              forward (chunkwise form) logits over 64 tokens within 5e-2;
+              no staggered-equals-solo check (C17); the card against the
+              CPU on the reduced config (two mLSTM chunks)
+  - whisper   whisper-base at full width (6 + 6 layers, bf16): 8 clips of
+              1500 stub frames through encode, init_cache(max_len=448), 4
+              prompt tokens then greedy tokens until 64 are chosen through
+              decode_step: K6 launches = 6 an encode + 12 a step; decode
+              vs decode_train logits over 64 tokens within 5e-2; the MMA
+              kernel in the encoder's and decode_train's traces, the
+              split kernels in a step's; 20 steps traced beside the step's
+              bound; the card against the CPU on the reduced config in
+              f32 (100 frames)
+  - whisper kernels  K6 against its plain version at whisper's four calls
+              (encoder Sq=Sk=1500 and decode_train's cross-attention
+              Sq=64 over 1500, both not causal, MMA path; a step's
+              cross-attention Sq=1 over 1500 in splits of 256 and its
+              causal self-attention over a 448-slot cache, split path),
+              each beside its plain version, SDPA and the bound; the
+              "kernels" line adds whisper's launches and these rows
 Every timing line carries the card's name and power limit.
 Then it prints the card, a "kernels" JSON line (each "ms" with its
 source, "ms_from"; K6 at the serving step's shape), and the result line.
@@ -183,6 +209,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1829,7 +1856,8 @@ def card_vs_cpu(dev, arch=SERVE_ARCH, lens=(4, 12), new=6, max_len=64):
     reduced config in f32 (TF32 off): forward logits within 1e-5 of
     max|logit|, and a ServeEngine's greedy tokens equal (7 requests of
     ``lens`` prompt tokens and ``new`` new ones, 3 slots), with K6
-    launched once per attention layer a step on the card."""
+    launched once per attention layer a step on the card (never for
+    ssm)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1840,7 +1868,9 @@ def card_vs_cpu(dev, arch=SERVE_ARCH, lens=(4, 12), new=6, max_len=64):
     cfg = get_config(arch).reduced().replace(dtype="float32")
     cpu = lm.init_params(cfg, torch.Generator().manual_seed(SERVE_SEED))
     card = to_device(cpu, dev)
-    toks = torch.randint(0, cfg.vocab_size, (2, 48),
+    # ssm: two whole mLSTM chunks of 32 (the reference pads none)
+    s = 64 if cfg.family == "ssm" else 48
+    toks = torch.randint(0, cfg.vocab_size, (2, s),
                          generator=torch.Generator().manual_seed(7))
     out = {}
     for name, p, d in (("cpu", cpu, "cpu"), ("cuda", card, dev)):
@@ -1922,10 +1952,12 @@ def serve_traffic(params, cfg, slots, max_len, tag):
 
 def steady_decode(eng, cfg, tag):
     """Device time of steady decode steps: 8 slots decoding (prompts of
-    64 tokens), 20 steps traced and 20 more untraced: K6, matrix-product
-    and busy device ms a step, host ms a step, the idle share."""
+    64 tokens), 20 steps traced and 20 more untraced: K6, matrix-product,
+    other (elementwise) and busy device ms a step, host ms a step, the
+    idle share."""
     import numpy as np
     import torch
+    from repro_torch.models import lm
     tokens0 = eng.stats["tokens"]
     for r in serve_requests(np.random.default_rng(SERVE_SEED + 3),
                             cfg.vocab_size, 8, 64, 64, 200):
@@ -1941,8 +1973,10 @@ def steady_decode(eng, cfg, tag):
         traced_ms = (time.perf_counter() - t0) * 1e3
     n = eng.stats["steps"] - steps0
     k6_us, gemm_us, busy_us = serve_device_us(prof)
-    check(k6_us > 0 and busy_us > 0, f"{tag}: profiler saw no K6 device "
-          f"time")
+    attn = lm.attention_layers(cfg) > 0
+    check(busy_us > 0 and (k6_us > 0) == attn, f"{tag}: profiler saw "
+          f"{k6_us} µs of K6 device time ({'some' if attn else 'none'} "
+          f"expected) and {busy_us} µs busy")
     t0 = time.perf_counter()
     for _ in range(20):
         eng.step()
@@ -1950,6 +1984,8 @@ def steady_decode(eng, cfg, tag):
     untraced_ms = (time.perf_counter() - t0) * 1e3
     return dict(steps=n, k6_device_ms_per_step=k6_us / 1e3 / n,
                 gemm_device_ms_per_step=gemm_us / 1e3 / n,
+                other_device_ms_per_step=(busy_us - k6_us - gemm_us) / 1e3
+                / n,
                 device_busy_ms_per_step=busy_us / 1e3 / n,
                 traced_ms_per_step=traced_ms / n,
                 untraced_ms_per_step=untraced_ms / 20,
@@ -2000,11 +2036,12 @@ def phase_serve(dev):
 # staggered/chunked-equals-solo check (None: published; "skip": the
 # reference lacks the property, ROADMAP C17), card-vs-CPU traffic:
 # (prompt lengths, new tokens, max_len); hybrid wraps its reduced window
-# of 64)
+# of 64).  Slice 8 adds the ssm family (xlstm-1.3b, full width and depth)
 FAMILIES = (
     ("qwen3-moe-30b-a3b", None, 100.0, ((4, 12), 6, 64)),
     ("chameleon-34b", 4, None, ((4, 12), 6, 64)),
     ("recurrentgemma-9b", None, "skip", ((40, 60), 40, 128)),
+    ("xlstm-1.3b", None, "skip", ((4, 12), 6, 64)),
 )
 
 
@@ -2012,10 +2049,25 @@ def expected_params(cfg):
     """Parameters the port draws for ``cfg``: ``param_counts`` plus what
     it leaves out: the norm scales (and layernorm biases), qk-norm
     scales, and for hybrid the RG-LRU gate matrices (2·W² − W a recurrent
-    layer beyond its 3·W) and GeGLU's gate projection (d·ff a layer)."""
+    layer beyond its 3·W) and GeGLU's gate projection (d·ff a layer).
+    For ssm ``param_counts`` counts every layer as an mLSTM block whose
+    q/k/v take 3·up/2 columns (up = 2·d; xlstm-1.3b: 2,621,964,288); the
+    model has slstm_every − 1 mLSTM blocks a group (up- and gate
+    projections, conv, q and k of H·dk = up/2 columns each, v the
+    up-projection itself, the f32 gates, skip scales, down-projection)
+    and one sLSTM block (4d² in, four H·(d/H)² f32 recurrent matrices, d²
+    out), plus the embedding, the head and the final layernorm."""
     from repro_torch.models import lm
     from repro_torch.models.config import param_counts
     d, n = cfg.d_model, cfg.n_layers
+    if cfg.family == "ssm":
+        n_groups, n_m = lm.ssm_layout(cfg)
+        up, heads = 2 * d, cfg.n_heads
+        mlstm = (3 * d * up + up * up + cfg.conv_width * up + 2 * heads * up
+                 + 2 * up)
+        slstm = 5 * d * d + 4 * d * d // heads
+        return (2 * cfg.vocab_size * d + 2 * d
+                + n_groups * (n_m * mlstm + slstm))
     want = param_counts(cfg)["total"] \
         + (2 * n + 1) * d * (2 if cfg.norm == "layernorm" else 1)
     if cfg.qk_norm:
@@ -2026,6 +2078,19 @@ def expected_params(cfg):
         if cfg.activation == "geglu":
             want += n * d * cfg.d_ff
     return want
+
+
+def ssm_cache_bytes(cfg, slots):
+    """Bytes of an ssm decode cache: per mLSTM layer and slot the conv
+    state (K−1, up) in the model dtype and C (H, dk, dv), n (H, dk), m (H)
+    in float32; per sLSTM layer and slot c, n, h, m (d) in float32."""
+    from repro_torch.models import lm
+    from repro_torch.models.xlstm import mlstm_dims
+    n_groups, n_m = lm.ssm_layout(cfg)
+    up, dk, dv = mlstm_dims(cfg)
+    h, es = cfg.n_heads, lm.torch_dtype(cfg).itemsize
+    mlstm = (cfg.conv_width - 1) * up * es + 4 * h * (dk * dv + dk + 1)
+    return slots * n_groups * (n_m * mlstm + 16 * cfg.d_model)
 
 
 def step_weight_bytes(params, cfg, slots):
@@ -2040,15 +2105,16 @@ def step_weight_bytes(params, cfg, slots):
 
 def phase_serve_families(dev, families=FAMILIES):
     """ServeEngine on qwen3-moe-30b-a3b (full width and depth),
-    chameleon-34b's backbone (full width, 4 layers) and recurrentgemma-9b
-    (full width and depth), bf16, weights drawn on the card from the
-    seed, each with phase_serve's traffic: K6 launches = attention layers
-    × steps, one program; tokens/s, ms a step and steady decode's device
-    ms (K6, products, busy) and idle share beside the step's bound (its
-    weight bytes over the HBM rate); decode vs forward logits (qwen3 at
-    capacity factor 100); staggered and chunked prefill bitwise solo where
-    the reference has that property; the card against the CPU on each
-    reduced config.  → ({arch: row}, {arch: K6 launches})."""
+    chameleon-34b's backbone (full width, 4 layers), recurrentgemma-9b
+    and xlstm-1.3b (full width and depth), bf16, weights drawn on the card
+    from the seed, each with phase_serve's traffic: K6 launches =
+    attention layers × steps (none for ssm), one program; tokens/s, ms a
+    step and steady decode's device ms (K6, products, other, busy) and
+    idle share beside the step's bound (its weight bytes, and for ssm the
+    states read and written, over the HBM rate); decode vs forward logits
+    (qwen3 at capacity factor 100); staggered and chunked prefill bitwise
+    solo where the reference has that property; the card against the CPU
+    on each reduced config.  → ({arch: row}, {arch: K6 launches})."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import lm
@@ -2072,12 +2138,19 @@ def phase_serve_families(dev, families=FAMILIES):
         eng, row, launches[arch] = serve_traffic(params, cfg, slots, max_len,
                                                  arch)
         wbytes = step_weight_bytes(params, cfg, slots)
+        sbytes = 0
+        if cfg.family == "ssm":
+            # every state byte is read and written once a step
+            sbytes = 2 * eng.stats["cache_bytes"]
+            want = ssm_cache_bytes(cfg, slots)
+            check(eng.stats["cache_bytes"] == want, f"{arch}: cache "
+                  f"{eng.stats['cache_bytes']} bytes, want {want}")
         row.update(n_params=n_params, init_s=init_s,
                    init_peak_gb=peak_init / 1e9,
                    layers_cut_from=None if layers is None
                    else get_config(arch).n_layers,
-                   step_weight_gb=wbytes / 1e9,
-                   step_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3)
+                   step_weight_gb=wbytes / 1e9, step_state_gb=sbytes / 1e9,
+                   step_bound_ms=(wbytes + sbytes) / HBM_BYTES_PER_S * 1e3)
         log(f"[families] {arch}: " + json.dumps(on_card(row)))
         brk = steady_decode(eng, cfg, arch)
         brk["step_bound_ms"] = row["step_bound_ms"]
@@ -2153,10 +2226,335 @@ def phase_families_timing(dev):
     return rows
 
 
+# ------------------------------ slice 8: whisper-base's encoder-decoder
+# 8 clips of 1500 stub frame embeddings, a 448-slot decoder cache, 4
+# prompt tokens fed one a step, then greedy tokens until 64 are chosen;
+# 20 more steps traced and 20 untraced
+WHISPER = dict(arch="whisper-base", clips=8, frames=1500, max_len=448,
+               prompt=4, new=64, window=20)
+
+
+def whisper_expected_params(cfg):
+    """``param_counts`` plus the layernorm scales and biases it leaves
+    out: two a encoder layer, three a decoder layer, the encoder's and
+    the decoder's final norms."""
+    from repro_torch.models.config import param_counts
+    return param_counts(cfg)["total"] + (
+        2 * cfg.n_enc_layers + 3 * cfg.n_dec_layers + 2) * 2 * cfg.d_model
+
+
+def whisper_decode(params, cfg, enc, prompt, new, max_len):
+    """``prompt`` (B, P) fed one token a step through ``decode_step``,
+    then each step's greedy token (argmax on the card) until ``new`` are
+    chosen: P + new − 1 steps.  → (fed tokens (B, steps), step logits
+    (B, steps, V) f32, chosen (B, new), cache)."""
+    import torch
+    from repro_torch.models import whisper as WH
+    n_prompt = prompt.shape[1]
+    cache = WH.init_cache(params, cfg, enc, prompt.shape[0], max_len,
+                          device=enc.device)
+    tok, fed, logits, chosen = prompt[:, :1], [], [], []
+    for i in range(n_prompt + new - 1):
+        fed.append(tok)
+        lg, cache = WH.decode_step(params, cfg, tok, cache, i)
+        logits.append(lg.float())
+        if i + 1 < n_prompt:
+            tok = prompt[:, i + 1:i + 2]
+        else:
+            tok = lg.argmax(-1, keepdim=True)
+            chosen.append(tok)
+    return (torch.cat(fed, 1), torch.stack(logits, 1), torch.cat(chosen, 1),
+            cache)
+
+
+def whisper_step_bytes(params, cache, pos):
+    """Bytes a decode step must move: the decoder's weights, its final
+    norm and head, the slots' token rows, every layer's cross K/V, and
+    the self K/V and positions of the ``pos`` + 1 written slots."""
+    from repro_torch.models import lm
+    emb, sc = params["embed"], cache["self"]
+    b = sc["k"].shape[1]
+    self_bytes = sum(t[:, :, :pos + 1].numel() * t.element_size()
+                     for t in (sc["k"], sc["v"], sc["pos"]))
+    return (lm.param_bytes(params["dec"]) + lm.param_bytes(
+        params["final_norm"]) + lm.param_bytes(emb["head"])
+        + b * emb["tok"].shape[1] * emb["tok"].element_size()
+        + lm.cache_bytes(cache["cross"]) + self_bytes)
+
+
+def whisper_card_vs_cpu(dev, clips=3, frames=100, new=12):
+    """The reduced whisper-base in f32 (TF32 off) on the card against the
+    CPU, 100 frames (not a whole number of key tiles): encode,
+    decode_train and decode_step logits within 1e-5 of max|out|, greedy
+    tokens equal; K6 launched once per encoder layer and twice per
+    decoder layer a call on the card, never on the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.models import layers as L
+    from repro_torch.models import whisper as WH
+    cfg = get_config(WHISPER["arch"]).reduced().replace(dtype="float32")
+    cpu = WH.init_params(cfg, torch.Generator().manual_seed(SERVE_SEED))
+    g = torch.Generator().manual_seed(SERVE_SEED + 5)
+    fr = torch.randn((clips, frames, cfg.d_model), generator=g)
+    prompt = torch.randint(0, cfg.vocab_size, (clips, 4), generator=g)
+    out = {}
+    for name, p, d in (("cpu", cpu, torch.device("cpu")),
+                       ("cuda", to_device(cpu, dev), dev)):
+        FK.reset_launch_counts()
+        with torch.no_grad():
+            enc = WH.encode(p, cfg, fr.to(d))
+            fed, logits, chosen, _ = whisper_decode(p, cfg, enc, prompt.to(d),
+                                                    new, 32)
+            train = L.lm_logits(p["embed"], cfg, WH.decode_train(
+                p, cfg, enc, fed)).float()
+        steps = fed.shape[1]
+        want = (cfg.n_enc_layers + 2 * cfg.n_dec_layers * (steps + 1)
+                if name == "cuda" else 0)
+        launched = FK.launch_counts()["flash_attention_fwd"]
+        check(launched == want, f"reduced whisper on {name}: {launched} K6 "
+              f"launches, want {want}")
+        out[name] = [t.cpu() for t in (enc, train, logits, chosen)]
+    rels = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(out["cuda"][:3], out["cpu"][:3])]
+    check(max(rels) <= 1e-5, f"whisper card vs CPU: encode, decode_train, "
+          f"decode_step rel {rels} > 1e-5")
+    check(torch.equal(out["cuda"][3], out["cpu"][3]), "whisper: card and "
+          "CPU choose different greedy tokens")
+    log(f"[whisper] card vs CPU, reduced whisper-base f32 ({clips} clips of "
+        f"{frames} frames, {new} greedy tokens): encode, decode_train and "
+        f"decode_step rel {', '.join(f'{r:.3e}' for r in rels)} (≤1e-5); "
+        f"greedy tokens equal")
+    return max(rels)
+
+
+def phase_whisper(dev, c=WHISPER):
+    """whisper-base at full width (6 + 6 layers, d_model 512, bf16,
+    weights drawn on the card from the seed) through the reference's
+    entry points: ``encode`` of 8 clips of 1500 stub frame embeddings,
+    ``init_cache(max_len=448)``, 4 prompt tokens then greedy tokens
+    through ``decode_step`` until 64 are chosen.  K6 launches = 6 an
+    encode + 12 a step; decode_step logits against decode_train's over
+    the first 64 tokens within 5e-2 of max|logit|; the MMA kernel in the
+    encoder's and decode_train's traces, the split kernels in a step's;
+    20 steps traced (busy, K6, cuBLAS, other device ms, idle) beside the
+    step's bound; the card against the CPU on the reduced config.  →
+    (row, {"encode": K6 launches, "decode_steps": K6 launches})."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import whisper as WH
+    t_phase = time.perf_counter()
+    cfg = get_config(c["arch"])
+    t0 = time.perf_counter()
+    params = WH.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SERVE_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_numel(params)
+    want = whisper_expected_params(cfg)
+    check(n_params == want, f"whisper: {n_params} parameters, want {want}")
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 4)
+    frames = torch.randn((c["clips"], c["frames"], cfg.d_model), generator=g,
+                         device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (c["clips"], c["prompt"]),
+                           generator=g, device=dev)
+    with torch.no_grad():
+        FK.reset_launch_counts()
+        encode_ms = []
+        for _ in range(2):              # the first call, then a warm one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = WH.encode(params, cfg, frames)
+            torch.cuda.synchronize()
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+        enc_launches = FK.launch_counts()["flash_attention_fwd"] // 2
+        check(enc_launches == cfg.n_enc_layers, f"whisper encode: "
+              f"{enc_launches} K6 launches a call, want {cfg.n_enc_layers}")
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        fed, logits, chosen, cache = whisper_decode(
+            params, cfg, enc, prompt, c["new"], c["max_len"])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        steps = fed.shape[1]
+        step_launches = FK.launch_counts()["flash_attention_fwd"]
+        check(step_launches == 2 * cfg.n_dec_layers * steps, f"whisper "
+              f"decode: {step_launches} K6 launches, want 2 × "
+              f"{cfg.n_dec_layers} × {steps} steps")
+        check(bool(torch.isfinite(logits).all()), "whisper decode logits "
+              "not finite")
+        check(chosen.shape == (c["clips"], c["new"]) and bool(
+            ((chosen >= 0) & (chosen < cfg.vocab_size)).all()),
+            f"whisper: greedy tokens {tuple(chosen.shape)} or out of the "
+            f"vocabulary")
+        # decode_train over the first 64 fed tokens: Sq = 64, the MMA path
+        s = min(64, steps)
+        ref = L.lm_logits(params["embed"], cfg, WH.decode_train(
+            params, cfg, enc, fed[:, :s])).float()
+        rel = float((logits[:, :s] - ref).abs().max() / ref.abs().max())
+        agree = float((logits[:, :s].argmax(-1) == ref.argmax(-1)).float()
+                      .mean())
+        check(rel <= 5e-2, f"whisper decode_step vs decode_train logits: "
+              f"rel {rel} > 5e-2")
+        log(f"[whisper] decode_step vs decode_train logits over {s} tokens "
+            f"(bf16, full width): max |Δ| / max |logit| {rel:.3e} (≤5e-2); "
+            f"greedy agree {agree:.3f}")
+        kernels = {
+            "encode": flash_kernels(lambda: WH.encode(params, cfg, frames)),
+            "decode_train": flash_kernels(lambda: WH.decode_train(
+                params, cfg, enc, fed[:, :s]))}
+        for key, names in kernels.items():
+            check(names == ["flash_fwd_mma_kernel"], f"whisper {key}: K6 "
+                  f"ran {names}, not the MMA kernel")
+        # steady decode: 20 steps traced, then 20 untraced
+        tok, pos = chosen[:, -1:], steps
+        with card_trace() as prof:
+            t0 = time.perf_counter()
+            for _ in range(c["window"]):
+                lg, cache = WH.decode_step(params, cfg, tok, cache, pos)
+                tok, pos = lg.argmax(-1, keepdim=True), pos + 1
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        k6_us, gemm_us, busy_us = serve_device_us(prof)
+        names = sorted({m.group(0) for ev in prof.key_averages()
+                        for m in [re.search(r"flash_fwd_\w+", ev.key)] if m})
+        check(k6_us > 0 and names == ["flash_fwd_merge_kernel",
+                                      "flash_fwd_split_kernel"],
+              f"whisper decode step: K6 ran {names} ({k6_us} µs)")
+        bound_bytes = whisper_step_bytes(params, cache, pos - 1)
+        t0 = time.perf_counter()
+        for _ in range(c["window"]):
+            lg, cache = WH.decode_step(params, cfg, tok, cache, pos)
+            tok, pos = lg.argmax(-1, keepdim=True), pos + 1
+        torch.cuda.synchronize()
+        untraced_ms = (time.perf_counter() - t0) * 1e3 / c["window"]
+    n = c["window"]
+    row = dict(arch=cfg.name, clips=c["clips"], frames=c["frames"],
+               max_len=c["max_len"], prompt=c["prompt"], new=c["new"],
+               n_params=n_params, param_gb=lm.param_bytes(params) / 1e9,
+               init_s=init_s, cache_mb=lm.cache_bytes(cache) / 1e6,
+               encode_first_ms=encode_ms[0], encode_ms=encode_ms[1],
+               steps=steps,
+               ms_per_step=decode_s / steps * 1e3,
+               tokens_per_s=c["clips"] * c["new"] / decode_s,
+               k6_launches_encode=enc_launches,
+               k6_launches_steps=step_launches,
+               decode_vs_train_rel=rel, decode_vs_train_greedy_agree=agree,
+               kernels=kernels, step_kernels=names,
+               steady=dict(steps=n, k6_device_ms_per_step=k6_us / 1e3 / n,
+                           gemm_device_ms_per_step=gemm_us / 1e3 / n,
+                           other_device_ms_per_step=(busy_us - k6_us - gemm_us)
+                           / 1e3 / n,
+                           device_busy_ms_per_step=busy_us / 1e3 / n,
+                           traced_ms_per_step=traced_ms / n,
+                           untraced_ms_per_step=untraced_ms,
+                           idle_share_est=max(0.0, 1.0 - busy_us / 1e3 / n
+                                              / untraced_ms),
+                           positions=[steps, pos - 1],
+                           step_bytes_gb=bound_bytes / 1e9,
+                           step_bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3))
+    log("[whisper] " + json.dumps(on_card(row)))
+    del params, cache, enc, logits, ref
+    torch.cuda.empty_cache()
+    row["card_vs_cpu_rel"] = whisper_card_vs_cpu(dev)
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"[whisper] {row['phase_s']:.1f} s")
+    return row, {"encode": enc_launches, "decode_steps": step_launches}
+
+
+def whisper_k6_inputs(dev, kind, seed, b=8, heads=8, hd=64, frames=1500,
+                      max_len=448, pos=67):
+    """K6's inputs at whisper-base's four calls (bf16, NH = KH = 8, hd
+    64): ``encoder`` self-attention (Sq = Sk = 1500, not causal),
+    ``train_cross`` (decode_train's cross-attention, Sq = 64 over 1500),
+    ``step_cross`` (a decode step's, Sq = 1 over 1500; query positions 0,
+    unused) and ``step_self`` (causal over a 448-slot cache holding
+    positions 0..``pos``, the rest empty).  → (q, k, v, q_pos, kv_pos,
+    causal)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sq, sk = {"encoder": (frames, frames), "train_cross": (64, frames),
+              "step_cross": (1, frames), "step_self": (1, max_len)}[kind]
+    q, k, v = (torch.randn((b, n, heads, hd), generator=g, device=dev)
+               .to(torch.bfloat16) for n in (sq, sk, sk))
+    slots = torch.arange(sk, dtype=torch.int32, device=dev)
+    if kind == "encoder":
+        q_pos = slots.expand(b, sk).contiguous()
+    elif kind == "step_self":
+        q_pos = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+        slots = torch.where(slots <= pos, slots, -1)
+    else:
+        q_pos = torch.zeros((b, sq), dtype=torch.int32, device=dev)
+    kv_pos = slots.expand(b, sk).contiguous()
+    return q, k, v, q_pos, kv_pos, kind == "step_self"
+
+
+WHISPER_K6 = {"encoder": ("mma", ["flash_fwd_mma_kernel"]),
+              "train_cross": ("mma", ["flash_fwd_mma_kernel"]),
+              "step_cross": ("split", ["flash_fwd_merge_kernel",
+                                       "flash_fwd_split_kernel"]),
+              "step_self": ("split", ["flash_fwd_merge_kernel",
+                                      "flash_fwd_split_kernel"])}
+
+
+def phase_whisper_kernels(dev, err):
+    """K6 at whisper-base's four calls (``whisper_k6_inputs``) against its
+    plain version (check_flash: within flash_tol, row 0 alone bitwise),
+    the path ``plan()`` picks and the kernels its trace holds (MMA for the
+    encoder and decode_train's cross-attention, split for a step's; the
+    step's cross-attention in splits of 256), and its device and call ms
+    beside the plain version's, SDPA's (timed only; no mask where every
+    key is visible, a boolean one over the cache) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash.ref import (flash_attention_fwd_ref,
+                                               position_mask)
+    rows = {}
+    for i, (kind, (path, want)) in enumerate(WHISPER_K6.items()):
+        q, k, v, qp, kp, causal = whisper_k6_inputs(dev, kind, 90 + i)
+        plan = FK.plan_of(q, k)
+        check(plan[0] == path and (kind != "step_cross" or plan[1] == 256),
+              f"whisper {kind}: plan {plan}, want the {path} path")
+        tag = (f"whisper {kind} B={q.shape[0]} Sq={q.shape[1]} "
+               f"Sk={k.shape[1]} NH=KH={q.shape[2]} hd={q.shape[3]} bf16 "
+               f"{'causal' if causal else 'not causal'}")
+        check_flash(tag, (q, k, v, qp, kp), err, causal=causal)
+        mask = position_mask(qp, kp, causal, None)[:, None] \
+            if kind == "step_self" else None
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        calls = {
+            "flash": lambda: FK.flash_attention_fwd(q, k, v, qp, kp,
+                                                    causal=causal),
+            "flash_plain": lambda: flash_attention_fwd_ref(
+                q, k, v, qp, kp, causal=causal),
+            "flash_sdpa": lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask)}
+        iters = 10 if kind == "encoder" else 50
+        row = dict(shape=tag, plan=list(plan))
+        for key, fn in calls.items():
+            row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(fn, iters)
+            row[f"{key}_call_ms"] = cuda_time_ms(fn, iters)
+        row["flash_bound_ms"], row["flash_bound_by"] = flash_bound_ms(
+            *flash_cost(q, k, qp, kp, causal=causal))
+        row["flash_kernels"] = flash_kernels(calls["flash"])
+        check(row["flash_kernels"] == want, f"{tag}: K6 ran "
+              f"{row['flash_kernels']}, not {want}")
+        ref = flash_attention_fwd_ref(q, k, v, qp, kp, causal=causal)
+        row["max_abs_err"] = flash_err(calls["flash"](), ref)[0]
+        rows[kind] = row
+        log("[timing] " + json.dumps(on_card(row)))
+        del q, k, v, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_us(fn, prefix, iters=3):
     """{kernel: device µs a call} of the kernels named ``prefix``* in a
     card_trace of ``iters`` calls of ``fn``."""
-    import re
     out = {}
     for key, (_, us) in _trace(fn, iters).items():
         m = re.search(prefix + r"\w+", key)
@@ -3700,6 +4098,9 @@ def main() -> int:
     log(f"[time] serve: {time.perf_counter() - t_start:.1f} s")
     _, families_launches = phase_serve_families(dev)
     log(f"[time] families: {time.perf_counter() - t_start:.1f} s")
+    _, whisper_launches = phase_whisper(dev)
+    whisper_t = phase_whisper_kernels(dev, err)
+    log(f"[time] whisper: {time.perf_counter() - t_start:.1f} s")
     timing3 = phase_slice3_timing(dev)
     families_t = phase_families_timing(dev)
     paper = phase_paper(dev, state, sampler)
@@ -3773,16 +4174,21 @@ def main() -> int:
             "ms_from": row[f"{key}_ms_from"],
             "library_ms_from": row[f"{lib}_ms_from"] if lib else None,
             # the serve twin's path (slice 5), counted alone; the moe,
-            # vlm and hybrid serving paths (slice 7), each counted alone,
-            # and K6 at the qwen3 and recurrentgemma serving steps
+            # vlm, hybrid (slice 7) and ssm (slice 8: none) serving paths,
+            # each counted alone, and K6 at the qwen3 and recurrentgemma
+            # serving steps; whisper's encode and decode steps (slice 8)
+            # and K6 at its four calls
             **({"serve_twin_launches": paper["launches"]["serve"],
                 "families_launches": families_launches,
-                "families_timing": {
+                "whisper_launches": whisper_launches,
+                **{f"{path}_timing": {
                     a: {key: r[key] for key in (
                         "flash_ms", "flash_ms_from", "flash_plain_ms",
                         "flash_bound_ms", "flash_bound_by", "flash_sdpa_ms",
                         "max_abs_err")}
-                    for a, r in families_t.items()}}
+                    for a, r in rows.items()}
+                   for path, rows in (("families", families_t),
+                                      ("whisper", whisper_t))}}
                if name == "flash_attention_fwd" else {})})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

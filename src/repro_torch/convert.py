@@ -124,12 +124,16 @@ def _lm_tensor(a, dev: torch.device) -> torch.Tensor:
 def lm_params_from_numpy(tree, device=None):
     """The port's LM parameters from the JAX package's unboxed parameter
     tree as numpy arrays: ``{"embed", "final_norm", "blocks"}`` (dense,
-    moe, vlm) or ``{"embed", "final_norm", "triples", "tail"}`` (hybrid),
-    each layer stack stacked over layers.  Every stack becomes one nested
-    dictionary per layer of views; every dtype is kept (the router and
-    ``lambda_param`` stay float32 in a bfloat16 model).  On ``device``:
-    ``None`` means the card, as at every entry point
-    (``repro_torch.resolve_device``), and raises without one."""
+    moe, vlm), ``{"embed", "final_norm", "triples", "tail"}`` (hybrid),
+    ``{"embed", "final_norm", "groups"}`` (ssm) or ``{"embed", "enc",
+    "dec", "enc_norm", "final_norm"}`` (whisper), each layer stack stacked
+    over layers, and ``groups``' ``mlstm`` leaves stacked over groups then
+    layers.  Every stack becomes one nested dictionary per layer (per
+    group, holding a list of its mLSTM layers) of views; every dtype is
+    kept (the router, ``lambda_param``, ``w_if`` and ``r_*`` stay float32
+    in a bfloat16 model).  On ``device``: ``None`` means the card, as at
+    every entry point (``repro_torch.resolve_device``), and raises
+    without one."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -137,10 +141,15 @@ def lm_params_from_numpy(tree, device=None):
             return {k: conv(v) for k, v in node.items()}
         return _lm_tensor(node, dev)
 
+    def unstack(node):
+        return unstack_layers(node, next(tensors(node)).shape[0])
+
     out = {}
     for key, node in tree.items():
         out[key] = conv(node)
-        if key in ("blocks", "triples", "tail"):
-            n = next(tensors(out[key])).shape[0]
-            out[key] = unstack_layers(out[key], n)
+        if key in ("blocks", "triples", "tail", "enc", "dec"):
+            out[key] = unstack(out[key])
+        elif key == "groups":
+            out[key] = [dict(g, mlstm=unstack(g["mlstm"]))
+                        for g in unstack(out[key])]
     return out

@@ -26,7 +26,7 @@ def position_mask(q_pos: Tensor, kv_pos: Tensor, causal: bool,
     """(B, Sq, Sk) bool: which keys each query sees."""
     iq = q_pos[:, :, None]
     ik = kv_pos[:, None, :]
-    mask = ik >= 0
+    mask = (ik >= 0).expand(-1, iq.shape[1], -1)
     if causal:
         mask = mask & (ik <= iq)
     if window is not None:

@@ -4,8 +4,9 @@
       [--reduced] [--device cpu] --requests 12 --prompt-len 8 --max-new 16
 
 Serves the dense, moe (qwen3-moe-30b-a3b, dbrx-132b), vlm (chameleon-34b's
-backbone) and hybrid (recurrentgemma-9b) families; ssm and encdec wait
-for ROADMAP A12.
+backbone), hybrid (recurrentgemma-9b) and ssm (xlstm-1.3b) families; the
+encoder-decoder (whisper-base) runs through ``models/whisper.py``, as in
+the reference.
 
 Counterpart of ``repro/launch/serve.py``.  Runs on the card unless
 ``--device cpu`` is given (and fails without one).  Weights are random,
@@ -42,8 +43,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.family in ("encdec", "ssm"):
-        raise SystemExit(f"{cfg.family} serving waits for ROADMAP A12")
+    if cfg.family == "encdec":
+        raise SystemExit("use whisper.decode_step directly for encdec")
     dev = resolve_device(args.device)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -4,9 +4,8 @@ Counterpart of ``repro/models/config.py`` (a copy: the port imports
 nothing of the JAX package).  One frozen dataclass covers all ten assigned
 families; family-specific fields are zero/empty when unused.  Exact
 assigned configs live in ``repro_torch/configs/<id>.py``; reduced smoke
-variants come from ``reduced()``.  The port's model runs the dense, moe,
-vlm and hybrid families; ssm and encdec are data here until ROADMAP A12
-ports them.
+variants come from ``reduced()``.  ``models/lm.py`` runs the dense, moe,
+vlm, hybrid and ssm families, ``models/whisper.py`` the encdec one.
 The JAX config's runtime options (sharding, scan, remat, XLA attention
 chunk) are XLA settings with no counterpart here, so they are not copied.
 """

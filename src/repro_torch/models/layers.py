@@ -152,12 +152,13 @@ def _project(x: Tensor, w: Tensor) -> Tensor:
 def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
                     *, window: int = 0, cache: Optional[Params] = None,
                     cache_index: Optional[Tensor] = None,
-                    tables: Optional[RopeTables] = None
+                    tables: Optional[RopeTables] = None,
+                    causal: bool = True
                     ) -> Tuple[Tensor, Optional[Params]]:
-    """Causal attention sublayer.  x: (B, S, D); positions: (B, S) int32;
-    ``window``: local attention over the last ``window`` positions (0 =
-    none).  With ``cfg.qk_norm``, q and k are RMS-normalized per head
-    before rope.
+    """Attention sublayer, causal unless ``causal`` is False (whisper's
+    encoder).  x: (B, S, D); positions: (B, S) int32; ``window``: local
+    attention over the last ``window`` positions (0 = none).  With
+    ``cfg.qk_norm``, q and k are RMS-normalized per head before rope.
 
     Without ``cache``: prefill / teacher-forced self-attention.  With
     ``cache`` (``k``/``v`` (B, L, KH, hd), ``pos`` (B, L)): write this
@@ -185,7 +186,8 @@ def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     v = v.contiguous()
 
     if cache is None:
-        out = attention(q, k, v, positions, positions, window=window)
+        out = attention(q, k, v, positions, positions, causal=causal,
+                        window=window)
     else:
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
         length = ck.shape[1]
@@ -207,7 +209,8 @@ def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
             ck[rows, slot] = k[:, 0].to(ck.dtype)
             cv[rows, slot] = v[:, 0].to(cv.dtype)
             cpos[rows, slot] = positions[:, 0]
-        out = attention(q, ck, cv, positions, cpos, window=window)
+        out = attention(q, ck, cv, positions, cpos, causal=causal,
+                        window=window)
         out = _idle_rows_mean_v(out, cv, positions)
         cache = {"k": ck, "v": cv, "pos": cpos}
 

@@ -1,25 +1,29 @@
 """The decoder-only LM: init, forward, and serving with a decode cache.
 
-Counterpart of the dense, moe, vlm and hybrid families of
-``repro/models/lm.py``.  Parameters are a dictionary ``{"embed",
-"final_norm", ...}`` holding, for dense/moe/vlm, ``blocks``: one
-dictionary per layer, with ``moe`` in place of ``mlp`` when the config
-has experts; for hybrid (RecurrentGemma), ``triples``: one ``{"rec1",
-"rec2", "attn"}`` dictionary per (recurrent, recurrent, attention)
-triple, and ``tail``: the recurrent layers after the last triple.  Each
-layer's tensors are views of one stacked tensor per weight when drawn
-here.  On CUDA tensors every attention is the flash kernel K6: ``forward``
-launches it once per attention layer with Sq = S, ``decode_step`` once
-per attention layer per step over the whole cache.
+Counterpart of ``repro/models/lm.py`` (dense, moe, vlm, hybrid and ssm
+families; the encoder-decoder lives in ``models/whisper.py``).
+Parameters are a dictionary ``{"embed", "final_norm", ...}`` holding,
+for dense/moe/vlm, ``blocks``: one dictionary per layer, with ``moe`` in
+place of ``mlp`` when the config has experts; for hybrid
+(RecurrentGemma), ``triples``: one ``{"rec1", "rec2", "attn"}``
+dictionary per (recurrent, recurrent, attention) triple, and ``tail``:
+the recurrent layers after the last triple; for ssm (xLSTM), ``groups``:
+one ``{"mlstm": [slstm_every − 1 layers], "slstm"}`` dictionary per
+group.  Each layer's tensors are views of one stacked tensor per weight
+when drawn here.  On CUDA tensors every attention is the flash kernel K6:
+``forward`` launches it once per attention layer with Sq = S,
+``decode_step`` once per attention layer per step over the whole cache
+(the ssm family has none).
 
 The decode cache is preallocated on the device with the reference's
 nesting and a leading layer axis, ``k``/``v`` (L, B, Lmax, KH, hd) and
 ``pos`` (L, B, Lmax) for dense/moe/vlm; for hybrid, ``triples`` holds
 ``rec1``/``rec2`` recurrent states (``conv`` (T, B, K−1, W), ``h`` (T, B,
 W) float32) and ``attn``, a ring of min(max_len, window) slots, and
-``tail`` the tail's recurrent states.  Every step writes into it in place
-(JAX threads it through a scan carry that XLA aliases).  The ssm family
-raises ``NotImplementedError`` (ROADMAP A12).
+``tail`` the tail's recurrent states; for ssm, ``groups`` holds ``mlstm``
+= (conv (G, M, B, K−1, up), (C (G, M, B, H, dk, dv), n, m)) and ``slstm``
+= (c, n, h, m) (G, B, d), the cell states float32.  Every step writes
+into it in place (JAX threads it through a scan carry that XLA aliases).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
+from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -38,10 +43,10 @@ Tree = Union[Dict[str, Any], List[Any], Tensor]
 
 
 def _require_served(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
-        raise NotImplementedError(
-            f"the port's LM runs the dense, moe, vlm and hybrid families; "
-            f"{cfg.name} ({cfg.family}) waits for ROADMAP A12")
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "ssm"):
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family} not handled here; the "
+            f"encoder-decoder lives in models/whisper.py")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -55,9 +60,17 @@ def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
     return n_triples, cfg.n_layers - n_triples * cfg.attn_every
 
 
+def ssm_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(groups, mLSTM layers a group) of an ssm config: n_layers //
+    slstm_every groups of slstm_every − 1 mLSTM layers and one sLSTM."""
+    return cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+
+
 def attention_layers(cfg: ModelConfig) -> int:
     """Attention layers, i.e. K6 launches a decode step on the card."""
-    return hybrid_layout(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
+    if cfg.family == "hybrid":
+        return hybrid_layout(cfg)[0]
+    return 0 if cfg.family == "ssm" else cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -93,12 +106,19 @@ def _rg_block(gen, cfg: ModelConfig, dtype, kind: str, n: int
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
     """Random parameters drawn from ``gen`` on ``gen.device``, with the JAX
-    package's distributions (dense weights normal · fan_in^−½, the router
-    and ``lambda_param`` float32, token embedding normal · 0.02, norm
-    scales ones)."""
+    package's distributions (dense weights normal · fan_in^−½; the router,
+    ``lambda_param``, ``w_if`` and ``r_*`` float32; token embedding normal
+    · 0.02; norm scales ones)."""
     _require_served(cfg)
     dtype = torch_dtype(cfg)
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        n_groups, n_m = ssm_layout(cfg)
+        mlstm = XL.init_mlstm_block(gen, cfg, dtype, (n_groups, n_m))
+        slstm = XL.init_slstm_block(gen, cfg, dtype, (n_groups,))
+        params = {"groups": [
+            {"mlstm": unstack_layers(_layer(mlstm, g), n_m),
+             "slstm": _layer(slstm, g)} for g in range(n_groups)]}
+    elif cfg.family == "hybrid":
         n_triples, n_tail = hybrid_layout(cfg)
         triples = {kind: _rg_block(gen, cfg, dtype,
                                    "attn" if kind == "attn" else "rec",
@@ -199,18 +219,55 @@ def _rg_apply(p, cfg: ModelConfig, x: Tensor, positions: Tensor, tables,
     return x + L.apply_mlp(p["mlp"], cfg, h)
 
 
-def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i``'s views of a stacked (nested) dictionary of tensors."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _layer(tree, i):
+    """Layer ``i``'s views (``leaf[i]``; ``i`` may be a tuple of indices)
+    of a stacked nest of dictionaries and tuples of tensors."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_layer(v, i) for v in tree)
+    return tree[i]
+
+
+def _write(dst, src) -> None:
+    """Copy a new state into the cache's views, leaf for leaf."""
+    if isinstance(dst, tuple):
+        for d, s_ in zip(dst, src):
+            _write(d, s_)
+    else:
+        dst.copy_(src)
+
+
+def _run_ssm(params, cfg: ModelConfig, x: Tensor, cache=None) -> Tensor:
+    """xLSTM groups in order, each block's output added to the residual
+    (no pre-norm, as in the reference).  With ``cache``: one decode step,
+    each block's new state written into the cache in place."""
+    groups = None if cache is None else cache["groups"]
+    for g, grp in enumerate(params["groups"]):
+        for i, p in enumerate(grp["mlstm"]):
+            st = None if groups is None else _layer(groups["mlstm"],
+                                                    (g, i))
+            y, new = XL.apply_mlstm_block(p, cfg, x, st,
+                                          decode=st is not None)
+            if st is not None:
+                _write(st, new)
+            x = x + y
+        st = None if groups is None else _layer(groups["slstm"], g)
+        y, new = XL.apply_slstm_block(grp["slstm"], cfg, x, st)
+        if st is not None:
+            _write(st, new)
+        x = x + y
+    return x
 
 
 def _run_layers(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
                 cache=None, cache_index=None) -> Tuple[Tensor, Tensor]:
     """Every layer in order; → (x, summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        return _run_ssm(params, cfg, x, cache), aux
     tables = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_fraction)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         tri_c = None if cache is None else cache["triples"]
         for i, tri in enumerate(params["triples"]):
@@ -257,11 +314,18 @@ def forward(params, cfg: ModelConfig, tokens: Optional[Tensor],
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None
                ) -> Dict[str, Any]:
     """Stacked per-layer decode state, all slots empty (position −1,
-    recurrent states 0), on ``device``: ``None`` means the card, as at
-    every entry point (``repro_torch.resolve_device``), so pass
+    recurrent states as the reference's init: 0, but the mLSTM ``m``
+    −1e30 and the sLSTM ``n`` 1), on ``device``: ``None`` means the card,
+    as at every entry point (``repro_torch.resolve_device``), so pass
     ``device="cpu"`` on the CPU."""
     _require_served(cfg)
     dtype, dev = torch_dtype(cfg), resolve_device(device)
+    if cfg.family == "ssm":
+        n_groups, n_m = ssm_layout(cfg)
+        return {"groups": {
+            "mlstm": XL.init_mlstm_state(cfg, batch, dtype, (n_groups, n_m),
+                                         dev),
+            "slstm": XL.init_slstm_state(cfg, batch, (n_groups,), dev)}}
     if cfg.family != "hybrid":
         return L.init_attn_cache(cfg, batch, max_len, dtype,
                                  lead=(cfg.n_layers,), device=dev)
@@ -283,12 +347,20 @@ def reset_slot(cfg: ModelConfig, cache: Dict[str, Any], slot: int
     """Empty one batch slot in place (continuous-batching admission): its
     attention positions become −1, so the previous occupant's entries can
     never pass the position mask, and every other leaf (K/V, recurrent
-    states) becomes 0.  The batch axis is 1 of every leaf."""
-    for key, leaf in cache.items():
-        if isinstance(leaf, dict):
-            reset_slot(cfg, leaf, slot)
+    states) becomes 0, as in the reference: so a reset ssm slot is not a
+    fresh one, whose mLSTM ``m`` is −1e30 and sLSTM ``n`` ones (ROADMAP
+    C18).  The batch axis is 2 of the doubly stacked ``mlstm`` leaves and
+    1 of every other leaf."""
+    def fix(node, axis, key):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                fix(v, 2 if k == "mlstm" else axis, k)
+        elif isinstance(node, tuple):
+            for v in node:
+                fix(v, axis, None)
         else:
-            leaf[:, slot] = -1 if key == "pos" else 0
+            node[(slice(None),) * axis + (slot,)] = -1 if key == "pos" else 0
+    fix(cache, 1, None)
     return cache
 
 

@@ -10,14 +10,15 @@ Prompts are fed one token a step through the same decode step, each slot
 from its own offset; ``prefill_chunk`` caps the prefill steps a ``step()``
 call may run.
 
-The engine owns its decode cache (a KV cache, or for the hybrid family
-recurrent states and local-window rings), preallocated on the parameters'
-device; ``stats["cache_bytes"]`` is its size, every nested leaf.  The
+The engine owns its decode cache (a KV cache; for the hybrid family
+recurrent states and local-window rings; for ssm the mLSTM and sLSTM
+states), preallocated on the parameters' device; ``stats["cache_bytes"]`` is its size, every nested leaf.  The
 step is a :class:`~repro_torch.engine.cache.CountingJit` program, so
 ``stats["compiles"]`` counts its input signatures and must stay 1 in
 steady state.  ``stats["flash_launches"]`` counts the flash-attention
 kernel launches the steps made (one per attention layer per step on the
-card, 0 on the CPU).  The greedy argmax runs on the device; only the slots' next
+card, so 0 for ssm, and 0 on the CPU).  The encoder-decoder (whisper) is
+refused, as in the reference: it runs through ``models/whisper.py``.  The greedy argmax runs on the device; only the slots' next
 token ids come back to the host.
 """
 from __future__ import annotations
@@ -50,8 +51,8 @@ class ServeEngine:
                  prefill_chunk: Optional[int] = None):
         if cfg.family == "encdec":
             raise NotImplementedError(
-                "engine serves decoder-only archs; whisper waits for "
-                "ROADMAP A12")
+                "engine serves decoder-only archs; whisper uses "
+                "whisper.decode_step directly")
         self.params = params
         self.cfg = cfg
         self.slots = slots

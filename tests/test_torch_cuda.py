@@ -1015,3 +1015,75 @@ def test_reduced_families_on_card(cuda, arch):
     assert float((logits["cuda"] - ref).abs().max() / ref.abs().max()) \
         <= 1e-5
     assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.cuda
+def test_reduced_ssm_on_card(cuda):
+    """The reduced xlstm-1.3b in f32 on the card against the CPU: forward
+    logits over 64 tokens (two mLSTM chunks of 32) within 1e-5 of
+    max|logit|, and a ServeEngine's greedy tokens equal, with no K6
+    launch (the ssm family has no attention)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config("xlstm-1.3b").reduced().replace(dtype="float32")
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(7))
+    logits, outs = {}, {}
+    for name, params in (("cpu", cpu), ("cuda", to_device(cpu, cuda))):
+        dev = "cpu" if name == "cpu" else cuda
+        with torch.no_grad():
+            hid, _ = lm.forward(params, cfg, toks.to(dev))
+            logits[name] = L.lm_logits(params["embed"], cfg, hid).cpu()
+        eng = ServeEngine(params, cfg, slots=3, max_len=64)
+        rng = np.random.default_rng(0)
+        for i in range(7):
+            eng.submit(Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab_size, 4 + 3 * i).astype(np.int32),
+                max_new_tokens=8))
+        FK.reset_launch_counts()
+        outs[name] = {r.uid: r.out_tokens for r in eng.run_until_drained()}
+        assert FK.launch_counts()["flash_attention_fwd"] == 0
+        assert eng.stats["flash_launches"] == 0
+        assert eng.stats["compiles"] == 1
+    ref = logits["cpu"]
+    assert float((logits["cuda"] - ref).abs().max() / ref.abs().max()) \
+        <= 1e-5
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.cuda
+def test_reduced_whisper_on_card(cuda):
+    """The reduced whisper-base in f32 on the card against the CPU:
+    encode, decode_train and 16 decode_step logits within 1e-5 of
+    max|out|, with K6 launched once per encoder layer and twice per
+    decoder layer (self, then cross-attention without the causal mask)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import whisper as WH
+    cfg = get_config("whisper-base").reduced().replace(dtype="float32")
+    cpu = WH.init_params(cfg, torch.Generator().manual_seed(0))
+    frames = torch.randn((2, 100, cfg.d_model),
+                         generator=torch.Generator().manual_seed(1))
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(7))
+    out = {}
+    for name, params in (("cpu", cpu), ("cuda", to_device(cpu, cuda))):
+        dev = "cpu" if name == "cpu" else cuda
+        FK.reset_launch_counts()
+        with torch.no_grad():
+            enc = WH.encode(params, cfg, frames.to(dev))
+            hid = WH.decode_train(params, cfg, enc, toks.to(dev))
+            train = L.lm_logits(params["embed"], cfg, hid)
+            cache = WH.init_cache(params, cfg, enc, 2, 16, device=dev)
+            steps = torch.stack([WH.decode_step(
+                params, cfg, toks[:, i:i + 1].to(dev), cache, i)[0]
+                for i in range(16)], 1)
+        want = cfg.n_enc_layers + 2 * cfg.n_dec_layers * 17 \
+            if name == "cuda" else 0
+        assert FK.launch_counts()["flash_attention_fwd"] == want
+        out[name] = [t.cpu() for t in (enc, train, steps)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5

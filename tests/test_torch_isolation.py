@@ -86,6 +86,8 @@ def test_walk_finds_the_kernel_modules():
             "repro_torch.models.lm",
             "repro_torch.models.moe",
             "repro_torch.models.rglru",
+            "repro_torch.models.xlstm",
+            "repro_torch.models.whisper",
             "repro_torch.serve.engine",
             "repro_torch.launch.serve",
             "repro_torch.engine.fleet",

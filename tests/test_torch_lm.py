@@ -1,8 +1,9 @@
 """Parity of the port's LM with the JAX package on the reduced
 llama3.2-3b (dense), qwen3-moe-30b-a3b and dbrx-132b (moe, at the
 published capacity factor, so decode drops pairs), chameleon-34b (vlm,
-qk-norm) and recurrentgemma-9b (hybrid, with a recurrent tail and a
-ring that wraps): JAX's own parameters carried across by
+qk-norm), recurrentgemma-9b (hybrid, with a recurrent tail and a ring
+that wraps) and xlstm-1.3b (ssm: mLSTM and sLSTM groups; a reset slot
+is zeroed as in the reference, C18): JAX's own parameters carried across by
 ``convert.lm_params_from_numpy``, the same tokens on both sides.
 
 * float32: ``forward`` and ``decode_step`` logits within 1e-5 of
@@ -137,15 +138,21 @@ def test_configs_and_param_counts():
 
 
 def test_other_families_raise_naming_the_roadmap():
+    """Only the encoder-decoder is refused, with the reference's wording:
+    ``lm`` does not handle the family (it lives in ``models/whisper.py``)
+    and ``ServeEngine`` serves decoder-only archs."""
     from repro_torch.serve.engine import ServeEngine
-    for arch in ("xlstm_1_3b", "whisper_base"):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="A12"):
-            lm.init_params(cfg, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="A12"):
-            lm.init_cache(cfg, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        ServeEngine(None, get_config("whisper_base").reduced())
+    cfg = get_config("whisper_base").reduced()
+    with pytest.raises(ValueError, match="not handled here.*whisper.py"):
+        lm.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="not handled here.*whisper.py"):
+        lm.init_cache(cfg, 2, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="decoder-only archs; "
+                       "whisper uses whisper.decode_step directly"):
+        ServeEngine(None, cfg)
+    ssm = get_config("xlstm_1_3b").reduced()
+    assert lm.attention_layers(ssm) == 0
+    lm.init_cache(ssm, 2, 8, device="cpu")
 
 
 def test_init_draws_jax_distributions():
@@ -181,11 +188,11 @@ def test_reset_slot_empties_one_slot_in_place():
 
 
 # ---------------------------------------------------------------------------
-# moe, vlm and hybrid families
+# moe, vlm, hybrid and ssm families
 # ---------------------------------------------------------------------------
 
 FAMILIES = ("qwen3_moe_30b_a3b", "dbrx_132b", "chameleon_34b",
-            "recurrentgemma_9b")
+            "recurrentgemma_9b", "xlstm_1_3b")
 S_FAM = 20          # > the hybrid test window: the ring wraps twice
 
 
@@ -365,15 +372,33 @@ def test_forward_takes_embeddings():
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_family_init_counts_and_dtypes(arch):
-    """Parameters by element (the router and lambda_param are float32 in
-    a bfloat16 model): param_counts plus what it leaves out, the norm
-    scales (and layernorm biases), qk-norm scales, and for hybrid the RG-LRU gate matrices and
-    GeGLU's gate projection."""
+    """Parameters by element (the router, lambda_param, w_if and r_* are
+    float32 in a bfloat16 model): param_counts plus what it leaves out,
+    the norm scales (and layernorm biases), qk-norm scales, and for hybrid
+    the RG-LRU gate matrices and GeGLU's gate projection; for ssm the
+    blocks as drawn (param_counts counts every layer an mLSTM block with
+    q/k/v of 3·up/2 columns)."""
     cfg = get_config(arch).reduced().replace(**family_kw(arch))
     params = lm.init_params(cfg, torch.Generator().manual_seed(1))
     d, n = cfg.d_model, cfg.n_layers
     norms = 2 if cfg.norm == "layernorm" else 1       # scale (and bias)
     want = param_counts(cfg)["total"] + (2 * n + 1) * d * norms
+    if cfg.family == "ssm":
+        n_groups, n_m = lm.ssm_layout(cfg)
+        up, heads, wh = 2 * d, cfg.n_heads, d // cfg.n_heads
+        mlstm = (3 * d * up + 2 * up * up // 2 + cfg.conv_width * up
+                 + 2 * heads * up + 2 * up)
+        slstm = 5 * d * d + 4 * heads * wh * wh
+        want = (cfg.vocab_size * d * 2 + d * norms
+                + n_groups * (n_m * mlstm + slstm))
+        assert len(params["groups"]) == n_groups == 2
+        assert len(params["groups"][0]["mlstm"]) == n_m == 1
+        assert params["groups"][0]["mlstm"][0]["w_if"].dtype == \
+            params["groups"][1]["slstm"]["r_o"].dtype == torch.float32
+        assert params["groups"][0]["slstm"]["w_in"].dtype == torch.bfloat16
+        assert lm.attention_layers(cfg) == 0
+        assert lm.param_numel(params) == want
+        return
     if cfg.qk_norm:
         want += 2 * cfg.head_dim * n
     if cfg.family == "hybrid":
@@ -416,6 +441,40 @@ def test_hybrid_cache_is_a_ring_and_reset_slot_walks_it():
     for leaf in (cache["triples"]["rec1"]["h"], cache["tail"]["conv"],
                  cache["triples"]["attn"]["k"]):
         assert not torch.any(leaf[:, 1])
+
+
+def test_ssm_reset_slot_equals_jax_leaf_for_leaf():
+    """After a few steps, resetting slot 1 of an ssm cache zeroes every
+    leaf of that slot along the reference's batch axis (2 for the doubly
+    stacked mLSTM leaves, 1 for the sLSTM's), so the cache equals JAX's
+    leaf for leaf, and the reset slot is not a fresh one: its mLSTM m is
+    0, not −1e30, and its sLSTM n 0, not 1 (ROADMAP C18)."""
+    (jcfg, jparams), (cfg, params) = family_sides("xlstm_1_3b", "float32")
+    toks = family_tokens(cfg.vocab_size, seed=7)
+    step = jax.jit(lambda t, c, i: jlm.decode_step(jparams, jcfg, t, c, i))
+    jcache = jlm.init_cache(jcfg, B, 8)
+    cache = lm.init_cache(cfg, B, 8, device="cpu")
+    for i in range(4):
+        _, jcache = step(jnp.asarray(toks[:, i:i + 1]), jcache,
+                         jnp.asarray(i, jnp.int32))
+        _, cache = lm.decode_step(params, cfg, torch.from_numpy(
+            toks[:, i:i + 1]), cache, i)
+    ptr = cache["groups"]["mlstm"][1][0].data_ptr()
+    jcache = jlm.reset_slot(jcfg, jcache, 1)
+    out = lm.reset_slot(cfg, cache, 1)
+    assert out["groups"]["mlstm"][1][0].data_ptr() == ptr
+    port, ref = list(lm.tensors(cache)), jax.tree.leaves(jcache)
+    assert [tuple(t.shape) for t in port] == [a.shape for a in ref]
+    for t, a in zip(port, ref):
+        assert np.abs(t.numpy() - np.asarray(a)).max() <= \
+            1e-5 * max(np.abs(np.asarray(a)).max(), 1.0)
+    _, (C, n, m) = cache["groups"]["mlstm"]
+    assert bool((m[:, :, 1] == 0).all()) and bool((m[:, :, 0] > -1e29).all())
+    assert not C[:, :, 1].any() and C[:, :, 0].abs().sum() > 0
+    fresh = lm.init_cache(cfg, B, 8, device="cpu")
+    assert bool((fresh["groups"]["mlstm"][1][2] == -1e30).all())
+    assert bool((fresh["groups"]["slstm"][1] == 1).all())
+    assert not cache["groups"]["slstm"][1][:, 1].any()
 
 
 @pytest.mark.parametrize("arch", ("llama3_2_3b",) + FAMILIES)

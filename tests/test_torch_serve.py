@@ -3,10 +3,11 @@ traffic of ``tests/test_runtime.py`` (reduced llama3.2-3b, float32, JAX's
 parameters carried across): greedy tokens equal token by token under
 continuous batching, staggered admission, chunked prefill and slot reuse,
 with one program signature in steady state.  The same for the reduced
-qwen3-moe-30b-a3b (published capacity factor: pairs drop), chameleon-34b
-and recurrentgemma-9b (a recurrent tail, a ring that wraps), where
-staggered admission is held to JAX's tokens, not to solo runs: in the
-reference an idle row's dummy token advances a live slot's recurrent
+qwen3-moe-30b-a3b (published capacity factor: pairs drop), chameleon-34b,
+recurrentgemma-9b (a recurrent tail, a ring that wraps) and xlstm-1.3b
+(mLSTM and sLSTM states, a reset slot zeroed as in the reference: C18),
+where staggered admission is held to JAX's tokens, not to solo runs: in
+the reference an idle row's dummy token advances a live slot's recurrent
 state (ROADMAP C17), and capacity makes a MoE row depend on its batch.
 Also: an engine owns its cache, and the CLI serves on the CPU when
 asked."""
@@ -158,7 +159,8 @@ def test_cli_serves_on_the_cpu_when_asked(capsys):
 # moe, vlm and hybrid families
 # ---------------------------------------------------------------------------
 
-FAMILIES = ("qwen3_moe_30b_a3b", "chameleon_34b", "recurrentgemma_9b")
+FAMILIES = ("qwen3_moe_30b_a3b", "chameleon_34b", "recurrentgemma_9b",
+            "xlstm_1_3b")
 
 
 @pytest.fixture(scope="module", params=FAMILIES)
@@ -194,8 +196,8 @@ def test_family_continuous_batching_matches_jax(family):
 
 def test_family_staggered_and_chunked_schedules_match_jax(family):
     """Staggered admission and chunked prefill, token for token with JAX;
-    for the hybrid family staggered admission moves request 0's tokens
-    off its solo run in both packages (C17)."""
+    for the hybrid and ssm families staggered admission moves request 0's
+    tokens off its solo run in both packages (C17)."""
     vocab = family[1][0].vocab_size
     rng = np.random.default_rng(2)
     pa = rng.integers(0, vocab, 9).astype(np.int32)
@@ -213,7 +215,7 @@ def test_family_staggered_and_chunked_schedules_match_jax(family):
     submit_both(pair, 1, pb, 6)
     stag = [outputs(e.run_until_drained()) for e in pair]
     assert stag[1] == stag[0]
-    if family[1][0].family == "hybrid":
+    if family[1][0].family in ("hybrid", "ssm"):
         assert stag[1][0] != solo[1]
 
     pair = engines(family, slots=2, max_len=64, prefill_chunk=2)
@@ -227,7 +229,7 @@ def test_family_staggered_and_chunked_schedules_match_jax(family):
 
 
 @pytest.mark.parametrize("arch", ("qwen3-moe-30b-a3b", "recurrentgemma-9b",
-                                  "chameleon-34b"))
+                                  "chameleon-34b", "xlstm-1.3b"))
 def test_cli_serves_the_families_on_the_cpu(arch, capsys):
     eng = launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                              "--requests", "3", "--slots", "2",
