@@ -149,14 +149,15 @@ Slice 6 adds, in the same run:
               mid-journal and recovered with BOService.recover, bitwise;
               the "kernels" line adds K1–K4's service launches
 Slice 7 adds, in the same run:
-  - families  after serve: ServeEngine on qwen3-moe-30b-a3b (full width
-              and depth: 48 layers, 128 experts top-8, qk-norm; the
+  - families  after serve: ServeEngine on qwen3-moe-30b-a3b (full width,
+              8 of 48 layers since PR 25, 128 experts top-8, qk-norm; the
               expert weights drawn in place, the init's peak memory
               logged), chameleon-34b's backbone (full width, 4 of 48
-              layers) and recurrentgemma-9b (full width and depth: 12
-              (rec, rec, attn) triples and 2 recurrent layers, window
-              2048), bf16, each with serve's traffic: parameters counted
-              by element, every request decodes 32 tokens, K6 launches =
+              layers) and recurrentgemma-9b (full width, 8 of 38 layers
+              since PR 25: 2 (rec, rec, attn) triples and 2 recurrent
+              layers, window 2048), bf16, each with serve's traffic:
+              parameters counted by element, every request decodes 32
+              tokens, K6 launches =
               attention layers × steps, one program; tokens/s, ms a step,
               steady decode's K6, product and busy device ms and idle
               share beside the step's bound (its weight bytes over 3.35
@@ -172,9 +173,9 @@ Slice 7 adds, in the same run:
               plain version, SDPA and the bound; the "kernels" line adds
               K6's launches on the three paths and these rows
 Slice 8 adds, in the same run:
-  - families  xlstm-1.3b (ssm: full width and depth, 6 groups of 7 mLSTM
-              + 1 sLSTM blocks, bf16) with serve's traffic: 2,121,060,352
-              parameters by element, a 2,831,160,576-byte cache at 8 slots,
+  - families  xlstm-1.3b (ssm: full width, 2 of 6 groups of 7 mLSTM
+              + 1 sLSTM blocks since PR 25, bf16) with serve's traffic:
+              parameters by element, the cache's bytes at 8 slots,
               no K6 launch, one program; steady decode's busy, cuBLAS and
               other device ms beside the step's bound (weights plus the
               states read and written once); decode (step form) vs
@@ -197,6 +198,36 @@ Slice 8 adds, in the same run:
               causal self-attention over a 448-slot cache, split path),
               each beside its plain version, SDPA and the bound; the
               "kernels" line adds whisper's launches and these rows
+Slice 9 adds, in the same run, after the service:
+  - train kernels  K6 with its log-sum-exp and K7 (flash_attention_bwd)
+              against their plain versions at every attention a family's
+              training runs: llama3.2-3b's step (B=4, S=512, NH=24, KH=8,
+              hd=128, bf16, causal, MMA forward), f32 hd 64 at S=300 with
+              window 128, qwen3's G=8, recurrentgemma's NH=16, KH=1, hd
+              256 with window 2048 at S=2560, whisper's encoder (S=1500,
+              not causal) and cross-attention (Sq=64 over 1500), and a
+              call where no query sees a key (window 0, causal): lse
+              within 1e-4 (+inf where no key is seen), K6's output bits
+              unchanged with lse, K7 within 1e-4 of each gradient's max
+              (+ one bf16 rounding), bitwise from run to run, exact zeros
+              where no pair is seen; at the slice's shape the device and
+              call ms of K6 with and without lse, K7 and their plain
+              versions, SDPA's forward and backward (timed only) and the
+              bounds
+  - train     llama3.2-3b at full width through train_step (weights drawn
+              once on the card, stacked; B=4, S=512, AdamW lr 3e-4, wd
+              0.1, 8 steps, 1 of warmup): finite falling loss, 28 K6 and
+              28 K7 launches a step, ms a step, tokens/s, MFU, peak
+              memory, 3 steps traced (K6, K7, cuBLAS, other, busy, idle),
+              the gradients and the update apart; the six families'
+              reduced configs (llama, qwen3-moe, chameleon with stub
+              embeddings, recurrentgemma, xlstm, whisper) one step on the
+              card against the CPU in f32, and llama with grad_accum 2
+              and with bf16 gradients; the reduced llama through
+              launch/train.main: 6 steps straight = 3, checkpoint,
+              resume to 6, bitwise; the hpo_train twin (K1–K4 in the
+              sampler, K6 = K7 = 2 × steps × trials); the "kernels" line
+              adds K7 and K6's train launches and timing
 Every timing line carries the card's name and power limit.
 Then it prints the card, a "kernels" JSON line (each "ms" with its
 source, "ms_from"; K6 at the serving step's shape), and the result line.
@@ -1776,7 +1807,7 @@ def decode_vs_forward(params, cfg, dev, s=64):
     max|logit|; and the greedy choices of the two.  With experts, bf16
     rounding (the prefill's and a decode step's products differ) flips a
     router's choice wherever two experts lie closer than that rounding,
-    and over 48 layers most tokens meet one: every such flip must be a
+    and over many layers most tokens meet one: every such flip must be a
     near tie (the forward's gap p_k − p_(k+1) at most twice the token's
     |Δp| between the runs), and the 5e-2 holds for a second decode whose
     tokens take the forward's experts (``RouterSpy(pin=...)``).  →
@@ -2036,12 +2067,16 @@ def phase_serve(dev):
 # staggered/chunked-equals-solo check (None: published; "skip": the
 # reference lacks the property, ROADMAP C17), card-vs-CPU traffic:
 # (prompt lengths, new tokens, max_len); hybrid wraps its reduced window
-# of 64).  Slice 8 adds the ssm family (xlstm-1.3b, full width and depth)
+# of 64).  Slice 8 adds the ssm family (xlstm-1.3b).  Slice 9 cuts the
+# depth of qwen3 (48 → 8 layers), recurrentgemma (38 → 8: two triples and
+# a recurrent tail of 2) and xlstm (48 → 16: two groups) to keep the
+# script's time within the run's limit on a slow host (1,352.6 s, chip run
+# 2 of PR 25): every block kind and every check stays, at full width
 FAMILIES = (
-    ("qwen3-moe-30b-a3b", None, 100.0, ((4, 12), 6, 64)),
+    ("qwen3-moe-30b-a3b", 8, 100.0, ((4, 12), 6, 64)),
     ("chameleon-34b", 4, None, ((4, 12), 6, 64)),
-    ("recurrentgemma-9b", None, "skip", ((40, 60), 40, 128)),
-    ("xlstm-1.3b", None, "skip", ((4, 12), 6, 64)),
+    ("recurrentgemma-9b", 8, "skip", ((40, 60), 40, 128)),
+    ("xlstm-1.3b", 16, "skip", ((4, 12), 6, 64)),
 )
 
 
@@ -2104,9 +2139,9 @@ def step_weight_bytes(params, cfg, slots):
 
 
 def phase_serve_families(dev, families=FAMILIES):
-    """ServeEngine on qwen3-moe-30b-a3b (full width and depth),
-    chameleon-34b's backbone (full width, 4 layers), recurrentgemma-9b
-    and xlstm-1.3b (full width and depth), bf16, weights drawn on the card
+    """ServeEngine on qwen3-moe-30b-a3b, chameleon-34b's backbone,
+    recurrentgemma-9b and xlstm-1.3b at full width (depth as FAMILIES
+    keeps it), bf16, weights drawn on the card
     from the seed, each with phase_serve's traffic: K6 launches =
     attention layers × steps (none for ssm), one program; tokens/s, ms a
     step and steady decode's device ms (K6, products, other, busy) and
@@ -4060,6 +4095,484 @@ def phase_service(dev, c=SERVICE):
                 ladder=ladder, nan_trip=trip, recovery=rec, overhead=cli)
 
 
+# ------------------------------------------------------------ slice 9
+# K7 (flash_attention_bwd) cases: (tag, B, Sq, Sk, NH, KH, hd, dtype,
+# causal, window in the Pallas rule, query positions): "self" is
+# arange(S) for queries and keys, "zero" puts every query at 0 (whisper's
+# cross-attention); every attention a family's training runs
+TRAIN_K7 = (
+    ("slice: llama3.2-3b B=4 S=512", 4, 512, 512, 24, 8, 128, "bfloat16",
+     True, None, "self"),
+    ("f32 hd 64 ragged S=300 window 128", 2, 300, 300, 4, 2, 64, "float32",
+     True, 128, "self"),
+    ("qwen3 heads G=8 S=256", 2, 256, 256, 32, 4, 128, "bfloat16", True,
+     None, "self"),
+    ("recurrentgemma NH=16 KH=1 hd 256 window 2048 S=2560", 1, 2560, 2560,
+     16, 1, 256, "bfloat16", True, 2048, "self"),
+    ("whisper encoder B=2 S=1500 not causal", 2, 1500, 1500, 8, 8, 64,
+     "bfloat16", False, None, "self"),
+    ("whisper cross Sq=64 over 1500", 2, 64, 1500, 8, 8, 64, "bfloat16",
+     False, None, "zero"),
+    ("no visible key: window 0, causal", 2, 96, 96, 4, 2, 64, "float32",
+     True, 0, "self"),
+)
+K7_F32_TOL = 1e-4
+
+
+def train_k7_inputs(dev, case, seed):
+    """q, k, v, dO, q_pos, kv_pos of a TRAIN_K7 case (normal draws)."""
+    import torch
+    _, b, sq, sk, nh, kh, hd, dtype, _, _, qpos = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(dt)
+                   for sh in ((b, sq, nh, hd), (b, sk, kh, hd),
+                              (b, sk, kh, hd), (b, sq, nh, hd)))
+    kp = torch.arange(sk, dtype=torch.int32, device=dev).expand(b, sk)
+    qp = (torch.arange(sq, dtype=torch.int32, device=dev).expand(b, sq)
+          if qpos == "self" else
+          torch.zeros((b, sq), dtype=torch.int32, device=dev))
+    return q, k, v, do, qp.contiguous(), kp.contiguous()
+
+
+def k7_err(got, ref):
+    """(max |Δ|, within the limit) of one gradient: both sum in float32 in
+    other orders, so |Δ| ≤ K7_F32_TOL · max|ref| (a norm-wise limit: a
+    gradient entry sums up to Sq·G or Sk terms), plus one rounding of the
+    entry to bf16 (2⁻⁷·|ref|) for bf16 inputs."""
+    import torch
+    d = (got.float() - ref.float()).abs()
+    lim = K7_F32_TOL * float(ref.float().abs().max()) + (
+        2.0 ** -7 * ref.float().abs() if ref.dtype == torch.bfloat16 else 0.0)
+    return float(d.max()), bool((d <= lim).all())
+
+
+def flash_bwd_cost(q, k, q_pos, kv_pos, causal=True, window=None):
+    """(bytes, operations, peak rate) K7 needs: q, o, dO and dQ (B, Sq, NH,
+    hd), k, v, dK and dV (B, Sk, KH, hd), lse and the positions, each once;
+    five products (S, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K) of 2·hd operations per
+    visible (query head, key) pair."""
+    import torch
+    from repro_torch.kernels.flash.ref import position_mask
+    b, sq, nh, hd = q.shape
+    sk, kh, es = k.shape[1], k.shape[2], q.element_size()
+    pairs = int(position_mask(q_pos, kv_pos, causal, window).sum())
+    nbytes = (4 * b * sq * nh * hd * es + 4 * b * sk * kh * hd * es
+              + 4 * b * nh * sq + 4 * (q_pos.numel() + kv_pos.numel()))
+    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    return nbytes, 10 * pairs * nh * hd, rate
+
+
+def check_k7(dev, case, seed, err):
+    """K6 with lse and K7 against their plain versions on one TRAIN_K7
+    case: lse within 1e-4, K6's output bits the same with and without
+    lse, K7's gradients within k7_err's limit and bitwise from run to run,
+    exact zeros for rows (and keys) no pair sees."""
+    import torch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash.ref import (flash_attention_bwd_ref,
+                                               flash_attention_fwd_ref,
+                                               position_mask)
+    tag, causal, window = case[0], case[8], case[9]
+    q, k, v, do, qp, kp = train_k7_inputs(dev, case, seed)
+    kw = dict(causal=causal, window=window)
+    out, lse = FK.flash_attention_fwd(q, k, v, qp, kp, return_lse=True, **kw)
+    bare = FK.flash_attention_fwd(q, k, v, qp, kp, **kw)
+    _, lse_ref = flash_attention_fwd_ref(q, k, v, qp, kp, return_lse=True,
+                                         **kw)
+    grads = FK.flash_attention_bwd(q, k, v, out, lse, do, qp, kp, **kw)
+    again = FK.flash_attention_bwd(q, k, v, out, lse, do, qp, kp, **kw)
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, do, qp, kp, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(out, bare), f"{tag}: K6's output bits move with lse")
+    seen = position_mask(qp, kp, causal, window)                # (B, Sq, Sk)
+    rows, keys = seen.any(-1), seen.any(1)
+    fin = torch.isfinite(lse_ref)
+    check(torch.equal(fin, torch.isfinite(lse)) and
+          bool((lse[~fin] == torch.inf).all()),
+          f"{tag}: lse's +inf rows differ from the plain version's")
+    e_lse = float((lse[fin] - lse_ref[fin]).abs().max()) if fin.any() else 0.0
+    check(e_lse <= 1e-4, f"{tag}: lse |Δ| {e_lse}")
+    es = []
+    for name, got, ref, rep in zip(("dq", "dk", "dv"), grads, refs, again):
+        e, ok = k7_err(got, ref)
+        check(ok, f"{tag}: K7 {name} |Δ| {e} over its limit")
+        check(torch.equal(got, rep), f"{tag}: K7 {name} not bitwise from "
+              f"run to run")
+        check(bool(torch.isfinite(got.float()).all()), f"{tag}: K7 {name} "
+              f"not finite")
+        es.append(e)
+    check(not bool(grads[0][~rows].any()), f"{tag}: a row with no visible "
+          f"key has a nonzero dQ")
+    check(not bool(grads[1][~keys].any()) and
+          not bool(grads[2][~keys].any()),
+          f"{tag}: a key no row sees has a nonzero dK or dV")
+    err["flash_bwd"] = max(err.get("flash_bwd", 0.0), *es)
+    err["flash_lse"] = max(err.get("flash_lse", 0.0), e_lse)
+    log(f"[train kernels] {tag} ({FK.plan_of(q, k)[0]} forward): K7 |Δ| dq "
+        f"{es[0]:.3e} dk {es[1]:.3e} dv {es[2]:.3e}, lse {e_lse:.3e}, "
+        f"bitwise run to run; K6 bits unchanged with lse; "
+        f"{int((~rows).sum())} rows and {int((~keys).sum())} keys unseen "
+        f"= 0")
+    return q, k, v, do, qp, kp, out, lse
+
+
+def phase_train_kernels(dev, err):
+    """Slice 9's kernels: K6 with its log-sum-exp and K7 at every
+    TRAIN_K7 case (check_k7), then at the slice's shape (B=4, S=512,
+    NH=24, KH=8, hd=128, bf16, causal) the device and call ms of K6 with
+    and without lse, K7, their plain versions and SDPA's forward and
+    backward (timed only, never on the path) beside their bounds.
+    Returns the timing row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash.ref import (flash_attention_bwd_ref,
+                                               flash_attention_fwd_ref)
+    t0 = time.perf_counter()
+    for i, case in enumerate(TRAIN_K7[1:]):
+        check_k7(dev, case, 200 + i, err)
+        torch.cuda.empty_cache()
+    q, k, v, do, qp, kp, out, lse = check_k7(dev, TRAIN_K7[0], 199, err)
+    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                        enable_gqa=True)
+    dos = do.transpose(1, 2)
+    calls = {
+        "flash": lambda: FK.flash_attention_fwd(q, k, v, qp, kp),
+        "flash_lse": lambda: FK.flash_attention_fwd(q, k, v, qp, kp,
+                                                    return_lse=True),
+        "flash_lse_plain": lambda: flash_attention_fwd_ref(
+            q, k, v, qp, kp, return_lse=True),
+        "flash_bwd": lambda: FK.flash_attention_bwd(q, k, v, out, lse, do,
+                                                    qp, kp),
+        "flash_bwd_plain": lambda: flash_attention_bwd_ref(
+            q, k, v, out, lse, do, qp, kp),
+        "sdpa_fwd": lambda: F.scaled_dot_product_attention(
+            qs.detach(), ks.detach(), vs.detach(), is_causal=True,
+            enable_gqa=True),
+        "sdpa_bwd": lambda: torch.autograd.grad(so, (qs, ks, vs), dos,
+                                                retain_graph=True)}
+    row = dict(shape=TRAIN_K7[0][0] + " NH=24 KH=8 hd=128 bf16 causal",
+               plan=list(FK.plan_of(q, k)))
+    for key, fn in calls.items():
+        row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(fn, 10)
+        row[f"{key}_call_ms"] = cuda_time_ms(fn, 10)
+    nbytes, ops, rate = flash_cost(q, k, qp, kp)
+    row["flash_lse_bound_ms"], row["flash_lse_bound_by"] = flash_bound_ms(
+        nbytes + 4 * lse.numel(), ops, rate)
+    row["flash_bwd_bound_ms"], row["flash_bwd_bound_by"] = flash_bound_ms(
+        *flash_bwd_cost(q, k, qp, kp))
+    row["flash_bwd_kernels"] = kernel_us(calls["flash_bwd"], "flash_bwd_")
+    log("[timing] " + json.dumps(on_card(row)))
+    log(f"[time] train kernels: {time.perf_counter() - t0:.1f} s")
+    del q, k, v, do, out, lse, qs, ks, vs, so
+    torch.cuda.empty_cache()
+    return row
+
+
+# slice 9's training run: llama3.2-3b at full width, B=4, S=512, bf16
+TRAIN = dict(arch="llama3.2-3b", batch=4, seq=512, steps=8, traced=3,
+             lr=3e-4, weight_decay=0.1, layers=28)
+# the six families' reduced configs, card against CPU (f32)
+TRAIN_FAMILIES = ("llama3.2-3b", "qwen3-moe-30b-a3b", "chameleon-34b",
+                  "recurrentgemma-9b", "xlstm-1.3b", "whisper-base")
+TRAIN_REL = 1e-5        # loss and grad norm, card against CPU
+TRAIN_MU_REL = 1e-4     # first moment, |Δ| / max|·| per leaf
+TRAIN_STEP_FRACTION = 0.5   # parameters: |Δ| ≤ this · lr
+
+
+def train_opt(c=TRAIN, **kw):
+    from repro_torch.train.optim import OptimConfig
+    return OptimConfig(lr=c["lr"], weight_decay=c["weight_decay"],
+                       total_steps=c["steps"], warmup_steps=1, **kw)
+
+
+def train_device_ms(prof):
+    """Device ms of one trace by class: K6 (flash_fwd_*), K7
+    (flash_bwd_*), the matrix products (cuBLAS, by name), the rest, and
+    all of it."""
+    out = dict(k6=0.0, k7=0.0, cublas=0.0, other=0.0, busy=0.0)
+    for ev in prof.key_averages():
+        us = _device_us(ev)
+        if us <= 0:
+            continue
+        key = ev.key.lower()
+        cls = ("k6" if "flash_fwd" in key else "k7" if "flash_bwd" in key
+               else "cublas" if any(k in key for k in GEMM_KEYS) else "other")
+        out[cls] += us / 1e3
+        out["busy"] += us / 1e3
+    return out
+
+
+def train_full_width(dev, c=TRAIN):
+    """llama3.2-3b at full width through the port's train step: random
+    weights drawn once on the card (seed 0, stacked: one leaf per
+    reference leaf), DataConfig(B, S, seed 0), AdamW (lr 3e-4, wd 0.1, 8
+    total steps, 1 of warmup); ``steps`` steps with every count reset
+    before them: finite loss and grad norm at each, the last loss below
+    the first, K6 = K7 = 28 launches a step; then ``traced`` steps in a
+    card_trace (K6, K7, cuBLAS, other and busy device ms a step, the idle
+    share against the untraced steps' median host ms); then the step's
+    halves apart (CUDA events): ``compute_grads`` and ``apply_updates``.
+    Returns the row and the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synth import DataConfig, synth_batch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.launch.shapes import init_fn_for
+    from repro_torch.models.config import param_counts
+    from repro_torch.train.optim import (apply_updates, init_opt_state,
+                                         tree_leaves)
+    from repro_torch.train.step import compute_grads, make_train_step
+    t0 = time.perf_counter()
+    cfg = get_config(c["arch"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_fn_for(cfg)(cfg, torch.Generator(device=dev).manual_seed(0),
+                              stacked=True)
+    opt_cfg = train_opt(c)
+    state = init_opt_state(params, opt_cfg)
+    leaves = tree_leaves(params)
+    numel = sum(p.numel() for p in leaves)
+    check(numel == expected_params(cfg), f"train: {numel} parameters, want "
+          f"{expected_params(cfg)}")
+    # MFU counts the matrices (param_counts: 3,606,577,152), not the norms
+    n_mfu = param_counts(cfg)["total"]
+    check(all(p.dtype == torch.bfloat16 for p in leaves) and
+          all(m.dtype == torch.float32 and m.shape == p.shape
+              for m, p in zip(tree_leaves(state.mu) + tree_leaves(state.nu),
+                              leaves + leaves)) and
+          state.step.dtype == torch.int32 and len(leaves) == 12,
+          "train: parameter or moment dtypes differ from the reference's")
+    dcfg = DataConfig(global_batch=c["batch"], seq_len=c["seq"], seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in synth_batch(cfg, dcfg, i).items()}
+               for i in range(c["steps"] + c["traced"])]
+    step_fn = make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    FK.reset_launch_counts()
+    losses, gnorms, wall = [], [], []
+    for i in range(c["steps"]):
+        t1 = time.perf_counter()
+        params, state, m = step_fn(params, state, batches[i])
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = FK.launch_counts()
+    want = c["layers"] * c["steps"]
+    check(launches == {"flash_attention_fwd": want,
+                       "flash_attention_bwd": want},
+          f"train: launches {launches}, want {want} of each "
+          f"({c['layers']} a step)")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"train: loss {losses} or grad norm {gnorms} not finite")
+    check(losses[-1] < losses[0], f"train: the loss did not fall {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    with card_trace() as prof:
+        t1 = time.perf_counter()
+        for i in range(c["steps"], c["steps"] + c["traced"]):
+            params, state, m = step_fn(params, state, batches[i])
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t1) * 1e3 / c["traced"]
+    dev_ms = {k: v / c["traced"] for k, v in train_device_ms(prof).items()}
+    check(dev_ms["k6"] > 0 and dev_ms["k7"] > 0,
+          f"train: the trace holds no K6 or K7 time {dev_ms}")
+    # the step's two halves apart (after the checks; the updates below
+    # move the parameters further): gradients, then AdamW on them
+    _, grads = compute_grads(params, cfg, batches[-1])
+    grads_ms = cuda_time_ms(lambda: compute_grads(params, cfg, batches[-1]),
+                            1)
+    update_ms = cuda_time_ms(
+        lambda: apply_updates(params, grads, state, opt_cfg), 2)
+    del grads
+    ms = sorted(wall[1:])[len(wall[1:]) // 2]        # median after the first
+    tokens = c["batch"] * c["seq"]
+    row = dict(
+        arch=c["arch"], batch=c["batch"], seq=c["seq"], params=numel,
+        steps=c["steps"], losses=losses, grad_norms=gnorms,
+        step_ms=wall, ms_per_step=ms, first_step_ms=wall[0],
+        tokens_per_s=tokens / (ms / 1e3),
+        mfu=6 * n_mfu * tokens / (ms / 1e3) / BF16_FLOP_PER_S,
+        mfu_params=n_mfu,
+        traced_ms_per_step=traced_ms,
+        **{f"{k}_device_ms_per_step": v for k, v in dev_ms.items()},
+        idle_share_est=max(0.0, 1.0 - dev_ms["busy"] / ms),
+        grads_ms=grads_ms, update_ms=update_ms,
+        peak_memory_gb=peak / 1e9, init_s=init_s,
+        launches=launches)
+    log("[train] " + json.dumps(on_card(row)))
+    del params, state, batches, m
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def train_card_vs_cpu(dev, arch, seed=0, **opt):
+    """One train step of ``arch``'s reduced config in f32 on the card and
+    on the CPU from the same parameters (drawn on the CPU, seed ``seed``,
+    stacked) and the same batch (B=2, S=64: two mLSTM chunks; the vlm
+    backbone with stub ``embeddings``): loss and grad norm within
+    TRAIN_REL (relative), the first moment (the clipped gradients) within
+    TRAIN_MU_REL of each leaf's max (two bf16 roundings, 2⁻⁷, with bf16
+    gradients), the updated parameters within TRAIN_STEP_FRACTION of lr
+    (2·lr with bf16 gradients), K6 = K7 = the attention layers' calls on
+    the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synth import DataConfig, synth_batch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.launch.shapes import init_fn_for
+    from repro_torch.models import lm
+    from repro_torch.train.optim import init_opt_state, tree_leaves, tree_map
+    from repro_torch.train.step import train_step
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    cpu = init_fn_for(cfg)(cfg, torch.Generator().manual_seed(seed),
+                           stacked=True)
+    card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+    nb = synth_batch(cfg, DataConfig(global_batch=2, seq_len=64, seed=1), 0)
+    if cfg.family == "vlm":
+        nb["embeddings"] = (np.random.default_rng(2).standard_normal(
+            (2, 64, cfg.d_model)) * 0.02).astype(np.float32)
+    grad_accum = opt.pop("grad_accum", 1)
+    opt_cfg = train_opt(**opt)
+    out = {}
+    for name, p, d in (("cpu", cpu, "cpu"), ("cuda", card, dev)):
+        st = init_opt_state(p, opt_cfg)
+        batch = {k: torch.from_numpy(v).to(d) for k, v in nb.items()}
+        FK.reset_launch_counts()
+        p, st, m = train_step(p, st, batch, cfg=cfg, opt_cfg=opt_cfg,
+                              grad_accum=grad_accum)
+        out[name] = (p, st, float(m["loss"]), float(m["grad_norm"]),
+                     FK.launch_counts())
+    (pc, sc, lc, gc, _), (pd, sd, ld, gd, launched) = out["cpu"], out["cuda"]
+    # whisper: each encoder layer once, each decoder layer twice (self
+    # and cross)
+    calls = grad_accum * (cfg.n_enc_layers + 2 * cfg.n_dec_layers
+                          if cfg.family == "encdec"
+                          else lm.attention_layers(cfg))
+    check(launched == {"flash_attention_fwd": calls,
+                       "flash_attention_bwd": calls},
+          f"train card vs CPU {arch}: launches {launched}, want {calls}")
+    rel_l, rel_g = abs(ld - lc) / abs(lc), abs(gd - gc) / abs(gc)
+    check(rel_l <= TRAIN_REL and rel_g <= TRAIN_REL,
+          f"train card vs CPU {arch}: loss rel {rel_l}, grad norm rel "
+          f"{rel_g} > {TRAIN_REL}")
+    dp = max(float((a.detach().cpu() - b.detach()).abs().max())
+             for a, b in zip(tree_leaves(pd), tree_leaves(pc)))
+    # the first moment is (1 − b1)·clip·g: the gradients, norm-wise per
+    # leaf (an entry sums many terms in another order on each device);
+    # bf16 gradients round each entry to 2⁻⁸ of itself, and entries that
+    # differ in their last float32 bits may round to neighbours
+    bf16 = opt_cfg.grad_compression == "bf16"
+    mu_lim = 2 * 2.0 ** -8 if bf16 else TRAIN_MU_REL
+    dm = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(
+        min=1e-30)) for a, b in zip(tree_leaves(sd.mu), tree_leaves(sc.mu)))
+    check(dm <= mu_lim, f"train card vs CPU {arch}: first moment "
+          f"|Δ| / max|·| {dm} > {mu_lim}")
+    # at step 1 an entry moves by lr·(g/(|g| + eps) + wd·p): where |g| is
+    # near eps = 1e-8 a rounding of g moves it by up to lr·|Δg|/eps, so
+    # the parameters are held to a fraction of one step's move (to two
+    # moves with bf16 gradients: an entry rounded to 0 on one side moves
+    # one step less)
+    lim = (2.0 if bf16 else TRAIN_STEP_FRACTION) * opt_cfg.lr
+    check(dp <= lim, f"train card vs CPU {arch}: parameters |Δ| {dp} > "
+          f"{lim}")
+    tag = ", ".join([f"{k}={v}" for k, v in opt.items()] +
+                    ([f"grad_accum={grad_accum}"] if grad_accum > 1 else []))
+    log(f"[train] card vs CPU, reduced {arch} f32"
+        f"{' (' + tag + ')' if tag else ''}: loss {ld:.6f} rel {rel_l:.3e}, "
+        f"grad norm rel {rel_g:.3e} (≤ {TRAIN_REL:g}), first moment "
+        f"|Δ|/max {dm:.3e} (≤ {mu_lim:g}), parameters |Δ| {dp:.3e} = "
+        f"{dp / opt_cfg.lr:.3e}·lr (≤ {lim / opt_cfg.lr:g}·lr); K6 = K7 "
+        f"= {calls}")
+    return dict(arch=arch, loss_rel=rel_l, grad_norm_rel=rel_g,
+                param_abs=dp, mu_rel=dm, **opt)
+
+
+def train_resume(dev):
+    """The reduced llama (bf16) through ``launch/train.main`` on the card:
+    6 steps with checkpoints every 3 (the step-3 one written in the
+    background while training goes on), then a fresh run on a directory
+    holding only that step-3 checkpoint, resumed to 6: the final
+    parameters bitwise equal."""
+    import shutil
+    import torch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.launch import train as T
+    from repro_torch.train.optim import tree_leaves
+    root = os.path.join(ROOT, "build", "train_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
+    common = ["--arch", "llama3.2-3b", "--reduced", "--batch", "4", "--seq",
+              "64", "--steps", "6", "--ckpt-every", "3", "--log-every", "3"]
+    FK.reset_launch_counts()
+    a = T.main(common + ["--ckpt-dir", a_dir])
+    check(FK.launch_counts() == {"flash_attention_fwd": 24,
+                                 "flash_attention_bwd": 24},
+          f"train resume: launches {FK.launch_counts()}, want 24 each")
+    os.makedirs(b_dir)
+    shutil.copy(os.path.join(a_dir, "ckpt_0000000003.npz"), b_dir)
+    b = T.main(common + ["--ckpt-dir", b_dir])
+    same = all(torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    check(same, "train resume: the resumed run's parameters differ from "
+          "the straight run's")
+    shutil.rmtree(root, ignore_errors=True)
+    log("[train] resume: reduced llama3.2-3b bf16 on the card, 6 steps "
+        "straight = 3, checkpoint, resume to 6: parameters bitwise equal")
+
+
+def train_twin(dev, trials=7, steps=5):
+    """``examples/hpo_train_torch.py`` on the card: a GPSampler (D-BE)
+    tunes lr and weight decay of a reduced f32 LM (2 layers), ``trials``
+    trials of ``steps`` steps: K1–K4 in the sampler, K6 = K7 = 2 layers ×
+    steps × trials in the objective, counted alone."""
+    import torch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.matern import kernel as MK
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import hpo_train_torch
+    FK.reset_launch_counts()
+    MK.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = hpo_train_torch.main(["--trials", str(trials), "--steps",
+                              str(steps)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fl, ml = FK.launch_counts(), MK.launch_counts()
+    want = 2 * steps * trials
+    check(fl == {"flash_attention_fwd": want, "flash_attention_bwd": want},
+          f"hpo_train twin: K6/K7 launches {fl}, want {want} each")
+    check(all(v > 0 for v in ml.values()), f"hpo_train twin: K1–K4 "
+          f"launches {ml}")
+    best = s.best()
+    check(math.isfinite(best.y), f"hpo_train twin: best {best.y}")
+    log(f"[train] hpo_train twin: {trials} trials × {steps} steps in "
+        f"{wall:.1f} s, best loss {best.y:.4f}; K6 = K7 = {want}, K1–K4 "
+        f"{json.dumps(ml)}")
+    return dict(wall_s=wall, best=best.y, flash=fl, matern=ml)
+
+
+def phase_train(dev):
+    """Slice 9: the full-width train steps, the six families' reduced
+    configs card against CPU (and grad_accum 2, bf16 gradients on the
+    dense one), the bitwise resume, the hpo_train twin."""
+    t0 = time.perf_counter()
+    row, launches = train_full_width(dev)
+    rows = [train_card_vs_cpu(dev, a) for a in TRAIN_FAMILIES]
+    rows.append(train_card_vs_cpu(dev, "llama3.2-3b", grad_accum=2))
+    rows.append(train_card_vs_cpu(dev, "llama3.2-3b",
+                                  grad_compression="bf16"))
+    train_resume(dev)
+    twin = train_twin(dev)
+    log(f"[time] train: {time.perf_counter() - t0:.1f} s")
+    return dict(full=row, card_vs_cpu=rows, twin=twin), launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found next to the script",
@@ -4111,6 +4624,10 @@ def main() -> int:
     fleet_t = fleet_timing(dev)
     log(f"[time] fleet: {time.perf_counter() - t_start:.1f} s")
     service = phase_service(dev)
+    log(f"[time] service: {time.perf_counter() - t_start:.1f} s")
+    train_k = phase_train_kernels(dev, err)
+    train, train_launches = phase_train(dev)
+    log(f"[time] train: {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4181,6 +4698,15 @@ def main() -> int:
             **({"serve_twin_launches": paper["launches"]["serve"],
                 "families_launches": families_launches,
                 "whisper_launches": whisper_launches,
+                # slice 9: the full-width train steps (28 a step), and
+                # K6 with its log-sum-exp at their shape
+                "train_launches": train_launches["flash_attention_fwd"],
+                "train_timing": {
+                    key: train_k[key] for key in (
+                        "shape", "flash_ms", "flash_ms_from", "flash_lse_ms",
+                        "flash_lse_ms_from", "flash_lse_call_ms",
+                        "flash_lse_plain_ms", "flash_lse_bound_ms",
+                        "flash_lse_bound_by", "sdpa_fwd_ms")},
                 **{f"{path}_timing": {
                     a: {key: r[key] for key in (
                         "flash_ms", "flash_ms_from", "flash_plain_ms",
@@ -4190,6 +4716,26 @@ def main() -> int:
                    for path, rows in (("families", families_t),
                                       ("whisper", whisper_t))}}
                if name == "flash_attention_fwd" else {})})
+    # K7 replaces no TPU kernel: the reference differentiates
+    # attention_xla through XLA; at the full-width train step's shape
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash/csrc/flash_bwd.cu",
+        "replaces": "src/repro/models/layers.py:147",
+        "replaces_note": "no TPU kernel: XLA autodiff of attention_xla",
+        "launches": train_launches["flash_attention_bwd"],
+        "max_abs_err": err["flash_bwd"], "ms": train_k["flash_bwd_ms"],
+        "plain_ms": train_k["flash_bwd_plain_ms"],
+        "bound_ms": train_k["flash_bwd_bound_ms"],
+        "bound_by": train_k["flash_bwd_bound_by"],
+        "library_ms": train_k["sdpa_bwd_ms"],
+        "ms_from": train_k["flash_bwd_ms_from"],
+        "library_ms_from": train_k["sdpa_bwd_ms_from"],
+        "call_ms": train_k["flash_bwd_call_ms"],
+        "kernels_us": train_k["flash_bwd_kernels"],
+        "train": {k: train["full"][k] for k in (
+            "ms_per_step", "tokens_per_s", "mfu", "k7_device_ms_per_step",
+            "busy_device_ms_per_step", "peak_memory_gb")}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

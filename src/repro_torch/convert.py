@@ -17,7 +17,7 @@ from repro_torch.engine.engine import EvalEngine
 from repro_torch.engine.fleet import FleetEngine, _Block, _Study
 from repro_torch.gp.gpr import GPState
 from repro_torch.gp.kernels import KernelParams
-from repro_torch.models.lm import tensors, unstack_layers
+from repro_torch.models.lm import per_layer
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
@@ -121,7 +121,7 @@ def _lm_tensor(a, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
-def lm_params_from_numpy(tree, device=None):
+def lm_params_from_numpy(tree, device=None, *, stacked: bool = False):
     """The port's LM parameters from the JAX package's unboxed parameter
     tree as numpy arrays: ``{"embed", "final_norm", "blocks"}`` (dense,
     moe, vlm), ``{"embed", "final_norm", "triples", "tail"}`` (hybrid),
@@ -129,27 +129,31 @@ def lm_params_from_numpy(tree, device=None):
     "dec", "enc_norm", "final_norm"}`` (whisper), each layer stack stacked
     over layers, and ``groups``' ``mlstm`` leaves stacked over groups then
     layers.  Every stack becomes one nested dictionary per layer (per
-    group, holding a list of its mLSTM layers) of views; every dtype is
-    kept (the router, ``lambda_param``, ``w_if`` and ``r_*`` stay float32
-    in a bfloat16 model).  On ``device``: ``None`` means the card, as at
-    every entry point (``repro_torch.resolve_device``), and raises
-    without one."""
+    group, holding a list of its mLSTM layers) of views, or, with
+    ``stacked``, stays the one tensor (the reference's tree: what
+    training holds).  Every dtype is kept (the router, ``lambda_param``,
+    ``w_if`` and ``r_*`` stay float32 in a bfloat16 model).  On
+    ``device``: ``None`` means the card, as at every entry point
+    (``repro_torch.resolve_device``), and raises without one."""
+    out = _tree_from_numpy(tree, resolve_device(device))
+    return out if stacked else per_layer(out)
+
+
+def _tree_from_numpy(node, dev: torch.device):
+    if isinstance(node, dict):
+        return {k: _tree_from_numpy(v, dev) for k, v in node.items()}
+    return _lm_tensor(node, dev)
+
+
+def opt_state_from_numpy(state, device=None):
+    """The port's ``AdamState`` from the JAX package's (``step``, ``mu``,
+    ``nu``, ``ef`` with their trees unboxed, as numpy arrays): the moments
+    and residuals as tensors on ``device`` (``None`` means the card), the
+    step on the host, as the port keeps it."""
+    from repro_torch.train.optim import AdamState
     dev = resolve_device(device)
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _lm_tensor(node, dev)
-
-    def unstack(node):
-        return unstack_layers(node, next(tensors(node)).shape[0])
-
-    out = {}
-    for key, node in tree.items():
-        out[key] = conv(node)
-        if key in ("blocks", "triples", "tail", "enc", "dec"):
-            out[key] = unstack(out[key])
-        elif key == "groups":
-            out[key] = [dict(g, mlstm=unstack(g["mlstm"]))
-                        for g in unstack(out[key])]
-    return out
+    step, mu, nu, ef = state
+    return AdamState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+        mu=_tree_from_numpy(mu, dev), nu=_tree_from_numpy(nu, dev),
+        ef=_tree_from_numpy(ef, dev) if isinstance(ef, dict) else ())

@@ -6,7 +6,11 @@
 // entry points and the LM (forward and serving decode):
 //
 //   q (B, Sq, NH, hd), k/v (B, Sk, KH, hd) in float32 or bfloat16,
-//   q_pos (B, Sq) and kv_pos (B, Sk) int32, out (B, Sq, NH, hd) in q's type.
+//   q_pos (B, Sq) and kv_pos (B, Sk) int32, out (B, Sq, NH, hd) in q's type,
+//   and, when the caller passes a buffer (training: K7 flash_bwd.cu reads
+//   it), lse (B, NH, Sq) float32, each row's log Σ_j exp(s_j) over its
+//   visible keys (s the scaled scores), +inf for a row with none.  Without
+//   it nothing is written and the output's bits are the same.
 //   Query head h reads KV head h / G, G = NH / KH (GQA by index: the cache
 //   is read once per KV head and never repeated).  The rows of one (batch
 //   row, KV head) are f = query · G + group head.
@@ -446,7 +450,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_merge_kernel(const float* __restrict__ part_ml,
                        const float* __restrict__ part_acc, T* __restrict__ out,
-                       int sq, int nh, int kh, int nsplit) {
+                       float* __restrict__ lse, int sq, int nh, int kh,
+                       int nsplit) {
   constexpr int kPer = HD / 32;
   extern __shared__ float weights[];
   const int g = nh / kh, nrows = sq * g;
@@ -475,6 +480,10 @@ flash_fwd_merge_kernel(const float* __restrict__ part_ml,
   T* o = out + (((size_t)b * sq + f / g) * nh + kvh * g + f % g) * HD + lane * kPer;
 #pragma unroll
   for (int t = 0; t < kPer; ++t) o[t] = Elem<T>::from_f32(__fdiv_rn(acc[t], denom));
+  // m is in scaled units here: lse = M + log L
+  if (lse != nullptr && lane == 0)
+    lse[((size_t)b * nh + kvh * g + f % g) * sq + f / g] =
+        sum == 0.f ? __int_as_float(0x7f800000) : __fadd_rn(mx, logf(sum));
 }
 
 // -------------------------------------------------------------- MMA path
@@ -558,8 +567,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
-                     __nv_bfloat16* __restrict__ out, int sq, int sk, int nh,
-                     int kh, int causal, int window, float scale) {
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                     int sq, int sk, int nh, int kh, int causal, int window,
+                     float scale) {
   using S = MmaSmem<HD>;
   constexpr int kHalves = HD / 64;
   constexpr int kSteps = HD / 16;        // k16 steps of Q·Kᵀ
@@ -809,6 +819,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
             __floats2bfloat162_rn(__fdiv_rn(o[h][e], denom),
                                   __fdiv_rn(o[h][e + 1], denom));
       }
+    // m is in unscaled units here: lse = m·scale + log l (l sums
+    // 2^((s - m)·scale·log2 e) = exp((s - m)·scale))
+    if (lse != nullptr && tq == 0)
+      lse[((size_t)b * nh + kvh * g + f % g) * sq + f / g] =
+          l[i] == 0.f ? __int_as_float(0x7f800000)
+                      : __fadd_rn(__fmul_rn(m[i], scale), logf(l[i]));
   }
 }
 
@@ -824,6 +840,7 @@ struct Args {
   const void *q, *k, *v;
   const int *q_pos, *kv_pos;
   void* out;
+  float* lse;
   float* scratch;
   int b, sq, sk, nh, kh, causal, window, split_len;
   float scale;
@@ -852,7 +869,7 @@ cudaError_t launch_split(const Args& a) {
   err = allow_smem(flash_fwd_merge_kernel<T, HD>, msmem);
   if (err != cudaSuccess) return err;
   flash_fwd_merge_kernel<T, HD><<<mgrid, kThreads, msmem, a.stream>>>(
-      part_ml, part_acc, static_cast<T*>(a.out), a.sq, a.nh, a.kh, nsplit);
+      part_ml, part_acc, static_cast<T*>(a.out), a.lse, a.sq, a.nh, a.kh, nsplit);
   return cudaGetLastError();
 }
 
@@ -868,8 +885,8 @@ cudaError_t launch_mma(const Args& a) {
   flash_fwd_mma_kernel<HD><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), a.q_pos, a.kv_pos,
-      static_cast<__nv_bfloat16*>(a.out), a.sq, a.sk, a.nh, a.kh, a.causal,
-      a.window, a.scale);
+      static_cast<__nv_bfloat16*>(a.out), a.lse, a.sq, a.sk, a.nh, a.kh,
+      a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -891,10 +908,11 @@ cudaError_t launch_split_type(const Args& a, int hd) {
 // sign, as the Pallas kernel).  path: 0 =
 // split (scratch holds B·KH·Sq·G·nsplit·(hd + 2) floats, nsplit =
 // ceil(Sk / split_len), at least 1), 1 = MMA (bf16, hd 64 or 128; scratch
-// unused).  Returns the launches' cudaError_t.
+// unused).  lse: (B, NH, Sq) float32, or null (then not written).
+// Returns the launches' cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* q_pos, const void* kv_pos,
-                                   void* out, void* scratch, int b, int sq,
+                                   void* out, void* lse, void* scratch, int b, int sq,
                                    int sk, int nh, int kh, int hd, int dtype,
                                    int causal, int has_window, int window,
                                    float scale, int path, int split_len,
@@ -902,7 +920,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (b < 1 || sq < 1 || sk < 0 || kh < 1 || nh % kh != 0) return cudaErrorInvalidValue;
   if (has_window && window == kNoWindow) return cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos),
-               out, static_cast<float*>(scratch), b, sq, sk, nh, kh, causal,
+               out, static_cast<float*>(lse), static_cast<float*>(scratch), b,
+               sq, sk, nh, kh, causal,
                has_window ? window : kNoWindow, split_len, scale,
                static_cast<cudaStream_t>(stream)};
   if (path == 1) {

@@ -1,9 +1,12 @@
-"""CUDA flash attention (forward): build, binding, wrappers.
+"""CUDA flash attention, forward and backward: build, binding, wrappers.
 
 ``csrc/flash.cu`` holds K6 ``flash_attention_fwd`` (see its header for
 what it replaces, what bounds each of its two paths and why they look as
-they do).  It is built with the port's other kernels into one library at
-first use (``kernels/_build.py``); nothing is built at import.
+they do); ``csrc/flash_bwd.cu`` holds K7 ``flash_attention_bwd``, its
+backward (which replaces no TPU kernel: the JAX package differentiates
+``attention_xla`` through XLA).  Both are built with the port's other
+kernels into one library at first use (``kernels/_build.py``); nothing is
+built at import.
 
 * :func:`plan` — which path a call takes and how many cache slots a block
   of the split path owns, from the shapes alone (the one source of truth;
@@ -14,13 +17,20 @@ first use (``kernels/_build.py``); nothing is built at import.
   device, dtype, shape, contiguity and alignment, allocates the output and
   the split path's scratch, launches on the current stream (one C call:
   the split and merge kernels, or the MMA kernel), raises if the launch
-  fails, and adds one to its launch count.
+  fails, and adds one to its launch count.  With ``return_lse`` it also
+  returns each row's log-sum-exp (B, NH, Sq) in float32, which K7 reads.
+* :func:`flash_attention_bwd` — K7's wrapper: (dQ, dK, dV) from q, k, v,
+  K6's output and log-sum-exp and the output's gradient; the plain
+  version (``ref.py``) for CPU tensors, K7 for CUDA tensors (one C call,
+  three kernels), with its own launch count.
 * :func:`enqueue` — the wrapper past its checks, for a given plan: the
   allocations and the one C call.
-* :func:`attention` — the same function as an autograd op whose backward
-  raises (training is a later slice of the port, ROADMAP A12): the LM's
-  attention, with and without its KV cache.  Its window follows the LM's
-  ``attention_xla``: 0 means none.
+* :func:`attention` — the same function as an autograd op: the LM's
+  attention, with and without its KV cache.  When q, k or v needs a
+  gradient the forward asks K6 for the log-sum-exp and keeps q, k, v, the
+  output and it; the backward is K7 on CUDA tensors and the plain
+  backward on CPU tensors.  Serving (no gradient) writes no log-sum-exp.
+  Its window follows the LM's ``attention_xla``: 0 means none.
 * :func:`flash_attention` and :func:`flash_attention_bhsd` — the JAX
   package's single-head and (B, H, S, D) entry points, with the Pallas
   kernel's suffix-aligned causal semantics, through the same kernel.  Their
@@ -38,7 +48,8 @@ import torch
 from repro_torch.kernels._build import (check_launch, check_tensor, declare,
                                         on_cpu)
 from repro_torch.kernels._build import lib as _lib
-from repro_torch.kernels.flash.ref import flash_attention_fwd_ref
+from repro_torch.kernels.flash.ref import (flash_attention_bwd_ref,
+                                           flash_attention_fwd_ref)
 
 Tensor = torch.Tensor
 
@@ -54,13 +65,16 @@ SPLITS = 8                       # splits a decode (row, KV head) aims at
 MMA_ROWS = 64                    # (query, group head) rows of one wgmma M
 MMA_HEAD_DIMS = (64, 128)
 
-# launches of K6; read and reset by callers that must show the main path
-# went through the kernel (chip_smoke.py, ServeEngine stats)
-LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}
+# launches of K6 and K7; read and reset by callers that must show the main
+# path went through the kernels (chip_smoke.py, ServeEngine stats)
+LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
+                            "flash_attention_bwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 declare("flash_attention_fwd",
-        [_P] * 7 + [_I] * 10 + [ctypes.c_float, _I, _I, _P], _I)
+        [_P] * 8 + [_I] * 10 + [ctypes.c_float, _I, _I, _P], _I)
+declare("flash_attention_bwd", [_P] * 12 + [_I] * 10 + [ctypes.c_float, _P],
+        _I)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -112,9 +126,12 @@ def launch_counts() -> Dict[str, int]:
 def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                         kv_pos: Tensor, *, causal: bool = True,
                         window: Optional[int] = None,
-                        scale: Optional[float] = None) -> Tensor:
+                        scale: Optional[float] = None,
+                        return_lse: bool = False):
     """K6: q (B, Sq, NH, hd), k/v (B, Sk, KH, hd), q_pos (B, Sq) and
-    kv_pos (B, Sk) int32 → (B, Sq, NH, hd) in q's dtype.
+    kv_pos (B, Sk) int32 → (B, Sq, NH, hd) in q's dtype; with
+    ``return_lse``, (that, lse (B, NH, Sq) float32), +inf for a row that
+    sees no key.
 
     ``window`` None means no window; a window w (any sign) hides keys at
     positions ≤ q_pos − w, the Pallas kernel's rule.
@@ -128,7 +145,8 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
         raise ValueError(f"{nh} query heads do not group over {kh} KV heads")
     if on_cpu(q):
         return flash_attention_fwd_ref(q, k, v, q_pos, kv_pos, causal=causal,
-                                       window=window, scale=scale)
+                                       window=window, scale=scale,
+                                       return_lse=return_lse)
     dev = q.device
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -144,23 +162,31 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if window is not None and not -2 ** 31 < window < 2 ** 31:
-        raise ValueError(f"window {window} is outside (-2³¹, 2³¹)")
+    _check_window(window)
     scale = hd ** -0.5 if scale is None else float(scale)
+    lse = (torch.empty((b, nh, sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     with torch.cuda.device(dev):
         out = enqueue(_lib().flash_attention_fwd, q, k, v, q_pos, kv_pos,
-                      causal, window, scale, *plan_of(q, k))
+                      causal, window, scale, *plan_of(q, k), lse=lse)
     LAUNCHES["flash_attention_fwd"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _check_window(window: Optional[int]) -> None:
+    if window is not None and not -2 ** 31 < window < 2 ** 31:
+        raise ValueError(f"window {window} is outside (-2³¹, 2³¹)")
 
 
 def enqueue(entry, q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
             kv_pos: Tensor, causal: bool, window: Optional[int],
-            scale: float, path: str, split_len: int) -> Tensor:
+            scale: float, path: str, split_len: int,
+            lse: Optional[Tensor] = None) -> Tensor:
     """The wrapper past its checks: allocate the output and the split
     path's scratch, call ``entry`` (the C entry ``flash_attention_fwd``)
-    on the current stream with the given plan, raise if it failed.
-    ``flash_ab.py`` times it with other plans."""
+    on the current stream with the given plan, raise if it failed; the
+    log-sum-exp goes to ``lse`` when given.  ``flash_ab.py`` times it with
+    other plans."""
     b, sq, nh, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -170,6 +196,7 @@ def enqueue(entry, q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                if path == "split" else None)
     err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
                 kv_pos.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), b, sq, sk,
                 nh, kh, hd, _DTYPES[q.dtype], int(causal),
                 int(window is not None), int(window or 0), scale,
@@ -179,26 +206,87 @@ def enqueue(entry, q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     return out
 
 
+def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                        lse: Tensor, dout: Tensor, q_pos: Tensor,
+                        kv_pos: Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K7: the gradients (dQ, dK, dV) of :func:`flash_attention_fwd` at
+    q, k, v (its arguments), given its output ``out``, its ``lse`` (from
+    ``return_lse``) and the output's gradient ``dout`` (B, Sq, NH, hd).
+    dK and dV sum each KV head's query heads.  The plain version on CPU
+    tensors; K7 on CUDA tensors (raises if the launch fails)."""
+    b, sq, nh, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if on_cpu(q):
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, q_pos,
+                                       kv_pos, causal=causal, window=window,
+                                       scale=scale)
+    dev = q.device
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if kh < 1 or nh % kh:
+        raise ValueError(f"{nh} query heads do not group over {kh} KV heads")
+    for name, x, shape, dtype in (
+            ("q", q, (b, sq, nh, hd), q.dtype),
+            ("k", k, (b, sk, kh, hd), q.dtype),
+            ("v", v, (b, sk, kh, hd), q.dtype),
+            ("out", out, (b, sq, nh, hd), q.dtype),
+            ("lse", lse, (b, nh, sq), torch.float32),
+            ("dout", dout, (b, sq, nh, hd), q.dtype),
+            ("q_pos", q_pos, (b, sq), torch.int32),
+            ("kv_pos", kv_pos, (b, sk), torch.int32)):
+        check_tensor(name, x, shape, dtype, dev)
+    _check_window(window)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dsum = torch.empty((b, nh, sq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dsum.data_ptr(), b, sq, sk, nh, kh, hd, _DTYPES[q.dtype],
+            int(causal), int(window is not None), int(window or 0), scale,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("flash_attention_bwd", err)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
 class _FlashFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, scale):
-        return flash_attention_fwd(q, k, v, q_pos, kv_pos, causal=causal,
-                                   window=window, scale=scale)
+        ctx.args = (causal, window, scale)
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention_fwd(q, k, v, q_pos, kv_pos, causal=causal,
+                                       window=window, scale=scale)
+        out, lse = flash_attention_fwd(q, k, v, q_pos, kv_pos, causal=causal,
+                                       window=window, scale=scale,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, kv_pos)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "flash attention has no backward yet: training is a later "
-            "slice of the port (ROADMAP A12)")
+        q, k, v, out, lse, q_pos, kv_pos = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g.contiguous(),
+                                         q_pos, kv_pos, causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
               kv_pos: Tensor, *, causal: bool = True,
               window: Optional[int] = None,
               scale: Optional[float] = None) -> Tensor:
-    """Position-masked GQA attention (the LM's): K6 on CUDA tensors, the
-    plain version on CPU tensors; the backward raises.  ``window`` 0 or
-    None means none, as in ``attention_xla``."""
+    """Position-masked GQA attention (the LM's): K6 forward and K7
+    backward on CUDA tensors, the plain versions on CPU tensors.
+    ``window`` 0 or None means none, as in ``attention_xla``."""
     return _FlashFn.apply(q, k, v, q_pos, kv_pos, causal, window or None,
                           scale)
 

@@ -8,11 +8,15 @@ are plain dictionaries of tensors with the JAX package's names and layouts
 The projections and the vocabulary head are plain ``torch.matmul``, as
 JAX leaves them to XLA; the attention is the flash kernel K6 on CUDA
 tensors and its plain version on CPU tensors
-(``repro_torch.kernels.flash.kernel.attention``), with and without the KV
-cache.  Cache writes happen in place.
+(``repro_torch.kernels.flash.kernel.attention``; its backward is K7), with
+and without the KV cache.  Cache writes happen in place.
+:func:`attention_xla` is the reference's plain masked attention in torch
+(C9's rule: a query that sees no key gets the mean of v); the tests hold
+the kernels' path against it, and no path of the port calls it.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -39,6 +43,13 @@ def _dense_init(gen: torch.Generator, shape, dtype, in_axis_size: int
     place: a stacked expert weight is allocated once."""
     scale = torch.tensor(in_axis_size ** -0.5, dtype=dtype, device=gen.device)
     return _normal(gen, shape, dtype).mul_(scale)
+
+
+def make_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               lead: Tuple[int, ...] = ()) -> Tensor:
+    """A (d_in, d_out) weight (with ``lead`` stacking axes), normal ·
+    d_in^−½; the reference's sharding axes have no counterpart here."""
+    return _dense_init(gen, lead + (d_in, d_out), dtype, d_in)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +228,57 @@ def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     wo = p["wo"]
     y = out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
     return y, cache
+
+
+def _attend_block(qg: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
+    """qg (B, Sq, KH, G, hd), k/v (B, Sk, KH, hd), mask (B, 1, 1, Sq, Sk):
+    float32 scores, masked at −1e30, softmax, P cast to v's dtype for P·V
+    (the reference's ``_attend_block``)."""
+    hd = qg.shape[-1]
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * hd ** -0.5
+    p = torch.softmax(torch.where(mask, s, -1e30), -1)
+    return torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+
+
+def attention_xla(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                  window: int, q_pos: Tensor, kv_pos: Tensor,
+                  chunk: int = 0) -> Tensor:
+    """The reference's plain attention (``repro/models/layers.py:147``):
+    q (B, Sq, NH, hd), k/v (B, Sk, KH, hd), masking by position (kv
+    positions −1 are invalid; causal; ``window`` 0 = none).  A query with
+    no visible key gets a uniform softmax, the mean of v (C9).  ``chunk``:
+    query-block size (0 or ≥ Sq, or not dividing Sq: one block); the
+    blocks compute the same."""
+    b, sq, nh, hd = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, sq, kh, nh // kh, hd)
+    ik = kv_pos[:, None, None, None, :]
+
+    def mask_for(iq_abs: Tensor) -> Tensor:
+        iq = iq_abs[:, None, None, :, None]
+        m = ik >= 0
+        if causal:
+            m = m & (ik <= iq)
+        if window:
+            m = m & (ik > iq - window)
+        return m
+
+    if chunk <= 0 or chunk >= sq or sq % chunk:
+        out = _attend_block(qg, k, v, mask_for(q_pos))
+    else:
+        out = torch.cat([_attend_block(qg[:, i:i + chunk], k, v,
+                                       mask_for(q_pos[:, i:i + chunk]))
+                         for i in range(0, sq, chunk)], 1)
+    return out.reshape(b, sq, nh, hd)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnTemps:
+    """Static attention call profile (which path, masking, chunking), as
+    the reference's."""
+    causal: bool = True
+    window: int = 0
+    chunk: int = 1024
 
 
 def _idle_rows_mean_v(out: Tensor, cv: Tensor, positions: Tensor) -> Tensor:

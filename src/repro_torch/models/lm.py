@@ -1,4 +1,5 @@
-"""The decoder-only LM: init, forward, and serving with a decode cache.
+"""The decoder-only LM: init, forward, loss, and serving with a decode
+cache.
 
 Counterpart of ``repro/models/lm.py`` (dense, moe, vlm, hybrid and ssm
 families; the encoder-decoder lives in ``models/whisper.py``).
@@ -10,10 +11,15 @@ dictionary per (recurrent, recurrent, attention) triple, and ``tail``:
 the recurrent layers after the last triple; for ssm (xLSTM), ``groups``:
 one ``{"mlstm": [slstm_every − 1 layers], "slstm"}`` dictionary per
 group.  Each layer's tensors are views of one stacked tensor per weight
-when drawn here.  On CUDA tensors every attention is the flash kernel K6:
-``forward`` launches it once per attention layer with Sq = S,
-``decode_step`` once per attention layer per step over the whole cache
-(the ssm family has none).
+when drawn here.  The same keys may instead hold the stacks themselves,
+the reference's tree (``init_params(stacked=True)``, what training
+holds: one leaf per reference leaf, so its gradient, moments and norm
+go over the reference's leaves); every entry point then takes the
+per-layer views itself, at each call (:func:`per_layer`), so autograd
+sees them as fresh views of the leaves.  On CUDA tensors every attention
+is the flash kernel K6 (its backward K7): ``forward`` launches it once
+per attention layer with Sq = S, ``decode_step`` once per attention
+layer per step over the whole cache (the ssm family has none).
 
 The decode cache is preallocated on the device with the reference's
 nesting and a leading layer axis, ``k``/``v`` (L, B, Lmax, KH, hd) and
@@ -104,41 +110,62 @@ def _rg_block(gen, cfg: ModelConfig, dtype, kind: str, n: int
     return p
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, gen: torch.Generator, *,
+                stacked: bool = False) -> Dict[str, Any]:
     """Random parameters drawn from ``gen`` on ``gen.device``, with the JAX
     package's distributions (dense weights normal · fan_in^−½; the router,
     ``lambda_param``, ``w_if`` and ``r_*`` float32; token embedding normal
-    · 0.02; norm scales ones)."""
+    · 0.02; norm scales ones).  Per-layer views, or with ``stacked`` the
+    stacks themselves (the reference's tree; the same draws)."""
     _require_served(cfg)
     dtype = torch_dtype(cfg)
     if cfg.family == "ssm":
         n_groups, n_m = ssm_layout(cfg)
-        mlstm = XL.init_mlstm_block(gen, cfg, dtype, (n_groups, n_m))
-        slstm = XL.init_slstm_block(gen, cfg, dtype, (n_groups,))
-        params = {"groups": [
-            {"mlstm": unstack_layers(_layer(mlstm, g), n_m),
-             "slstm": _layer(slstm, g)} for g in range(n_groups)]}
+        params = {"groups": {
+            "mlstm": XL.init_mlstm_block(gen, cfg, dtype, (n_groups, n_m)),
+            "slstm": XL.init_slstm_block(gen, cfg, dtype, (n_groups,))}}
     elif cfg.family == "hybrid":
         n_triples, n_tail = hybrid_layout(cfg)
-        triples = {kind: _rg_block(gen, cfg, dtype,
-                                   "attn" if kind == "attn" else "rec",
-                                   n_triples)
-                   for kind in ("rec1", "rec2", "attn")}
-        tail = _rg_block(gen, cfg, dtype, "rec", n_tail) if n_tail else None
-        params = {"triples": unstack_layers(triples, n_triples)}
-        if tail is not None:
-            params["tail"] = unstack_layers(tail, n_tail)
+        params = {"triples": {
+            kind: _rg_block(gen, cfg, dtype,
+                            "attn" if kind == "attn" else "rec", n_triples)
+            for kind in ("rec1", "rec2", "attn")}}
+        if n_tail:
+            params["tail"] = _rg_block(gen, cfg, dtype, "rec", n_tail)
     else:
-        params = {"blocks": unstack_layers(
-            _dense_block(gen, cfg, dtype, cfg.n_layers), cfg.n_layers)}
-    return {"embed": L.init_embedding(gen, cfg, dtype),
+        params = {"blocks": _dense_block(gen, cfg, dtype, cfg.n_layers)}
+    tree = {"embed": L.init_embedding(gen, cfg, dtype),
             "final_norm": L.init_norm(gen, cfg, dtype), **params}
+    return tree if stacked else per_layer(tree)
 
 
-def unstack_layers(stacked: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+def unstack_layers(stacked) -> List[Any]:
     """A nested dictionary of (n, ...) tensors → n nested dictionaries of
-    views, one a layer."""
-    return [_layer(stacked, i) for i in range(n)]
+    views, one a layer, each leaf split by one ``unbind`` (under autograd
+    one backward node a leaf, which stacks the layers' gradients once)."""
+    if isinstance(stacked, dict):
+        parts = {k: unstack_layers(v) for k, v in stacked.items()}
+        count = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(count)]
+    return list(stacked.unbind(0))
+
+
+STACKS = ("blocks", "triples", "tail", "enc", "dec")
+
+
+def per_layer(params: Dict[str, Any], keys=STACKS) -> Dict[str, Any]:
+    """The per-layer form of a parameter tree: each stacked layer entry
+    named in ``keys`` (``blocks``, ``triples``, ``tail``, whisper's
+    ``enc``/``dec``; and ``groups``, with each group's ``mlstm``) split
+    into per-layer views; entries already split are kept as they are."""
+    out = dict(params)
+    for key in keys:
+        if isinstance(out.get(key), dict):
+            out[key] = unstack_layers(out[key])
+    if isinstance(out.get("groups"), dict):
+        out["groups"] = [dict(g, mlstm=unstack_layers(g["mlstm"]))
+                         for g in unstack_layers(out["groups"])]
+    return out
 
 
 def tensors(tree: Tree) -> Iterator[Tensor]:
@@ -263,6 +290,7 @@ def _run_ssm(params, cfg: ModelConfig, x: Tensor, cache=None) -> Tensor:
 def _run_layers(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
                 cache=None, cache_index=None) -> Tuple[Tensor, Tensor]:
     """Every layer in order; → (x, summed aux loss)."""
+    params = per_layer(params)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         return _run_ssm(params, cfg, x, cache), aux
@@ -305,6 +333,34 @@ def forward(params, cfg: ModelConfig, tokens: Optional[Tensor],
                              device=x.device).expand(b, s).contiguous()
     x, aux = _run_layers(params, cfg, x, positions)
     return L.apply_norm(params["final_norm"], x, cfg.norm), aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(params, cfg: ModelConfig, hidden: Tensor,
+                  targets: Tensor) -> Tensor:
+    """Mean softmax cross-entropy of the vocabulary head on ``hidden``
+    (B, S, D) against ``targets`` (B, S): float32 logits, a log-sum-exp
+    shifted by the row's max (detached, as the reference's
+    ``stop_gradient``), minus the target's logit.  The target's logit is a
+    ``gather``, which equals the reference's one-hot sum exactly (every
+    other term is 0·logit = 0) and saves a (B, S, V) float32 tensor."""
+    logits = L.lm_logits(params["embed"], cfg, hidden).float()
+    lmax = logits.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - lmax).sum(-1)) + lmax[..., 0]
+    true_logit = logits.gather(-1, targets[..., None].long())[..., 0]
+    return (lse - true_logit).mean()
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Tensor]) -> Tensor:
+    """The training loss: cross-entropy of ``forward`` on ``batch``
+    (``tokens``, ``targets``, optional stub ``embeddings``) plus 0.01 × the
+    MoE auxiliary loss."""
+    hidden, aux = forward(params, cfg, batch["tokens"],
+                          embeddings=batch.get("embeddings"))
+    return cross_entropy(params, cfg, hidden, batch["targets"]) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,11 @@ mask, the decoder's self-attention with it.  An :func:`encode` launches
 K6 once per encoder layer, :func:`decode_train` and :func:`decode_step`
 twice per decoder layer.  Parameters: ``{"embed", "enc", "dec",
 "enc_norm", "final_norm"}``, ``enc`` and ``dec`` one dictionary per
-layer of views of one stacked tensor per weight when drawn here.
-Training (``lm_loss``) waits for ROADMAP A12 item 4.5.
+layer of views of one stacked tensor per weight when drawn here, or the
+stacks themselves (``init_params(stacked=True)``, the reference's tree,
+what training holds; ``lm.per_layer`` splits them at each call).
+:func:`lm_loss` is the training loss (encode, decode_train, the LM's
+cross-entropy); under autograd every K6 call's backward is K7.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels.flash.kernel import attention
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import torch_dtype, unstack_layers
+from repro_torch.models.lm import cross_entropy, per_layer, torch_dtype
 
 Tensor = torch.Tensor
 
@@ -44,9 +47,11 @@ def _sinusoidal(positions: Tensor, d: int, dtype) -> Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, gen: torch.Generator, *,
+                stacked: bool = False) -> Dict[str, Any]:
     """Random parameters drawn from ``gen`` on ``gen.device`` with the JAX
-    package's distributions (see ``lm.init_params``)."""
+    package's distributions (see ``lm.init_params``); per-layer views, or
+    with ``stacked`` the stacks themselves."""
     dtype = torch_dtype(cfg)
     ne, nd = (cfg.n_enc_layers,), (cfg.n_dec_layers,)
     enc = {
@@ -63,13 +68,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
         "mlp_norm": L.init_norm(gen, cfg, dtype, nd),
         "mlp": L.init_mlp(gen, cfg, dtype, nd),
     }
-    return {
+    tree = {
         "embed": L.init_embedding(gen, cfg, dtype),
-        "enc": unstack_layers(enc, cfg.n_enc_layers),
-        "dec": unstack_layers(dec, cfg.n_dec_layers),
+        "enc": enc,
+        "dec": dec,
         "enc_norm": L.init_norm(gen, cfg, dtype),
         "final_norm": L.init_norm(gen, cfg, dtype),
     }
+    return tree if stacked else per_layer(tree)
 
 
 def _positions(b: int, s: int, device) -> Tensor:
@@ -100,7 +106,7 @@ def encode(params, cfg: ModelConfig, frames: Tensor) -> Tensor:
     dt = torch_dtype(cfg)
     pos = _positions(b, s, frames.device)
     x = frames.to(dt) + _sinusoidal(pos, d, dt)
-    for p in params["enc"]:
+    for p in per_layer(params, ("enc",))["enc"]:
         a = L.apply_norm(p["attn_norm"], x, cfg.norm)
         a, _ = L.apply_attention(p["attn"], cfg, a, pos, causal=False)
         x = x + a
@@ -117,7 +123,7 @@ def decode_train(params, cfg: ModelConfig, enc_out: Tensor,
     x = L.embed_tokens(params["embed"], tokens)
     x = x + _sinusoidal(pos, cfg.d_model, x.dtype)
     enc_pos = _positions(b, enc_out.shape[1], enc_out.device)
-    for p in params["dec"]:
+    for p in per_layer(params, ("dec",))["dec"]:
         a = L.apply_norm(p["self_norm"], x, cfg.norm)
         a, _ = L.apply_attention(p["self_attn"], cfg, a, pos, causal=True)
         x = x + a
@@ -127,6 +133,14 @@ def decode_train(params, cfg: ModelConfig, enc_out: Tensor,
         m = L.apply_norm(p["mlp_norm"], x, cfg.norm)
         x = x + L.apply_mlp(p["mlp"], cfg, m)
     return L.apply_norm(params["final_norm"], x, cfg.norm)
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Tensor]) -> Tensor:
+    """The training loss: ``encode`` the batch's ``frames``, ``decode_train``
+    its ``tokens``, and the LM's cross-entropy against its ``targets``."""
+    enc_out = encode(params, cfg, batch["frames"])
+    hidden = decode_train(params, cfg, enc_out, batch["tokens"])
+    return cross_entropy(params, cfg, hidden, batch["targets"])
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +167,8 @@ def init_cache(params, cfg: ModelConfig, enc_out: Tensor, batch: int,
 
 def _cross_all(params, cfg: ModelConfig, enc_out: Tensor
                ) -> Dict[str, Tensor]:
-    kv = [_enc_kv(p["cross_attn"], enc_out) for p in params["dec"]]
+    kv = [_enc_kv(p["cross_attn"], enc_out)
+          for p in per_layer(params, ("dec",))["dec"]]
     return {"k": torch.stack([k for k, _ in kv]),
             "v": torch.stack([v for _, v in kv])}
 
@@ -168,7 +183,7 @@ def decode_step(params, cfg: ModelConfig, tokens: Tensor, cache,
     x = L.embed_tokens(params["embed"], tokens)
     x = x + _sinusoidal(pos, cfg.d_model, x.dtype)
     sc, cross = cache["self"], cache["cross"]
-    for li, p in enumerate(params["dec"]):
+    for li, p in enumerate(per_layer(params, ("dec",))["dec"]):
         self_c = {key: sc[key][li] for key in ("k", "v", "pos")}
         a = L.apply_norm(p["self_norm"], x, cfg.norm)
         a, _ = L.apply_attention(p["self_attn"], cfg, a, pos, causal=True,

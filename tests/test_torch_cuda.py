@@ -660,7 +660,8 @@ def test_fused_ask_launches_and_equals_host_on_card(cuda):
 
 # ------------------------------------------- slice 3: K6 flash, K5 kvp, serve
 from repro_torch.kernels.flash import kernel as FK  # noqa: E402
-from repro_torch.kernels.flash.ref import (flash_attention_fwd_ref,  # noqa: E402,E501
+from repro_torch.kernels.flash.ref import (flash_attention_bwd_ref,  # noqa: E402,E501
+                                           flash_attention_fwd_ref,
                                            position_mask)
 from repro_torch.kernels.kvp import kernel as VK  # noqa: E402
 from repro_torch.kernels.kvp.ref import kvp_ref  # noqa: E402
@@ -705,7 +706,8 @@ def test_flash_kernel_matches_plain_version_on_card(cuda, b, sk, nh, kh, hd,
     ref = flash_attention_fwd_ref(*inputs)
     alone = FK.flash_attention_fwd(*(t[:1].contiguous() for t in inputs))
     torch.cuda.synchronize()
-    assert FK.launch_counts() == {"flash_attention_fwd": 2}
+    assert FK.launch_counts() == {"flash_attention_fwd": 2,
+                                  "flash_attention_bwd": 0}
     seen = position_mask(inputs[3], inputs[4], True, None).any(-1)
     assert_flash_close(out[seen], ref[seen])
     assert not out[~seen].any()                       # no visible key → 0
@@ -1087,3 +1089,75 @@ def test_reduced_whisper_on_card(cuda):
         out[name] = [t.cpu() for t in (enc, train, steps)]
     for a, b in zip(out["cuda"], out["cpu"]):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+
+
+# --------------------------------------------------- slice 9: training
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,nh,kh,hd,dtype,causal,window", [
+    (2, 128, 128, 6, 2, 128, "bfloat16", True, None),    # MMA forward
+    (2, 100, 100, 4, 2, 64, "float32", True, 32),        # split, window
+    (1, 64, 64, 8, 1, 256, "bfloat16", True, 16),        # hd 256, G = 8
+    (2, 16, 90, 4, 4, 64, "bfloat16", False, None),      # Sq ≠ Sk
+])
+def test_flash_backward_matches_plain_version_on_card(cuda, b, sq, sk, nh,
+                                                      kh, hd, dtype, causal,
+                                                      window):
+    """K7 against its plain version on the same CUDA tensors (K6's output
+    and log-sum-exp as inputs): within 1e-4 of each gradient's largest
+    entry, plus one bf16 rounding; bitwise from run to run; K6's output
+    bits the same with and without lse; one launch of each."""
+    g = torch.Generator(device=cuda).manual_seed(sq)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(sh, generator=g, device=cuda).to(dt)
+                   for sh in ((b, sq, nh, hd), (b, sk, kh, hd),
+                              (b, sk, kh, hd), (b, sq, nh, hd)))
+    kp = torch.arange(sk, dtype=torch.int32, device=cuda).expand(b, sk)
+    qp = kp[:, sk - sq:] if causal else torch.zeros(
+        (b, sq), dtype=torch.int32, device=cuda)
+    kp, qp = kp.contiguous(), qp.contiguous()
+    kw = dict(causal=causal, window=window)
+    FK.reset_launch_counts()
+    out, lse = FK.flash_attention_fwd(q, k, v, qp, kp, return_lse=True,
+                                      **kw)
+    grads = FK.flash_attention_bwd(q, k, v, out, lse, do, qp, kp, **kw)
+    assert FK.launch_counts() == {"flash_attention_fwd": 1,
+                                  "flash_attention_bwd": 1}
+    again = FK.flash_attention_bwd(q, k, v, out, lse, do, qp, kp, **kw)
+    assert torch.equal(out, FK.flash_attention_fwd(q, k, v, qp, kp, **kw))
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, do, qp, kp, **kw)
+    for got, ref, rep in zip(grads, refs, again):
+        assert torch.equal(got, rep)
+        d = (got.float() - ref.float()).abs()
+        lim = 1e-4 * ref.float().abs().max() + (
+            2.0 ** -7 * ref.float().abs() if dt == torch.bfloat16 else 0.0)
+        assert bool((d <= lim).all())
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_card_matches_cpu(cuda):
+    """One train step of the reduced llama3.2-3b in f32 on the card
+    against the CPU from the same parameters and batch: loss and grad norm
+    within 1e-5, K6 = K7 = 4 launches (one per layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synth import DataConfig, synth_batch
+    from repro_torch.models import lm
+    from repro_torch.train.optim import (OptimConfig, init_opt_state,
+                                         tree_map)
+    from repro_torch.train.step import train_step
+    cfg = get_config("llama3.2-3b").reduced().replace(dtype="float32")
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), stacked=True)
+    card = tree_map(lambda t: t.to(cuda, copy=True), cpu)
+    nb = synth_batch(cfg, DataConfig(global_batch=2, seq_len=64, seed=1), 0)
+    oc = OptimConfig(warmup_steps=1, total_steps=4)
+    out = {}
+    for name, p, d in (("cpu", cpu, "cpu"), ("cuda", card, cuda)):
+        FK.reset_launch_counts()
+        _, _, m = train_step(p, init_opt_state(p, oc),
+                             {k: torch.from_numpy(v).to(d)
+                              for k, v in nb.items()}, cfg=cfg, opt_cfg=oc)
+        out[name] = (float(m["loss"]), float(m["grad_norm"]))
+        want = 4 if name == "cuda" else 0
+        assert FK.launch_counts() == {"flash_attention_fwd": want,
+                                      "flash_attention_bwd": want}
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert abs(a - b) <= 1e-5 * abs(b)

@@ -202,7 +202,7 @@ def test_ckpt_format_shared_with_the_jax_package(tmp_path, writer):
             5, jax.tree.map(jnp.asarray, tree), block=True)
         out = CheckpointManager(str(tmp_path)).restore(5, tree)
     else:
-        CheckpointManager(str(tmp_path)).save(5, tree)
+        CheckpointManager(str(tmp_path)).save(5, tree, block=True)
         out = JCkpt(str(tmp_path)).restore(5, tree)
     np.testing.assert_array_equal(np.asarray(out["w"]), tree["w"])
     np.testing.assert_array_equal(np.asarray(out["blk"]["b"]),

@@ -23,7 +23,8 @@ from repro.kernels.flash.kernel import \
 from repro.kernels.flash.ref import attention_ref  # noqa: E402
 from repro.models.layers import attention_xla  # noqa: E402
 from repro_torch.kernels.flash import kernel as K  # noqa: E402
-from repro_torch.kernels.flash.ref import flash_attention_fwd_ref  # noqa: E402,E501
+from repro_torch.kernels.flash.ref import (flash_attention_bwd_ref,  # noqa: E402
+                                           flash_attention_fwd_ref)
 
 FLASH_CASES = [
     (256, 256, 64, True, None, "float32"),
@@ -70,7 +71,7 @@ def test_flash_attention_matches_pallas_and_oracle(sq, sk, h, causal, window,
                                rtol=tol)
     if causal and window is not None and window <= 0:
         assert not out.any()          # the Pallas rule: every key masked
-    assert K.launch_counts() == {"flash_attention_fwd": 0}   # CPU: plain
+    assert K.launch_counts() == dict.fromkeys(K.LAUNCHES, 0)  # CPU: plain
 
 
 def test_flash_attention_bhsd_matches_pallas():
@@ -144,6 +145,9 @@ def test_prefill_positions_match_serving_attention(window):
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_and_has_no_backward():
+    """The wrappers take the plain versions on CPU tensors: K6's forward
+    (with and without the log-sum-exp) and, since the backward exists
+    (K7), ``attention``'s backward is the plain backward, bitwise."""
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
                for sh in ((1, 4, 2, 32), (1, 9, 1, 32), (1, 9, 1, 32)))
@@ -153,9 +157,14 @@ def test_wrapper_takes_the_plain_version_on_cpu_and_has_no_backward():
                        flash_attention_fwd_ref(q, k, v, qp, kp))
     with pytest.raises(ValueError, match="group"):
         K.flash_attention_fwd(q, k[:, :, :0], v, qp, kp)
-    qg = q.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        K.attention(qg, k, v, qp, kp).sum().backward()
+    out, lse = K.flash_attention_fwd(q, k, v, qp, kp, return_lse=True)
+    assert torch.equal(out, flash_attention_fwd_ref(q, k, v, qp, kp))
+    g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(K.attention(*leaves, qp, kp), leaves, g)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, g, qp, kp)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------- K6's launch plan (plan())

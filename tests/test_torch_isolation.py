@@ -56,7 +56,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr[-3000:]
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 20 and bad == "[]", out.stdout
-    assert len(TWINS) == 3, TWINS
+    assert len(TWINS) == 5, TWINS
 
 
 def test_no_source_names_jax_or_repro():
@@ -96,4 +96,9 @@ def test_walk_finds_the_kernel_modules():
             "repro_torch.core.acquisition",
             "repro_torch.core.lbfgsb",
             "repro_torch.core.mso",
-            "repro_torch.gp.gpr"} <= names
+            "repro_torch.gp.gpr",
+            "repro_torch.data.synth",
+            "repro_torch.train.optim",
+            "repro_torch.train.step",
+            "repro_torch.launch.train",
+            "repro_torch.launch.shapes"} <= names
