@@ -4115,6 +4115,12 @@ TRAIN_K7 = (
      False, None, "zero"),
     ("no visible key: window 0, causal", 2, 96, 96, 4, 2, 64, "float32",
      True, 0, "self"),
+    # slice 10: K7's MMA path at a ragged tile with a window, and with
+    # nothing visible
+    ("bf16 hd 128 ragged S=300 window 128 G=3", 2, 300, 300, 6, 2, 128,
+     "bfloat16", True, 128, "self"),
+    ("bf16 hd 64 no visible key: window 0, causal", 2, 96, 96, 4, 2, 64,
+     "bfloat16", True, 0, "self"),
 )
 K7_F32_TOL = 1e-4
 
@@ -4209,7 +4215,8 @@ def check_k7(dev, case, seed, err):
           f"{tag}: a key no row sees has a nonzero dK or dV")
     err["flash_bwd"] = max(err.get("flash_bwd", 0.0), *es)
     err["flash_lse"] = max(err.get("flash_lse", 0.0), e_lse)
-    log(f"[train kernels] {tag} ({FK.plan_of(q, k)[0]} forward): K7 |Δ| dq "
+    log(f"[train kernels] {tag} ({FK.plan_of(q, k)[0]} forward, "
+        f"{FK.bwd_plan_of(q, k)} backward): K7 |Δ| dq "
         f"{es[0]:.3e} dk {es[1]:.3e} dv {es[2]:.3e}, lse {e_lse:.3e}, "
         f"bitwise run to run; K6 bits unchanged with lse; "
         f"{int((~rows).sum())} rows and {int((~keys).sum())} keys unseen "
@@ -4217,43 +4224,76 @@ def check_k7(dev, case, seed, err):
     return q, k, v, do, qp, kp, out, lse
 
 
-def phase_train_kernels(dev, err):
-    """Slice 9's kernels: K6 with its log-sum-exp and K7 at every
-    TRAIN_K7 case (check_k7), then at the slice's shape (B=4, S=512,
-    NH=24, KH=8, hd=128, bf16, causal) the device and call ms of K6 with
-    and without lse, K7, their plain versions and SDPA's forward and
-    backward (timed only, never on the path) beside their bounds.
-    Returns the timing row."""
+def k7_timing(q, k, v, do, qp, kp, out, lse, causal, window):
+    """Device and call ms of K7, its plain version and SDPA's backward
+    (timed only, never on the path; with a window, SDPA takes the mask) on
+    one case's tensors, K7's bound and its kernels' µs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash import kernel as FK
     from repro_torch.kernels.flash.ref import (flash_attention_bwd_ref,
-                                               flash_attention_fwd_ref)
-    t0 = time.perf_counter()
-    for i, case in enumerate(TRAIN_K7[1:]):
-        check_k7(dev, case, 200 + i, err)
-        torch.cuda.empty_cache()
-    q, k, v, do, qp, kp, out, lse = check_k7(dev, TRAIN_K7[0], 199, err)
+                                               position_mask)
     qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True)
                   for t in (q, k, v))
-    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                        enable_gqa=True)
+    mask = (None if window is None else
+            position_mask(qp, kp, causal, window)[:, None])
+    so = F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
     dos = do.transpose(1, 2)
+    kw = dict(causal=causal, window=window)
+    calls = {
+        "flash_bwd": lambda: FK.flash_attention_bwd(
+            q, k, v, out, lse, do, qp, kp, **kw),
+        "flash_bwd_plain": lambda: flash_attention_bwd_ref(
+            q, k, v, out, lse, do, qp, kp, **kw),
+        "sdpa_bwd": lambda: torch.autograd.grad(so, (qs, ks, vs), dos,
+                                                retain_graph=True)}
+    row = dict(flash_bwd_plan=FK.bwd_plan_of(q, k))
+    for key, fn in calls.items():
+        row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(fn, 10)
+        row[f"{key}_call_ms"] = cuda_time_ms(fn, 10)
+    row["flash_bwd_bound_ms"], row["flash_bwd_bound_by"] = flash_bound_ms(
+        *flash_bwd_cost(q, k, qp, kp, **kw))
+    row["flash_bwd_kernels"] = kernel_us(calls["flash_bwd"], "flash_bwd_")
+    return row
+
+
+def phase_train_kernels(dev, err):
+    """Slices 9–10's kernels: K6 with its log-sum-exp and K7 at every
+    TRAIN_K7 case (check_k7, with each case's backward plan); then at the
+    slice's shape (B=4, S=512, NH=24, KH=8, hd=128, bf16, causal: the
+    MMA path) the device and call ms of K6 with and without lse, K7,
+    their plain versions and SDPA's forward and backward (timed only,
+    never on the path) beside their bounds, and K7 at whisper's encoder
+    shape (B=2, S=1500, NH=KH=8, hd=64, not causal) beside SDPA's
+    backward.  Returns the timing row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash.ref import flash_attention_fwd_ref
+    t0 = time.perf_counter()
+    whisper = None
+    for i, case in enumerate(TRAIN_K7[1:]):
+        got = check_k7(dev, case, 200 + i, err)
+        if case[0].startswith("whisper encoder"):
+            whisper = dict(shape=case[0] + " NH=KH=8 hd=64 bf16",
+                           **k7_timing(*got, causal=case[8],
+                                       window=case[9]))
+        del got
+        torch.cuda.empty_cache()
+    q, k, v, do, qp, kp, out, lse = check_k7(dev, TRAIN_K7[0], 199, err)
+    check(FK.bwd_plan_of(q, k) == "mma", f"K7 at the slice's shape takes "
+          f"the {FK.bwd_plan_of(q, k)} path, not the MMA path")
     calls = {
         "flash": lambda: FK.flash_attention_fwd(q, k, v, qp, kp),
         "flash_lse": lambda: FK.flash_attention_fwd(q, k, v, qp, kp,
                                                     return_lse=True),
         "flash_lse_plain": lambda: flash_attention_fwd_ref(
             q, k, v, qp, kp, return_lse=True),
-        "flash_bwd": lambda: FK.flash_attention_bwd(q, k, v, out, lse, do,
-                                                    qp, kp),
-        "flash_bwd_plain": lambda: flash_attention_bwd_ref(
-            q, k, v, out, lse, do, qp, kp),
         "sdpa_fwd": lambda: F.scaled_dot_product_attention(
-            qs.detach(), ks.detach(), vs.detach(), is_causal=True,
-            enable_gqa=True),
-        "sdpa_bwd": lambda: torch.autograd.grad(so, (qs, ks, vs), dos,
-                                                retain_graph=True)}
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)}
     row = dict(shape=TRAIN_K7[0][0] + " NH=24 KH=8 hd=128 bf16 causal",
                plan=list(FK.plan_of(q, k)))
     for key, fn in calls.items():
@@ -4262,12 +4302,12 @@ def phase_train_kernels(dev, err):
     nbytes, ops, rate = flash_cost(q, k, qp, kp)
     row["flash_lse_bound_ms"], row["flash_lse_bound_by"] = flash_bound_ms(
         nbytes + 4 * lse.numel(), ops, rate)
-    row["flash_bwd_bound_ms"], row["flash_bwd_bound_by"] = flash_bound_ms(
-        *flash_bwd_cost(q, k, qp, kp))
-    row["flash_bwd_kernels"] = kernel_us(calls["flash_bwd"], "flash_bwd_")
+    row.update(k7_timing(q, k, v, do, qp, kp, out, lse, causal=True,
+                         window=TRAIN_K7[0][9]))
+    row["whisper_bwd"] = whisper
     log("[timing] " + json.dumps(on_card(row)))
     log(f"[time] train kernels: {time.perf_counter() - t0:.1f} s")
-    del q, k, v, do, out, lse, qs, ks, vs, so
+    del q, k, v, do, out, lse
     torch.cuda.empty_cache()
     return row
 
@@ -4733,6 +4773,10 @@ def main() -> int:
         "library_ms_from": train_k["sdpa_bwd_ms_from"],
         "call_ms": train_k["flash_bwd_call_ms"],
         "kernels_us": train_k["flash_bwd_kernels"],
+        # slice 10: bwd_plan's path at this shape, and K7 at whisper's
+        # encoder shape (hd 64, not causal) beside SDPA's backward
+        "plan": train_k["flash_bwd_plan"],
+        "whisper_timing": train_k["whisper_bwd"],
         "train": {k: train["full"][k] for k in (
             "ms_per_step", "tokens_per_s", "mfu", "k7_device_ms_per_step",
             "busy_device_ms_per_step", "peak_memory_gb")}})

@@ -4,9 +4,9 @@
 what it replaces, what bounds each of its two paths and why they look as
 they do); ``csrc/flash_bwd.cu`` holds K7 ``flash_attention_bwd``, its
 backward (which replaces no TPU kernel: the JAX package differentiates
-``attention_xla`` through XLA).  Both are built with the port's other
-kernels into one library at first use (``kernels/_build.py``); nothing is
-built at import.
+``attention_xla`` through XLA; see its header for its two paths).  Both
+are built with the port's other kernels into one library at first use
+(``kernels/_build.py``); nothing is built at import.
 
 * :func:`plan` — which path a call takes and how many cache slots a block
   of the split path owns, from the shapes alone (the one source of truth;
@@ -19,10 +19,15 @@ built at import.
   the split and merge kernels, or the MMA kernel), raises if the launch
   fails, and adds one to its launch count.  With ``return_lse`` it also
   returns each row's log-sum-exp (B, NH, Sq) in float32, which K7 reads.
+* :func:`bwd_plan` — K7's path from the shapes alone: ``"mma"`` (the
+  tensor cores, ``wgmma``) for bfloat16 at hd 64 and 128 (the LM's
+  training, whisper), ``"fma"`` (float32 FMAs) for float32, hd 32 and hd
+  256.  The C entry takes the answer and recomputes nothing; a CUDA call
+  never falls back to the other path.
 * :func:`flash_attention_bwd` — K7's wrapper: (dQ, dK, dV) from q, k, v,
   K6's output and log-sum-exp and the output's gradient; the plain
   version (``ref.py``) for CPU tensors, K7 for CUDA tensors (one C call,
-  three kernels), with its own launch count.
+  three kernels on :func:`bwd_plan`'s path), with its own launch count.
 * :func:`enqueue` — the wrapper past its checks, for a given plan: the
   allocations and the one C call.
 * :func:`attention` — the same function as an autograd op: the LM's
@@ -56,6 +61,7 @@ Tensor = torch.Tensor
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"split": 0, "mma": 1}
+_BWD_PATHS = {"fma": 0, "mma": 1}
 
 TILE_KEYS = 32                   # keys of a split-path tile
 SPLIT_ROWS = 16                  # (query, group head) rows of a split block
@@ -73,8 +79,8 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 declare("flash_attention_fwd",
         [_P] * 8 + [_I] * 10 + [ctypes.c_float, _I, _I, _P], _I)
-declare("flash_attention_bwd", [_P] * 12 + [_I] * 10 + [ctypes.c_float, _P],
-        _I)
+declare("flash_attention_bwd",
+        [_P] * 12 + [_I] * 10 + [ctypes.c_float, _I, _P], _I)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -100,6 +106,25 @@ def plan(dtype: torch.dtype, sq: int, nh: int, kh: int, hd: int,
     per_split = -(-sk // SPLITS)
     split_len = 1 << max(0, per_split - 1).bit_length()
     return "split", min(MAX_SPLIT_LEN, max(SPLIT_LEN, split_len))
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_plan(dtype: torch.dtype, sq: int, nh: int, kh: int, hd: int,
+             sk: int) -> str:
+    """K7's path: ``"mma"`` (``wgmma`` with P and dS split into bf16 hi
+    + lo) for bfloat16 with hd ∈ {64, 128}; ``"fma"`` (float32 FMAs from
+    shared memory) otherwise: every float32 call, hd 32 (the f32 hpo_train
+    twin) and hd 256 (recurrentgemma-9b).  It reads its arguments only,
+    never B or the positions; any Sq, Sk, NH and KH (ragged tiles are
+    masked), which it takes only so that it reads as :func:`plan`."""
+    return "mma" if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS else "fma"
+
+
+def bwd_plan_of(q: Tensor, k: Tensor) -> str:
+    """:func:`bwd_plan` of a call with q (B, Sq, NH, hd) and k (B, Sk,
+    KH, hd)."""
+    _, sq, nh, hd = q.shape
+    return bwd_plan(q.dtype, sq, nh, k.shape[2], hd, k.shape[1])
 
 
 def plan_of(q: Tensor, k: Tensor) -> Tuple[str, int]:
@@ -216,7 +241,8 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     q, k, v (its arguments), given its output ``out``, its ``lse`` (from
     ``return_lse``) and the output's gradient ``dout`` (B, Sq, NH, hd).
     dK and dV sum each KV head's query heads.  The plain version on CPU
-    tensors; K7 on CUDA tensors (raises if the launch fails)."""
+    tensors; K7 on CUDA tensors, on :func:`bwd_plan`'s path (raises if the
+    launch fails)."""
     b, sq, nh, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     if on_cpu(q):
@@ -241,6 +267,11 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
             ("kv_pos", kv_pos, (b, sk), torch.int32)):
         check_tensor(name, x, shape, dtype, dev)
     _check_window(window)
+    path = bwd_plan_of(q, k)
+    if path == "mma":
+        for name, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     scale = hd ** -0.5 if scale is None else float(scale)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     dsum = torch.empty((b, nh, sq), dtype=torch.float32, device=dev)
@@ -251,7 +282,7 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
             kv_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dsum.data_ptr(), b, sq, sk, nh, kh, hd, _DTYPES[q.dtype],
             int(causal), int(window is not None), int(window or 0), scale,
-            torch.cuda.current_stream(dev).cuda_stream)
+            _BWD_PATHS[path], torch.cuda.current_stream(dev).cuda_stream)
     check_launch("flash_attention_bwd", err)
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

@@ -1093,18 +1093,26 @@ def test_reduced_whisper_on_card(cuda):
 
 # --------------------------------------------------- slice 9: training
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,sq,sk,nh,kh,hd,dtype,causal,window", [
-    (2, 128, 128, 6, 2, 128, "bfloat16", True, None),    # MMA forward
-    (2, 100, 100, 4, 2, 64, "float32", True, 32),        # split, window
-    (1, 64, 64, 8, 1, 256, "bfloat16", True, 16),        # hd 256, G = 8
-    (2, 16, 90, 4, 4, 64, "bfloat16", False, None),      # Sq ≠ Sk
+@pytest.mark.parametrize("b,sq,sk,nh,kh,hd,dtype,causal,window,path", [
+    (2, 128, 128, 6, 2, 128, "bfloat16", True, None, "mma"),   # MMA forward
+    (2, 100, 100, 4, 2, 64, "float32", True, 32, "fma"),        # split, window
+    (1, 64, 64, 8, 1, 256, "bfloat16", True, 16, "fma"),        # hd 256, G = 8
+    (2, 16, 90, 4, 4, 64, "bfloat16", False, None, "mma"),      # Sq ≠ Sk
+    # slice 10: K7's MMA path at ragged tiles, a window, G = 8 and with
+    # nothing visible
+    (2, 300, 300, 6, 2, 128, "bfloat16", True, None, "mma"),
+    (1, 1500, 1500, 8, 8, 64, "bfloat16", False, None, "mma"),
+    (2, 200, 200, 4, 2, 64, "bfloat16", True, 48, "mma"),
+    (1, 128, 128, 8, 1, 128, "bfloat16", True, None, "mma"),
+    (2, 96, 96, 4, 2, 64, "bfloat16", True, 0, "mma"),
 ])
 def test_flash_backward_matches_plain_version_on_card(cuda, b, sq, sk, nh,
                                                       kh, hd, dtype, causal,
-                                                      window):
+                                                      window, path):
     """K7 against its plain version on the same CUDA tensors (K6's output
     and log-sum-exp as inputs): within 1e-4 of each gradient's largest
-    entry, plus one bf16 rounding; bitwise from run to run; K6's output
+    entry, plus one bf16 rounding; bitwise from run to run; exact zeros
+    for rows and keys no pair sees; the path bwd_plan names; K6's output
     bits the same with and without lse; one launch of each."""
     g = torch.Generator(device=cuda).manual_seed(sq)
     dt = getattr(torch, dtype)
@@ -1116,6 +1124,7 @@ def test_flash_backward_matches_plain_version_on_card(cuda, b, sq, sk, nh,
         (b, sq), dtype=torch.int32, device=cuda)
     kp, qp = kp.contiguous(), qp.contiguous()
     kw = dict(causal=causal, window=window)
+    assert FK.bwd_plan_of(q, k) == path
     FK.reset_launch_counts()
     out, lse = FK.flash_attention_fwd(q, k, v, qp, kp, return_lse=True,
                                       **kw)
@@ -1131,6 +1140,37 @@ def test_flash_backward_matches_plain_version_on_card(cuda, b, sq, sk, nh,
         lim = 1e-4 * ref.float().abs().max() + (
             2.0 ** -7 * ref.float().abs() if dt == torch.bfloat16 else 0.0)
         assert bool((d <= lim).all())
+    seen = position_mask(qp, kp, causal, window)
+    rows, keys = seen.any(-1), seen.any(1)
+    assert not grads[0][~rows].any()
+    assert not grads[1][~keys].any() and not grads[2][~keys].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,path", [
+    ("bfloat16", 64, "fma"), ("bfloat16", 128, "fma"),
+    ("float32", 64, "mma"), ("bfloat16", 256, "mma")])
+def test_flash_backward_entry_takes_only_bwd_plans_path(cuda, dtype, hd,
+                                                        path):
+    """K7's C entry has one path for each (dtype, hd), bwd_plan's: asked
+    for the other, it returns cudaErrorInvalidValue (1) and launches
+    nothing."""
+    dt = getattr(torch, dtype)
+    assert FK.bwd_plan(dt, 64, 2, 2, hd, 64) != path
+    q, k, v, o, do, dq, dk, dv = (torch.zeros((1, 64, 2, hd), dtype=dt,
+                                              device=cuda) for _ in range(8))
+    lse, dsum = (torch.zeros((1, 2, 64), device=cuda) for _ in range(2))
+    pos = torch.arange(64, dtype=torch.int32, device=cuda)[None]
+    dq.fill_(7)
+    err = FK._lib().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), pos.data_ptr(), pos.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), 1, 64,
+        64, 2, 2, hd, 1 if dt == torch.bfloat16 else 0, 1, 0, 0, hd ** -0.5,
+        {"fma": 0, "mma": 1}[path], torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1
+    assert bool((dq == 7).all())
 
 
 @pytest.mark.cuda
