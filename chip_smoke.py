@@ -228,6 +228,21 @@ Slice 9 adds, in the same run, after the service:
               resume to 6, bitwise; the hpo_train twin (K1–K4 in the
               sampler, K6 = K7 = 2 × steps × trials); the "kernels" line
               adds K7 and K6's train launches and timing
+Slice 11 adds, in the same run:
+  - families  chatglm3-6b (partial rotary), starcoder2-15b (layernorm
+              with bias, ungated GELU) and deepseek-7b (full MHA) at full
+              width, 8 layers each, with serve's traffic and checks
+  - train remat  llama3.2-3b at full width and depth, bf16, B=8, S=512:
+              one compute_grads under remat none, full and dots on the
+              same parameters and batch: loss and gradients bitwise, each
+              mode's ms and peak memory (full's below none's), K6 = 28 or
+              56 and K7 = 28; then 8 train steps under full remat and 3
+              traced (K6 = 56, K7 = 28 a step; ms, tokens/s, MFU, peak,
+              K6/K7/cuBLAS/other device ms); the dry run's bytes held
+              (launch/dryrun.py) for this cell and for the B=4 remat-none
+              one beside the measured peaks; the "kernels" line adds K6's
+              and K7's launches here.  The B=4 train row stays at remat
+              "none", the setting its earlier readings were taken at
 Every timing line carries the card's name and power limit.
 Then it prints the card, a "kernels" JSON line (each "ms" with its
 source, "ms_from"; K6 at the serving step's shape), and the result line.
@@ -247,11 +262,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+if os.path.isdir(os.path.join(SRC, "repro_torch")):
+    sys.path.insert(0, SRC)
+    # the card's rates (H100 SXM data sheet: HBM3 3.35 TB/s, bf16 989
+    # TFLOP/s on the tensor cores) and K6's and K7's costs, one source
+    # with the dry run's roofline
+    from repro_torch.kernels.flash.cost import flash_bwd_cost, flash_cost
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 3.35 TB/s; f64 67 TFLOP/s on
-# the tensor cores (matrix products) and 34 TFLOP/s on the CUDA cores (the
-# elementwise rest)
-HBM_BYTES_PER_S = 3.35e12
+# f64 67 TFLOP/s on the tensor cores (matrix products) and 34 TFLOP/s on
+# the CUDA cores (the elementwise rest)
 F64_MMA_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
 EPS64 = 2.220446049250313e-16
@@ -1140,17 +1161,21 @@ DEVICE_CLASSES = (
 
 def device_breakdown(prof):
     """Device µs of one trace by kernel class (first match of the kernel's
-    name, case-insensitive; the rest is "other")."""
+    name, case-insensitive; the rest is "other").  It reads the trace's
+    device events (kernels, copies, sets) as they come: a traced fleet
+    round holds over a hundred thousand, and ``key_averages`` first
+    builds and groups an event object for each, which took ~170 s of the
+    fleet phase's two traced rounds."""
+    from torch.autograd import DeviceType
     dev_us = {name: 0.0 for name, _ in DEVICE_CLASSES}
     dev_us["other"] = 0.0
-    for ev in prof.key_averages():
-        us = _device_us(ev)
-        if us <= 0:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or PAD_KERNEL in ev.name():
             continue
-        key = ev.key.lower()
+        key = ev.name().lower()
         cls = next((name for name, pats in DEVICE_CLASSES
                     if any(p in key for p in pats)), "other")
-        dev_us[cls] += us
+        dev_us[cls] += ev.duration_ns() / 1e3
     return dev_us
 
 
@@ -1320,8 +1345,6 @@ def phase_gram_timing(dev):
 
 
 # ------------------------------------- slice 3: flash attention K6, kvp K5
-BF16_FLOP_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
-F32_FLOP_PER_S = 67e12            # f32 outside the tensor cores
 FLASH_CASES = [                   # tests/test_kernels_pallas.py:49-56
     (256, 256, 64, True, None, "float32"),
     (256, 256, 64, False, None, "float32"),
@@ -1356,25 +1379,6 @@ def flash_err(out, ref, where=None):
     if where is not None:
         d, ok = d[where], ok[where]
     return float(d.max()), bool(ok.all())
-
-
-def flash_cost(q, k, q_pos, kv_pos, causal=True, window=None):
-    """(bytes, operations, peak rate) K6 needs on these inputs: q, out and
-    the positions once, and the K/V rows some query of their batch row
-    sees, once; two products (q·kᵀ, p·v) of 2·hd operations per visible
-    (query head, key) pair, at the tensor-core bf16 rate or the CUDA-core
-    f32 rate."""
-    import torch
-    from repro_torch.kernels.flash.ref import position_mask
-    b, sq, nh, hd = q.shape
-    kh, es = k.shape[2], q.element_size()
-    mask = position_mask(q_pos, kv_pos, causal, window)      # (B, Sq, Sk)
-    pairs = int(mask.sum())
-    keys = int(mask.any(1).sum())
-    nbytes = (2 * b * sq * nh * hd * es + 2 * keys * kh * hd * es
-              + 4 * (q_pos.numel() + kv_pos.numel()))
-    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    return nbytes, 4 * pairs * nh * hd, rate
 
 
 def flash_bound_ms(nbytes, ops, rate):
@@ -2077,6 +2081,13 @@ FAMILIES = (
     ("chameleon-34b", 4, None, ((4, 12), 6, 64)),
     ("recurrentgemma-9b", 8, "skip", ((40, 60), 40, 128)),
     ("xlstm-1.3b", 16, "skip", ((4, 12), 6, 64)),
+    # slice 11: the dense configs no earlier phase held, 8 layers each
+    # (of 28, 40 and 30) so the three take ~45 s within the script's
+    # time: partial rotary, layernorm with bias and an ungated GELU MLP,
+    # full MHA (32 KV heads)
+    ("chatglm3-6b", 8, None, ((4, 12), 6, 64)),
+    ("starcoder2-15b", 8, None, ((4, 12), 6, 64)),
+    ("deepseek-7b", 8, None, ((4, 12), 6, 64)),
 )
 
 
@@ -4153,22 +4164,6 @@ def k7_err(got, ref):
     return float(d.max()), bool((d <= lim).all())
 
 
-def flash_bwd_cost(q, k, q_pos, kv_pos, causal=True, window=None):
-    """(bytes, operations, peak rate) K7 needs: q, o, dO and dQ (B, Sq, NH,
-    hd), k, v, dK and dV (B, Sk, KH, hd), lse and the positions, each once;
-    five products (S, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K) of 2·hd operations per
-    visible (query head, key) pair."""
-    import torch
-    from repro_torch.kernels.flash.ref import position_mask
-    b, sq, nh, hd = q.shape
-    sk, kh, es = k.shape[1], k.shape[2], q.element_size()
-    pairs = int(position_mask(q_pos, kv_pos, causal, window).sum())
-    nbytes = (4 * b * sq * nh * hd * es + 4 * b * sk * kh * hd * es
-              + 4 * b * nh * sq + 4 * (q_pos.numel() + kv_pos.numel()))
-    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    return nbytes, 10 * pairs * nh * hd, rate
-
-
 def check_k7(dev, case, seed, err):
     """K6 with lse and K7 against their plain versions on one TRAIN_K7
     case: lse within 1e-4, K6's output bits the same with and without
@@ -4313,8 +4308,11 @@ def phase_train_kernels(dev, err):
 
 
 # slice 9's training run: llama3.2-3b at full width, B=4, S=512, bf16
+# remat "none", the setting of this row's earlier readings (taken before
+# the port had remat), so they stay comparable; TRAIN_REMAT below runs
+# B=8 under full remat
 TRAIN = dict(arch="llama3.2-3b", batch=4, seq=512, steps=8, traced=3,
-             lr=3e-4, weight_decay=0.1, layers=28)
+             lr=3e-4, weight_decay=0.1, layers=28, remat="none")
 # the six families' reduced configs, card against CPU (f32)
 TRAIN_FAMILIES = ("llama3.2-3b", "qwen3-moe-30b-a3b", "chameleon-34b",
                   "recurrentgemma-9b", "xlstm-1.3b", "whisper-base")
@@ -4346,13 +4344,20 @@ def train_device_ms(prof):
     return out
 
 
+def k6_runs(cfg) -> int:
+    """K6 launches an attention layer takes in a train step: 1, and 2
+    under remat (the layer's forward runs again in the backward)."""
+    return 1 if cfg.remat == "none" else 2
+
+
 def train_full_width(dev, c=TRAIN):
-    """llama3.2-3b at full width through the port's train step: random
-    weights drawn once on the card (seed 0, stacked: one leaf per
-    reference leaf), DataConfig(B, S, seed 0), AdamW (lr 3e-4, wd 0.1, 8
-    total steps, 1 of warmup); ``steps`` steps with every count reset
-    before them: finite loss and grad norm at each, the last loss below
-    the first, K6 = K7 = 28 launches a step; then ``traced`` steps in a
+    """llama3.2-3b at full width through the port's train step under
+    ``c["remat"]``: random weights drawn once on the card (seed 0,
+    stacked: one leaf per reference leaf), DataConfig(B, S, seed 0),
+    AdamW (lr 3e-4, wd 0.1, 8 total steps, 1 of warmup); ``steps`` steps
+    with every count reset before them: finite loss and grad norm at
+    each, the last loss below the first, K7 = 28 launches a step and K6
+    28 (remat "none") or 56; then ``traced`` steps in a
     card_trace (K6, K7, cuBLAS, other and busy device ms a step, the idle
     share against the untraced steps' median host ms); then the step's
     halves apart (CUDA events): ``compute_grads`` and ``apply_updates``.
@@ -4367,7 +4372,7 @@ def train_full_width(dev, c=TRAIN):
                                          tree_leaves)
     from repro_torch.train.step import compute_grads, make_train_step
     t0 = time.perf_counter()
-    cfg = get_config(c["arch"])
+    cfg = get_config(c["arch"]).replace(remat=c["remat"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = init_fn_for(cfg)(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -4404,10 +4409,10 @@ def train_full_width(dev, c=TRAIN):
         gnorms.append(float(m["grad_norm"]))
     launches = FK.launch_counts()
     want = c["layers"] * c["steps"]
-    check(launches == {"flash_attention_fwd": want,
+    check(launches == {"flash_attention_fwd": k6_runs(cfg) * want,
                        "flash_attention_bwd": want},
-          f"train: launches {launches}, want {want} of each "
-          f"({c['layers']} a step)")
+          f"train (remat {cfg.remat}): launches {launches}, want K7 {want} "
+          f"({c['layers']} a step) and K6 {k6_runs(cfg)} × that")
     check(all(math.isfinite(x) for x in losses + gnorms),
           f"train: loss {losses} or grad norm {gnorms} not finite")
     check(losses[-1] < losses[0], f"train: the loss did not fall {losses}")
@@ -4432,7 +4437,8 @@ def train_full_width(dev, c=TRAIN):
     ms = sorted(wall[1:])[len(wall[1:]) // 2]        # median after the first
     tokens = c["batch"] * c["seq"]
     row = dict(
-        arch=c["arch"], batch=c["batch"], seq=c["seq"], params=numel,
+        arch=c["arch"], batch=c["batch"], seq=c["seq"], remat=cfg.remat,
+        params=numel,
         steps=c["steps"], losses=losses, grad_norms=gnorms,
         step_ms=wall, ms_per_step=ms, first_step_ms=wall[0],
         tokens_per_s=tokens / (ms / 1e3),
@@ -4490,13 +4496,14 @@ def train_card_vs_cpu(dev, arch, seed=0, **opt):
                      FK.launch_counts())
     (pc, sc, lc, gc, _), (pd, sd, ld, gd, launched) = out["cpu"], out["cuda"]
     # whisper: each encoder layer once, each decoder layer twice (self
-    # and cross)
+    # and cross); K6 runs again in the backward under the default remat
     calls = grad_accum * (cfg.n_enc_layers + 2 * cfg.n_dec_layers
                           if cfg.family == "encdec"
                           else lm.attention_layers(cfg))
-    check(launched == {"flash_attention_fwd": calls,
+    check(launched == {"flash_attention_fwd": k6_runs(cfg) * calls,
                        "flash_attention_bwd": calls},
-          f"train card vs CPU {arch}: launches {launched}, want {calls}")
+          f"train card vs CPU {arch}: launches {launched}, want K7 {calls} "
+          f"and K6 {k6_runs(cfg)} × that (remat {cfg.remat})")
     rel_l, rel_g = abs(ld - lc) / abs(lc), abs(gd - gc) / abs(gc)
     check(rel_l <= TRAIN_REL and rel_g <= TRAIN_REL,
           f"train card vs CPU {arch}: loss rel {rel_l}, grad norm rel "
@@ -4527,8 +4534,8 @@ def train_card_vs_cpu(dev, arch, seed=0, **opt):
         f"{' (' + tag + ')' if tag else ''}: loss {ld:.6f} rel {rel_l:.3e}, "
         f"grad norm rel {rel_g:.3e} (≤ {TRAIN_REL:g}), first moment "
         f"|Δ|/max {dm:.3e} (≤ {mu_lim:g}), parameters |Δ| {dp:.3e} = "
-        f"{dp / opt_cfg.lr:.3e}·lr (≤ {lim / opt_cfg.lr:g}·lr); K6 = K7 "
-        f"= {calls}")
+        f"{dp / opt_cfg.lr:.3e}·lr (≤ {lim / opt_cfg.lr:g}·lr); K7 = "
+        f"{calls}, K6 = {k6_runs(cfg) * calls} (remat {cfg.remat})")
     return dict(arch=arch, loss_rel=rel_l, grad_norm_rel=rel_g,
                 param_abs=dp, mu_rel=dm, **opt)
 
@@ -4551,9 +4558,11 @@ def train_resume(dev):
               "64", "--steps", "6", "--ckpt-every", "3", "--log-every", "3"]
     FK.reset_launch_counts()
     a = T.main(common + ["--ckpt-dir", a_dir])
-    check(FK.launch_counts() == {"flash_attention_fwd": 24,
+    # 4 layers × 6 steps; K6 twice a layer under the default full remat
+    check(FK.launch_counts() == {"flash_attention_fwd": 48,
                                  "flash_attention_bwd": 24},
-          f"train resume: launches {FK.launch_counts()}, want 24 each")
+          f"train resume: launches {FK.launch_counts()}, want K6 48 and "
+          f"K7 24")
     os.makedirs(b_dir)
     shutil.copy(os.path.join(a_dir, "ckpt_0000000003.npz"), b_dir)
     b = T.main(common + ["--ckpt-dir", b_dir])
@@ -4569,8 +4578,9 @@ def train_resume(dev):
 def train_twin(dev, trials=7, steps=5):
     """``examples/hpo_train_torch.py`` on the card: a GPSampler (D-BE)
     tunes lr and weight decay of a reduced f32 LM (2 layers), ``trials``
-    trials of ``steps`` steps: K1–K4 in the sampler, K6 = K7 = 2 layers ×
-    steps × trials in the objective, counted alone."""
+    trials of ``steps`` steps: K1–K4 in the sampler, K7 = 2 layers ×
+    steps × trials in the objective and K6 twice that (the default full
+    remat), counted alone."""
     import torch
     from repro_torch.kernels.flash import kernel as FK
     from repro_torch.kernels.matern import kernel as MK
@@ -4585,15 +4595,16 @@ def train_twin(dev, trials=7, steps=5):
     wall = time.perf_counter() - t0
     fl, ml = FK.launch_counts(), MK.launch_counts()
     want = 2 * steps * trials
-    check(fl == {"flash_attention_fwd": want, "flash_attention_bwd": want},
-          f"hpo_train twin: K6/K7 launches {fl}, want {want} each")
+    check(fl == {"flash_attention_fwd": 2 * want,
+                 "flash_attention_bwd": want},
+          f"hpo_train twin: K6/K7 launches {fl}, want {2 * want}/{want}")
     check(all(v > 0 for v in ml.values()), f"hpo_train twin: K1–K4 "
           f"launches {ml}")
     best = s.best()
     check(math.isfinite(best.y), f"hpo_train twin: best {best.y}")
     log(f"[train] hpo_train twin: {trials} trials × {steps} steps in "
-        f"{wall:.1f} s, best loss {best.y:.4f}; K6 = K7 = {want}, K1–K4 "
-        f"{json.dumps(ml)}")
+        f"{wall:.1f} s, best loss {best.y:.4f}; K7 = {want}, K6 = "
+        f"{2 * want}, K1–K4 {json.dumps(ml)}")
     return dict(wall_s=wall, best=best.y, flash=fl, matern=ml)
 
 
@@ -4611,6 +4622,130 @@ def phase_train(dev):
     twin = train_twin(dev)
     log(f"[time] train: {time.perf_counter() - t0:.1f} s")
     return dict(full=row, card_vs_cpu=rows, twin=twin), launches
+
+
+# slice 11: llama3.2-3b at full width and depth, bf16, B=8 (the batch PR
+# 25 cut to 4 for memory), one compute_grads a remat mode on one set of
+# parameters and one batch, then train steps under full remat
+TRAIN_REMAT = dict(TRAIN, batch=8, remat="full")
+REMAT_MODES = ("none", "full", "dots")
+
+
+def remat_grads(dev, c=TRAIN_REMAT):
+    """One ``compute_grads`` under each remat mode on the same parameters
+    (seed 0, stacked) and batch (DataConfig(B, S, seed 0)): a warm call,
+    then one timed with CUDA events after reset_peak_memory_stats (its
+    peak: parameters, batch, activations or what remat keeps, and the
+    gradients).  "none"'s loss and gradients go to the host; the other
+    modes must equal them bitwise (the same shapes give cuBLAS the same
+    algorithms; K6 sums in a fixed order, so its recompute and its lse
+    are the same bits): if not, the largest |Δ| of each leaf that
+    differs is logged and the phase fails.  Everything is freed between
+    modes.  → {mode: row}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synth import DataConfig, synth_batch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.launch.shapes import init_fn_for
+    from repro_torch.train.optim import tree_leaves
+    from repro_torch.train.step import compute_grads
+    cfg0 = get_config(c["arch"])
+    params = init_fn_for(cfg0)(
+        cfg0, torch.Generator(device=dev).manual_seed(0), stacked=True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        cfg0, DataConfig(global_batch=c["batch"], seq_len=c["seq"], seed=0),
+        0).items()}
+    rows, ref = {}, None
+    for mode in REMAT_MODES:
+        cfg = cfg0.replace(remat=mode)
+        compute_grads(params, cfg, batch)                    # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        FK.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, grads = compute_grads(params, cfg, batch)
+        end.record()
+        torch.cuda.synchronize()
+        row = dict(remat=mode, grads_ms=start.elapsed_time(end),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   held_before_gb=held / 1e9, loss=float(loss),
+                   launches=FK.launch_counts())
+        want = c["layers"]
+        check(row["launches"] == {
+            "flash_attention_fwd": (1 if mode == "none" else 2) * want,
+            "flash_attention_bwd": want},
+            f"remat {mode}: launches {row['launches']}, want K7 {want}")
+        leaves = tree_leaves(grads)
+        if ref is None:
+            ref = (loss.cpu(), [g.cpu() for g in leaves])
+        else:
+            diffs = {}
+            for i, (g, r) in enumerate(zip(leaves, ref[1])):
+                r = r.to(dev)
+                if not torch.equal(g, r):
+                    diffs[i] = float((g.float() - r.float()).abs().max())
+                del r
+            row["loss_bitwise"] = bool(torch.equal(loss.cpu(), ref[0]))
+            row["grads_bitwise"] = not diffs
+            if diffs or not row["loss_bitwise"]:
+                log(f"[remat] {mode} against none: loss {float(loss)!r} vs "
+                    f"{float(ref[0])!r}; largest |Δ| per leaf that differs "
+                    f"{json.dumps(diffs)}")
+            check(row["loss_bitwise"], f"remat {mode}: the loss differs "
+                  f"from remat none's")
+            check(not diffs, f"remat {mode}: {len(diffs)} gradient leaves "
+                  f"differ from remat none's")
+        del loss, grads, leaves
+        torch.cuda.empty_cache()
+        rows[mode] = row
+        log("[remat] " + json.dumps(on_card(row)))
+    del params, batch, ref
+    torch.cuda.empty_cache()
+    check(rows["full"]["peak_gb"] < rows["none"]["peak_gb"],
+          f"remat: the gradient half's peak under full "
+          f"({rows['full']['peak_gb']:.2f} GB) is not below none's "
+          f"({rows['none']['peak_gb']:.2f} GB)")
+    return rows
+
+
+def dryrun_live_gb(c):
+    """The dry run's bytes held (``launch/dryrun.py``'s
+    live_bytes_per_device, counted on meta) for a train step of ``c``'s
+    arch, batch, sequence and remat, one microbatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import cell_record
+    from repro_torch.launch.shapes import ShapeCell
+    cfg = get_config(c["arch"]).replace(remat=c["remat"])
+    rec = cell_record(cfg, ShapeCell(f"train_b{c['batch']}", "train",
+                                     c["seq"], c["batch"]), grad_accum=1)
+    return rec["live_bytes_per_device"] / 1e9, rec["memory"]
+
+
+def phase_train_remat(dev):
+    """Slice 11: remat at full width (llama3.2-3b, bf16, B=8, S=512):
+    remat_grads' three modes, bitwise; then train_full_width under full
+    remat (8 steps, 3 traced: K6 = 56 and K7 = 28 a step); the dry run's
+    bytes held for this cell and for TRAIN's (B=4, remat none) beside
+    the measured peaks (logged, not gated).  → (row, the train launches
+    under full remat)."""
+    t0 = time.perf_counter()
+    grads = remat_grads(dev)
+    full, launches = train_full_width(dev, TRAIN_REMAT)
+    row = dict(grads=grads, full=full)
+    for tag, c in (("b8_full", TRAIN_REMAT), ("b4_none", TRAIN)):
+        row[f"dryrun_{tag}_live_gb"], row[f"dryrun_{tag}_memory"] = \
+            dryrun_live_gb(c)
+    row["measured_b8_full_step_peak_gb"] = full["peak_memory_gb"]
+    row["measured_b8_full_grads_peak_gb"] = grads["full"]["peak_gb"]
+    row["gap_b8_full_gb"] = (full["peak_memory_gb"]
+                             - row["dryrun_b8_full_live_gb"])
+    row["phase_s"] = time.perf_counter() - t0
+    log("[remat] " + json.dumps(on_card(row)))
+    log(f"[time] train remat: {row['phase_s']:.1f} s")
+    return row, launches
 
 
 def main() -> int:
@@ -4668,6 +4803,8 @@ def main() -> int:
     train_k = phase_train_kernels(dev, err)
     train, train_launches = phase_train(dev)
     log(f"[time] train: {time.perf_counter() - t_start:.1f} s")
+    remat, remat_launches = phase_train_remat(dev)
+    log(f"[time] train remat: {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4741,6 +4878,10 @@ def main() -> int:
                 # slice 9: the full-width train steps (28 a step), and
                 # K6 with its log-sum-exp at their shape
                 "train_launches": train_launches["flash_attention_fwd"],
+                # slice 11: the B=8 train steps under full remat (56 a
+                # step: each layer's forward again in the backward)
+                "train_remat_launches":
+                    remat_launches["flash_attention_fwd"],
                 "train_timing": {
                     key: train_k[key] for key in (
                         "shape", "flash_ms", "flash_ms_from", "flash_lse_ms",
@@ -4779,7 +4920,13 @@ def main() -> int:
         "whisper_timing": train_k["whisper_bwd"],
         "train": {k: train["full"][k] for k in (
             "ms_per_step", "tokens_per_s", "mfu", "k7_device_ms_per_step",
-            "busy_device_ms_per_step", "peak_memory_gb")}})
+            "busy_device_ms_per_step", "peak_memory_gb")},
+        # slice 11: the B=8 train steps under full remat (28 a step)
+        "train_remat_launches": remat_launches["flash_attention_bwd"],
+        "train_remat": {k: remat["full"][k] for k in (
+            "ms_per_step", "tokens_per_s", "mfu", "k6_device_ms_per_step",
+            "k7_device_ms_per_step", "busy_device_ms_per_step",
+            "peak_memory_gb")}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

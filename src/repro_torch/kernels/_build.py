@@ -126,11 +126,16 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
-def on_cpu(x) -> bool:
+def on_cpu(x, meta: bool = False) -> bool:
     """True for a CPU tensor (the wrapper takes the plain version); False
     for a CUDA tensor (the wrapper launches its kernel); raises on any
-    other device."""
-    if x.device.type == "cpu":
+    other device.  With ``meta``, a meta tensor is True too: a meta tensor
+    holds a shape and no values, so the plain version there only derives
+    the output's shape (the dry run's counts, ``launch/hlo_cost.py``).
+    That is not a fallback: nothing runs, and a meta tensor can launch
+    nothing.  Only the flash wrappers, which the dry run reaches, pass
+    it."""
+    if x.device.type == "cpu" or (meta and x.device.type == "meta"):
         return True
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")

@@ -168,7 +168,7 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     sk, kh = k.shape[1], k.shape[2]
     if kh < 1 or nh % kh:
         raise ValueError(f"{nh} query heads do not group over {kh} KV heads")
-    if on_cpu(q):
+    if on_cpu(q, meta=True):
         return flash_attention_fwd_ref(q, k, v, q_pos, kv_pos, causal=causal,
                                        window=window, scale=scale,
                                        return_lse=return_lse)
@@ -245,7 +245,7 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     launch fails)."""
     b, sq, nh, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
-    if on_cpu(q):
+    if on_cpu(q, meta=True):
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, q_pos,
                                        kv_pos, causal=causal, window=window,
                                        scale=scale)

@@ -6,8 +6,10 @@ families; family-specific fields are zero/empty when unused.  Exact
 assigned configs live in ``repro_torch/configs/<id>.py``; reduced smoke
 variants come from ``reduced()``.  ``models/lm.py`` runs the dense, moe,
 vlm, hybrid and ssm families, ``models/whisper.py`` the encdec one.
-The JAX config's runtime options (sharding, scan, remat, XLA attention
-chunk) are XLA settings with no counterpart here, so they are not copied.
+Of the JAX config's runtime options only ``remat`` has a counterpart
+(``torch.utils.checkpoint`` per layer unit: ``lm._remat``); ``fsdp``,
+``seq_shard``, ``scan_layers`` and ``attn_chunk`` are XLA or mesh
+settings with none here, so they are not copied.
 """
 from __future__ import annotations
 
@@ -63,6 +65,10 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # sub-quadratic decode (eligibility for long_500k per DESIGN.md §5)
     sub_quadratic: bool = False
+
+    # runtime knob (not part of the architecture): what a layer unit keeps
+    # for its backward, as the reference's scan body
+    remat: str = "full"          # none | full | dots
 
     def __post_init__(self):
         if self.head_dim == 0:

@@ -33,23 +33,33 @@ Params = Dict[str, Tensor]
 # initializers
 # ---------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape, dtype) -> Tensor:
-    return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
+def draw_device(gen: torch.Generator, device=None) -> torch.device:
+    """Where the initializers put what they draw from ``gen``: ``device``,
+    or ``gen.device`` when it is None.  ``torch.device("meta")`` with a
+    CPU generator gives shapes and dtypes only (``launch/shapes.py``); a
+    meta generator does not exist."""
+    return gen.device if device is None else torch.device(device)
 
 
-def _dense_init(gen: torch.Generator, shape, dtype, in_axis_size: int
-                ) -> Tensor:
+def _normal(gen: torch.Generator, shape, dtype, device=None) -> Tensor:
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=draw_device(gen, device))
+
+
+def _dense_init(gen: torch.Generator, shape, dtype, in_axis_size: int,
+                device=None) -> Tensor:
     """normal · fan_in^−½, the product taken in ``dtype`` (as JAX's), in
     place: a stacked expert weight is allocated once."""
-    scale = torch.tensor(in_axis_size ** -0.5, dtype=dtype, device=gen.device)
-    return _normal(gen, shape, dtype).mul_(scale)
+    dev = draw_device(gen, device)
+    scale = torch.tensor(in_axis_size ** -0.5, dtype=dtype, device=dev)
+    return _normal(gen, shape, dtype, dev).mul_(scale)
 
 
 def make_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
-               lead: Tuple[int, ...] = ()) -> Tensor:
+               lead: Tuple[int, ...] = (), device=None) -> Tensor:
     """A (d_in, d_out) weight (with ``lead`` stacking axes), normal ·
     d_in^−½; the reference's sharding axes have no counterpart here."""
-    return _dense_init(gen, lead + (d_in, d_out), dtype, d_in)
+    return _dense_init(gen, lead + (d_in, d_out), dtype, d_in, device)
 
 
 # ---------------------------------------------------------------------------
@@ -57,8 +67,8 @@ def make_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
 # ---------------------------------------------------------------------------
 
 def init_norm(gen: torch.Generator, cfg: ModelConfig, dtype,
-              lead: Tuple[int, ...] = ()) -> Params:
-    dev = gen.device
+              lead: Tuple[int, ...] = (), device=None) -> Params:
+    dev = draw_device(gen, device)
     p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=dev)}
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype,
@@ -131,16 +141,16 @@ def rope(x: Tensor, positions: Tensor, theta: float, fraction: float
 # ---------------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
-                   lead: Tuple[int, ...] = ()) -> Params:
+                   lead: Tuple[int, ...] = (), device=None) -> Params:
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dev = draw_device(gen, device)
     p = {
-        "wq": _dense_init(gen, lead + (d, nh, hd), dtype, d),
-        "wk": _dense_init(gen, lead + (d, nkv, hd), dtype, d),
-        "wv": _dense_init(gen, lead + (d, nkv, hd), dtype, d),
-        "wo": _dense_init(gen, lead + (nh, hd, d), dtype, nh * hd),
+        "wq": _dense_init(gen, lead + (d, nh, hd), dtype, d, dev),
+        "wk": _dense_init(gen, lead + (d, nkv, hd), dtype, d, dev),
+        "wv": _dense_init(gen, lead + (d, nkv, hd), dtype, d, dev),
+        "wo": _dense_init(gen, lead + (nh, hd, d), dtype, nh * hd, dev),
     }
     if cfg.qk_norm:
-        dev = gen.device
         p["q_norm"] = torch.ones(lead + (hd,), dtype=dtype, device=dev)
         p["k_norm"] = torch.ones(lead + (hd,), dtype=dtype, device=dev)
     return p
@@ -315,14 +325,15 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype,
-             lead: Tuple[int, ...] = ()) -> Params:
+             lead: Tuple[int, ...] = (), device=None) -> Params:
     d, ff = cfg.d_model, cfg.d_ff
+    dev = draw_device(gen, device)
     p = {
-        "w_up": _dense_init(gen, lead + (d, ff), dtype, d),
-        "w_down": _dense_init(gen, lead + (ff, d), dtype, ff),
+        "w_up": _dense_init(gen, lead + (d, ff), dtype, d, dev),
+        "w_down": _dense_init(gen, lead + (ff, d), dtype, ff, dev),
     }
     if cfg.activation in ("swiglu", "geglu"):
-        p["w_gate"] = _dense_init(gen, lead + (d, ff), dtype, d)
+        p["w_gate"] = _dense_init(gen, lead + (d, ff), dtype, d, dev)
     return p
 
 
@@ -344,12 +355,15 @@ def apply_mlp(p: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
 # embeddings / head
 # ---------------------------------------------------------------------------
 
-def init_embedding(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
-    scale = torch.tensor(0.02, dtype=dtype, device=gen.device)
-    p = {"tok": _normal(gen, (cfg.vocab_size, cfg.d_model), dtype) * scale}
+def init_embedding(gen: torch.Generator, cfg: ModelConfig, dtype,
+                   device=None) -> Params:
+    dev = draw_device(gen, device)
+    scale = torch.tensor(0.02, dtype=dtype, device=dev)
+    p = {"tok": _normal(gen, (cfg.vocab_size, cfg.d_model), dtype, dev)
+         * scale}
     if not cfg.tie_embeddings:
         p["head"] = _dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
-                                cfg.d_model)
+                                cfg.d_model, dev)
     return p
 
 

@@ -21,6 +21,17 @@ is the flash kernel K6 (its backward K7): ``forward`` launches it once
 per attention layer with Sq = S, ``decode_step`` once per attention
 layer per step over the whole cache (the ssm family has none).
 
+``cfg.remat`` says what a layer unit keeps for its backward when a
+gradient is taken (:func:`_remat`; the units are the reference's scan
+bodies: a dense/moe/vlm block, a hybrid triple, a hybrid tail layer, an
+ssm group): ``"none"`` everything autograd saves; ``"full"`` only the
+unit's inputs, the unit run again in the backward
+(``torch.utils.checkpoint``, so K6 runs twice a layer and K7 once);
+``"dots"`` the outputs of its 2-D products as well (the twin of
+``dots_with_no_batch_dims_saveable``), the rest, attention included,
+run again.  All three give the same bits.  Without a gradient, and
+whenever a cache is written, a unit runs once and saves nothing.
+
 The decode cache is preallocated on the device with the reference's
 nesting and a leading layer axis, ``k``/``v`` (L, B, Lmax, KH, hd) and
 ``pos`` (L, B, Lmax) for dense/moe/vlm; for hybrid, ``triples`` holds
@@ -33,9 +44,12 @@ into it in place (JAX threads it through a scan carry that XLA aliases).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -83,59 +97,65 @@ def attention_layers(cfg: ModelConfig) -> int:
 # init
 # ---------------------------------------------------------------------------
 
-def _dense_block(gen, cfg: ModelConfig, dtype, n: int) -> Dict[str, Any]:
+def _dense_block(gen, cfg: ModelConfig, dtype, n: int, dev
+                 ) -> Dict[str, Any]:
     p = {
-        "attn_norm": L.init_norm(gen, cfg, dtype, (n,)),
-        "attn": L.init_attention(gen, cfg, dtype, (n,)),
-        "mlp_norm": L.init_norm(gen, cfg, dtype, (n,)),
+        "attn_norm": L.init_norm(gen, cfg, dtype, (n,), dev),
+        "attn": L.init_attention(gen, cfg, dtype, (n,), dev),
+        "mlp_norm": L.init_norm(gen, cfg, dtype, (n,), dev),
     }
     if cfg.is_moe:
-        p["moe"] = MOE.init_moe(gen, cfg, dtype, (n,))
+        p["moe"] = MOE.init_moe(gen, cfg, dtype, (n,), dev)
     else:
-        p["mlp"] = L.init_mlp(gen, cfg, dtype, (n,))
+        p["mlp"] = L.init_mlp(gen, cfg, dtype, (n,), dev)
     return p
 
 
-def _rg_block(gen, cfg: ModelConfig, dtype, kind: str, n: int
+def _rg_block(gen, cfg: ModelConfig, dtype, kind: str, n: int, dev
               ) -> Dict[str, Any]:
     p = {
-        "mix_norm": L.init_norm(gen, cfg, dtype, (n,)),
-        "mlp_norm": L.init_norm(gen, cfg, dtype, (n,)),
-        "mlp": L.init_mlp(gen, cfg, dtype, (n,)),
+        "mix_norm": L.init_norm(gen, cfg, dtype, (n,), dev),
+        "mlp_norm": L.init_norm(gen, cfg, dtype, (n,), dev),
+        "mlp": L.init_mlp(gen, cfg, dtype, (n,), dev),
     }
     if kind == "attn":
-        p["attn"] = L.init_attention(gen, cfg, dtype, (n,))
+        p["attn"] = L.init_attention(gen, cfg, dtype, (n,), dev)
     else:
-        p["rec"] = RG.init_recurrent_block(gen, cfg, dtype, (n,))
+        p["rec"] = RG.init_recurrent_block(gen, cfg, dtype, (n,), dev)
     return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
-                stacked: bool = False) -> Dict[str, Any]:
-    """Random parameters drawn from ``gen`` on ``gen.device``, with the JAX
-    package's distributions (dense weights normal · fan_in^−½; the router,
-    ``lambda_param``, ``w_if`` and ``r_*`` float32; token embedding normal
-    · 0.02; norm scales ones).  Per-layer views, or with ``stacked`` the
-    stacks themselves (the reference's tree; the same draws)."""
+                stacked: bool = False, device=None) -> Dict[str, Any]:
+    """Random parameters drawn from ``gen`` on ``device`` (default
+    ``gen.device``; ``"meta"`` with a CPU generator gives the shapes
+    alone), with the JAX package's distributions (dense weights normal ·
+    fan_in^−½; the router, ``lambda_param``, ``w_if`` and ``r_*``
+    float32; token embedding normal · 0.02; norm scales ones).  Per-layer
+    views, or with ``stacked`` the stacks themselves (the reference's
+    tree; the same draws)."""
     _require_served(cfg)
-    dtype = torch_dtype(cfg)
+    dtype, dev = torch_dtype(cfg), L.draw_device(gen, device)
     if cfg.family == "ssm":
         n_groups, n_m = ssm_layout(cfg)
         params = {"groups": {
-            "mlstm": XL.init_mlstm_block(gen, cfg, dtype, (n_groups, n_m)),
-            "slstm": XL.init_slstm_block(gen, cfg, dtype, (n_groups,))}}
+            "mlstm": XL.init_mlstm_block(gen, cfg, dtype, (n_groups, n_m),
+                                         dev),
+            "slstm": XL.init_slstm_block(gen, cfg, dtype, (n_groups,),
+                                         dev)}}
     elif cfg.family == "hybrid":
         n_triples, n_tail = hybrid_layout(cfg)
         params = {"triples": {
             kind: _rg_block(gen, cfg, dtype,
-                            "attn" if kind == "attn" else "rec", n_triples)
+                            "attn" if kind == "attn" else "rec", n_triples,
+                            dev)
             for kind in ("rec1", "rec2", "attn")}}
         if n_tail:
-            params["tail"] = _rg_block(gen, cfg, dtype, "rec", n_tail)
+            params["tail"] = _rg_block(gen, cfg, dtype, "rec", n_tail, dev)
     else:
-        params = {"blocks": _dense_block(gen, cfg, dtype, cfg.n_layers)}
-    tree = {"embed": L.init_embedding(gen, cfg, dtype),
-            "final_norm": L.init_norm(gen, cfg, dtype), **params}
+        params = {"blocks": _dense_block(gen, cfg, dtype, cfg.n_layers, dev)}
+    tree = {"embed": L.init_embedding(gen, cfg, dtype, dev),
+            "final_norm": L.init_norm(gen, cfg, dtype, device=dev), **params}
     return tree if stacked else per_layer(tree)
 
 
@@ -209,6 +229,41 @@ def cache_bytes(cache: Tree) -> int:
 
 
 # ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = ("none", "full", "dots")
+# the 2-D products "dots" keeps: every projection and the vocabulary head
+# (``x @ w`` of a (B, S, d) x folds to one ``mm``); batched products
+# (attention's, the experts' ``bmm``, the mLSTM's) are recomputed, as
+# dots_with_no_batch_dims_saveable recomputes dots with batch dims
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` (a layer unit) as ``cfg.remat`` says, when a gradient is
+    being taken: ``torch.utils.checkpoint`` (non-reentrant, which works
+    with ``torch.autograd.grad``), under "dots" with a policy that keeps
+    the 2-D products' outputs; ``fn`` itself under "none" or without
+    grad mode.  Callers never wrap a unit that writes a cache: its
+    recompute would write the slots again."""
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"remat {cfg.remat!r} not in {REMAT_MODES}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _keep_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+# ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
@@ -265,25 +320,42 @@ def _write(dst, src) -> None:
         dst.copy_(src)
 
 
+def _ssm_group(grp, cfg: ModelConfig, x: Tensor) -> Tensor:
+    """One xLSTM group without a cache (the remat unit)."""
+    for p in grp["mlstm"]:
+        x = x + XL.apply_mlstm_block(p, cfg, x)[0]
+    return x + XL.apply_slstm_block(grp["slstm"], cfg, x)[0]
+
+
 def _run_ssm(params, cfg: ModelConfig, x: Tensor, cache=None) -> Tensor:
     """xLSTM groups in order, each block's output added to the residual
     (no pre-norm, as in the reference).  With ``cache``: one decode step,
     each block's new state written into the cache in place."""
-    groups = None if cache is None else cache["groups"]
+    if cache is None:
+        unit = _remat(_ssm_group, cfg)
+        for grp in params["groups"]:
+            x = unit(grp, cfg, x)
+        return x
+    groups = cache["groups"]
     for g, grp in enumerate(params["groups"]):
         for i, p in enumerate(grp["mlstm"]):
-            st = None if groups is None else _layer(groups["mlstm"],
-                                                    (g, i))
-            y, new = XL.apply_mlstm_block(p, cfg, x, st,
-                                          decode=st is not None)
-            if st is not None:
-                _write(st, new)
-            x = x + y
-        st = None if groups is None else _layer(groups["slstm"], g)
-        y, new = XL.apply_slstm_block(grp["slstm"], cfg, x, st)
-        if st is not None:
+            st = _layer(groups["mlstm"], (g, i))
+            y, new = XL.apply_mlstm_block(p, cfg, x, st, decode=True)
             _write(st, new)
+            x = x + y
+        st = _layer(groups["slstm"], g)
+        y, new = XL.apply_slstm_block(grp["slstm"], cfg, x, st)
+        _write(st, new)
         x = x + y
+    return x
+
+
+def _triple(tri, cfg: ModelConfig, x: Tensor, positions: Tensor, tables
+            ) -> Tensor:
+    """One hybrid (rec, rec, attn) triple without a cache (a remat
+    unit)."""
+    for kind in ("rec1", "rec2", "attn"):
+        x = _rg_apply(tri[kind], cfg, x, positions, tables)
     return x
 
 
@@ -297,19 +369,26 @@ def _run_layers(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     tables = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_fraction)
     if cfg.family == "hybrid":
-        tri_c = None if cache is None else cache["triples"]
+        if cache is None:
+            triple, tail = _remat(_triple, cfg), _remat(_rg_apply, cfg)
+            for tri in params["triples"]:
+                x = triple(tri, cfg, x, positions, tables)
+            for p in params.get("tail", ()):
+                x = tail(p, cfg, x, positions, tables)
+            return x, aux
         for i, tri in enumerate(params["triples"]):
-            c = None if tri_c is None else _layer(tri_c, i)
+            c = _layer(cache["triples"], i)
             for kind in ("rec1", "rec2", "attn"):
-                x = _rg_apply(tri[kind], cfg, x, positions, tables,
-                              None if c is None else c[kind], cache_index)
+                x = _rg_apply(tri[kind], cfg, x, positions, tables, c[kind],
+                              cache_index)
         for i, p in enumerate(params.get("tail", ())):
-            c = None if cache is None else _layer(cache["tail"], i)
-            x = _rg_apply(p, cfg, x, positions, tables, c)
+            x = _rg_apply(p, cfg, x, positions, tables,
+                          _layer(cache["tail"], i))
         return x, aux
+    block = _block if cache is not None else _remat(_block, cfg)
     for i, p in enumerate(params["blocks"]):
         c = None if cache is None else _layer(cache, i)
-        x, a = _block(p, cfg, x, positions, tables, c, cache_index)
+        x, a = block(p, cfg, x, positions, tables, c, cache_index)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -433,6 +512,10 @@ def decode_step(params, cfg: ModelConfig, tokens: Tensor,
     b = x.shape[0]
     pos = torch.as_tensor(position, dtype=torch.int32, device=x.device)
     positions = (pos.expand(b, 1) if pos.ndim == 0 else pos[:, None])
-    x, _ = _run_layers(params, cfg, x, positions.contiguous(), cache, pos)
+    # a Python int stays one as the write index: its slot is read on the
+    # host, with no device read (and a meta cache, which holds no values,
+    # takes it too)
+    index = position if isinstance(position, int) else pos
+    x, _ = _run_layers(params, cfg, x, positions.contiguous(), cache, index)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     return L.lm_logits(params["embed"], cfg, x)[:, 0, :], cache

@@ -26,21 +26,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _dense_init
+from repro_torch.models.layers import _dense_init, draw_device
 
 Tensor = torch.Tensor
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype,
-             lead: Tuple[int, ...] = ()) -> Dict[str, Tensor]:
+             lead: Tuple[int, ...] = (), device=None) -> Dict[str, Tensor]:
     """Router (d, E) float32 and experts ``w_up``/``w_gate`` (E, d, ff),
     ``w_down`` (E, ff, d) in ``dtype``, normal · fan_in^−½."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dev = draw_device(gen, device)
     return {
-        "router": _dense_init(gen, lead + (d, E), torch.float32, d),
-        "w_up": _dense_init(gen, lead + (E, d, ff), dtype, d),
-        "w_gate": _dense_init(gen, lead + (E, d, ff), dtype, d),
-        "w_down": _dense_init(gen, lead + (E, ff, d), dtype, ff),
+        "router": _dense_init(gen, lead + (d, E), torch.float32, d, dev),
+        "w_up": _dense_init(gen, lead + (E, d, ff), dtype, d, dev),
+        "w_gate": _dense_init(gen, lead + (E, d, ff), dtype, d, dev),
+        "w_down": _dense_init(gen, lead + (E, ff, d), dtype, ff, dev),
     }
 
 

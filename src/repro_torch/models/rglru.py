@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _dense_init, _gelu
+from repro_torch.models.layers import _dense_init, _gelu, draw_device
 
 Tensor = torch.Tensor
 
@@ -29,20 +29,21 @@ _C = 8.0      # Griffin's fixed recurrence sharpness constant
 
 
 def init_recurrent_block(gen: torch.Generator, cfg: ModelConfig, dtype,
-                         lead: Tuple[int, ...] = ()) -> Dict[str, Tensor]:
-    d, w, dev = cfg.d_model, cfg.lru_width, gen.device
+                         lead: Tuple[int, ...] = (), device=None
+                         ) -> Dict[str, Tensor]:
+    d, w, dev = cfg.d_model, cfg.lru_width, draw_device(gen, device)
     return {
         # two input branches (gate / recurrent)
-        "w_gate_in": _dense_init(gen, lead + (d, w), dtype, d),
-        "w_rec_in": _dense_init(gen, lead + (d, w), dtype, d),
-        "w_out": _dense_init(gen, lead + (w, d), dtype, w),
+        "w_gate_in": _dense_init(gen, lead + (d, w), dtype, d, dev),
+        "w_rec_in": _dense_init(gen, lead + (d, w), dtype, d, dev),
+        "w_out": _dense_init(gen, lead + (w, d), dtype, w, dev),
         # temporal conv (depthwise, width cfg.conv_width)
         "conv_w": _dense_init(gen, lead + (cfg.conv_width, w), dtype,
-                              cfg.conv_width),
+                              cfg.conv_width, dev),
         "conv_b": torch.zeros(lead + (w,), dtype=dtype, device=dev),
         # RG-LRU gates
-        "w_input_gate": _dense_init(gen, lead + (w, w), dtype, w),
-        "w_rec_gate": _dense_init(gen, lead + (w, w), dtype, w),
+        "w_input_gate": _dense_init(gen, lead + (w, w), dtype, w, dev),
+        "w_rec_gate": _dense_init(gen, lead + (w, w), dtype, w, dev),
         "lambda_param": torch.full(lead + (w,), 0.7, dtype=torch.float32,
                                    device=dev),
     }

@@ -17,7 +17,11 @@ layer of views of one stacked tensor per weight when drawn here, or the
 stacks themselves (``init_params(stacked=True)``, the reference's tree,
 what training holds; ``lm.per_layer`` splits them at each call).
 :func:`lm_loss` is the training loss (encode, decode_train, the LM's
-cross-entropy); under autograd every K6 call's backward is K7.
+cross-entropy); under autograd every K6 call's backward is K7.  When a
+gradient is taken and ``cfg.remat`` is not "none", each encoder and
+decoder layer body runs under ``torch.utils.checkpoint`` ("dots" is plain
+checkpointing here, as in the reference), so its K6 calls run again in
+the backward.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels.flash.kernel import attention
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import _remat as lm_remat
 from repro_torch.models.lm import cross_entropy, per_layer, torch_dtype
 
 Tensor = torch.Tensor
@@ -48,32 +53,33 @@ def _sinusoidal(positions: Tensor, d: int, dtype) -> Tensor:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
-                stacked: bool = False) -> Dict[str, Any]:
-    """Random parameters drawn from ``gen`` on ``gen.device`` with the JAX
-    package's distributions (see ``lm.init_params``); per-layer views, or
-    with ``stacked`` the stacks themselves."""
-    dtype = torch_dtype(cfg)
+                stacked: bool = False, device=None) -> Dict[str, Any]:
+    """Random parameters drawn from ``gen`` on ``device`` (default
+    ``gen.device``; "meta" gives shapes alone) with the JAX package's
+    distributions (see ``lm.init_params``); per-layer views, or with
+    ``stacked`` the stacks themselves."""
+    dtype, dev = torch_dtype(cfg), L.draw_device(gen, device)
     ne, nd = (cfg.n_enc_layers,), (cfg.n_dec_layers,)
     enc = {
-        "attn_norm": L.init_norm(gen, cfg, dtype, ne),
-        "attn": L.init_attention(gen, cfg, dtype, ne),
-        "mlp_norm": L.init_norm(gen, cfg, dtype, ne),
-        "mlp": L.init_mlp(gen, cfg, dtype, ne),
+        "attn_norm": L.init_norm(gen, cfg, dtype, ne, dev),
+        "attn": L.init_attention(gen, cfg, dtype, ne, dev),
+        "mlp_norm": L.init_norm(gen, cfg, dtype, ne, dev),
+        "mlp": L.init_mlp(gen, cfg, dtype, ne, dev),
     }
     dec = {
-        "self_norm": L.init_norm(gen, cfg, dtype, nd),
-        "self_attn": L.init_attention(gen, cfg, dtype, nd),
-        "cross_norm": L.init_norm(gen, cfg, dtype, nd),
-        "cross_attn": L.init_attention(gen, cfg, dtype, nd),
-        "mlp_norm": L.init_norm(gen, cfg, dtype, nd),
-        "mlp": L.init_mlp(gen, cfg, dtype, nd),
+        "self_norm": L.init_norm(gen, cfg, dtype, nd, dev),
+        "self_attn": L.init_attention(gen, cfg, dtype, nd, dev),
+        "cross_norm": L.init_norm(gen, cfg, dtype, nd, dev),
+        "cross_attn": L.init_attention(gen, cfg, dtype, nd, dev),
+        "mlp_norm": L.init_norm(gen, cfg, dtype, nd, dev),
+        "mlp": L.init_mlp(gen, cfg, dtype, nd, dev),
     }
     tree = {
-        "embed": L.init_embedding(gen, cfg, dtype),
+        "embed": L.init_embedding(gen, cfg, dtype, dev),
         "enc": enc,
         "dec": dec,
-        "enc_norm": L.init_norm(gen, cfg, dtype),
-        "final_norm": L.init_norm(gen, cfg, dtype),
+        "enc_norm": L.init_norm(gen, cfg, dtype, device=dev),
+        "final_norm": L.init_norm(gen, cfg, dtype, device=dev),
     }
     return tree if stacked else per_layer(tree)
 
@@ -100,19 +106,43 @@ def _enc_kv(p, enc_out: Tensor) -> Tuple[Tensor, Tensor]:
             L._project(enc_out, p["wv"]).contiguous())
 
 
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` (a layer body) as ``lm._remat`` wraps it, "dots" taken as
+    "full": plain checkpointing, as in the reference."""
+    return lm_remat(fn, cfg.replace(remat="full") if cfg.remat == "dots"
+                    else cfg)
+
+
+def _enc_layer(p, cfg: ModelConfig, x: Tensor, pos: Tensor) -> Tensor:
+    a = L.apply_norm(p["attn_norm"], x, cfg.norm)
+    a, _ = L.apply_attention(p["attn"], cfg, a, pos, causal=False)
+    x = x + a
+    m = L.apply_norm(p["mlp_norm"], x, cfg.norm)
+    return x + L.apply_mlp(p["mlp"], cfg, m)
+
+
 def encode(params, cfg: ModelConfig, frames: Tensor) -> Tensor:
     """frames: (B, S_enc, D) stub embeddings → encoder hidden states."""
     b, s, d = frames.shape
     dt = torch_dtype(cfg)
     pos = _positions(b, s, frames.device)
     x = frames.to(dt) + _sinusoidal(pos, d, dt)
+    layer = _remat(_enc_layer, cfg)
     for p in per_layer(params, ("enc",))["enc"]:
-        a = L.apply_norm(p["attn_norm"], x, cfg.norm)
-        a, _ = L.apply_attention(p["attn"], cfg, a, pos, causal=False)
-        x = x + a
-        m = L.apply_norm(p["mlp_norm"], x, cfg.norm)
-        x = x + L.apply_mlp(p["mlp"], cfg, m)
+        x = layer(p, cfg, x, pos)
     return L.apply_norm(params["enc_norm"], x, cfg.norm)
+
+
+def _dec_layer(p, cfg: ModelConfig, x: Tensor, pos: Tensor,
+               enc_out: Tensor, enc_pos: Tensor) -> Tensor:
+    a = L.apply_norm(p["self_norm"], x, cfg.norm)
+    a, _ = L.apply_attention(p["self_attn"], cfg, a, pos, causal=True)
+    x = x + a
+    c = L.apply_norm(p["cross_norm"], x, cfg.norm)
+    ek, ev = _enc_kv(p["cross_attn"], enc_out)
+    x = x + _cross_attend(p["cross_attn"], cfg, c, ek, ev, enc_pos)
+    m = L.apply_norm(p["mlp_norm"], x, cfg.norm)
+    return x + L.apply_mlp(p["mlp"], cfg, m)
 
 
 def decode_train(params, cfg: ModelConfig, enc_out: Tensor,
@@ -123,15 +153,9 @@ def decode_train(params, cfg: ModelConfig, enc_out: Tensor,
     x = L.embed_tokens(params["embed"], tokens)
     x = x + _sinusoidal(pos, cfg.d_model, x.dtype)
     enc_pos = _positions(b, enc_out.shape[1], enc_out.device)
+    layer = _remat(_dec_layer, cfg)
     for p in per_layer(params, ("dec",))["dec"]:
-        a = L.apply_norm(p["self_norm"], x, cfg.norm)
-        a, _ = L.apply_attention(p["self_attn"], cfg, a, pos, causal=True)
-        x = x + a
-        c = L.apply_norm(p["cross_norm"], x, cfg.norm)
-        ek, ev = _enc_kv(p["cross_attn"], enc_out)
-        x = x + _cross_attend(p["cross_attn"], cfg, c, ek, ev, enc_pos)
-        m = L.apply_norm(p["mlp_norm"], x, cfg.norm)
-        x = x + L.apply_mlp(p["mlp"], cfg, m)
+        x = layer(p, cfg, x, pos, enc_out, enc_pos)
     return L.apply_norm(params["final_norm"], x, cfg.norm)
 
 

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _dense_init
+from repro_torch.models.layers import _dense_init, draw_device
 from repro_torch.models.rglru import _causal_conv
 
 Tensor = torch.Tensor
@@ -176,19 +176,20 @@ def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 def init_mlstm_block(gen: torch.Generator, cfg: ModelConfig, dtype,
-                     lead: Tuple[int, ...] = ()) -> dict:
-    d, nh, dev = cfg.d_model, cfg.n_heads, gen.device
+                     lead: Tuple[int, ...] = (), device=None) -> dict:
+    d, nh, dev = cfg.d_model, cfg.n_heads, draw_device(gen, device)
     up, dk, _ = mlstm_dims(cfg)
     return {
-        "w_up": _dense_init(gen, lead + (d, up), dtype, d),
-        "w_gate": _dense_init(gen, lead + (d, up), dtype, d),
+        "w_up": _dense_init(gen, lead + (d, up), dtype, d, dev),
+        "w_gate": _dense_init(gen, lead + (d, up), dtype, d, dev),
         "conv_w": _dense_init(gen, lead + (cfg.conv_width, up), dtype,
-                              cfg.conv_width),
+                              cfg.conv_width, dev),
         "conv_b": torch.zeros(lead + (up,), dtype=dtype, device=dev),
-        "w_q": _dense_init(gen, lead + (up, nh, dk), dtype, up),
-        "w_k": _dense_init(gen, lead + (up, nh, dk), dtype, up),
-        "w_if": _dense_init(gen, lead + (up, nh, 2), torch.float32, up),
-        "w_down": _dense_init(gen, lead + (up, d), dtype, up),
+        "w_q": _dense_init(gen, lead + (up, nh, dk), dtype, up, dev),
+        "w_k": _dense_init(gen, lead + (up, nh, dk), dtype, up, dev),
+        "w_if": _dense_init(gen, lead + (up, nh, 2), torch.float32, up,
+                            dev),
+        "w_down": _dense_init(gen, lead + (up, d), dtype, up, dev),
         "skip_scale": torch.ones(lead + (up,), dtype=dtype, device=dev),
     }
 
@@ -242,14 +243,15 @@ def apply_mlstm_block(p: dict, cfg: ModelConfig, x: Tensor, state=None, *,
 
 
 def init_slstm_block(gen: torch.Generator, cfg: ModelConfig, dtype,
-                     lead: Tuple[int, ...] = ()) -> dict:
-    d, nh = cfg.d_model, cfg.n_heads
+                     lead: Tuple[int, ...] = (), device=None) -> dict:
+    d, nh, dev = cfg.d_model, cfg.n_heads, draw_device(gen, device)
     wh = d // nh
-    p = {"w_in": _dense_init(gen, lead + (d, 4 * d), dtype, d)}
+    p = {"w_in": _dense_init(gen, lead + (d, 4 * d), dtype, d, dev)}
     for name in ("r_z", "r_i", "r_f", "r_o"):
-        p[name] = _dense_init(gen, lead + (nh, wh, wh), torch.float32, wh)
+        p[name] = _dense_init(gen, lead + (nh, wh, wh), torch.float32, wh,
+                              dev)
     # post-cell projection
-    p["w_out"] = _dense_init(gen, lead + (d, d), dtype, d)
+    p["w_out"] = _dense_init(gen, lead + (d, d), dtype, d, dev)
     return p
 
 

@@ -53,6 +53,20 @@ def _value_and_grad(params, cfg: ModelConfig, batch) -> Tuple[Tensor, Any]:
     return loss.detach(), tree_map(lambda p: by_id[id(p)], params)
 
 
+def accumulator(params, compression: str = "none"):
+    """The microbatches' gradient sum, zeros: bfloat16 under
+    ``compression="bf16"``, float32 otherwise."""
+    acc_dt = torch.bfloat16 if compression == "bf16" else torch.float32
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
+                                          device=p.device), params)
+
+
+def accumulate(acc, grads, grad_accum: int) -> None:
+    """acc += grads / grad_accum, leaf by leaf in place, in acc's dtype."""
+    for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
+        a.add_(g.to(a.dtype) / grad_accum)
+
+
 def compute_grads(params, cfg: ModelConfig, batch, *, grad_accum: int = 1,
                   compression: str = "none", shard_grads: bool = True):
     """(loss, grads) with optional microbatch accumulation: microbatch i
@@ -66,16 +80,12 @@ def compute_grads(params, cfg: ModelConfig, batch, *, grad_accum: int = 1,
         raise ValueError(f"batch of {rows} rows does not split into "
                          f"{grad_accum} microbatches")
     mb = rows // grad_accum
-    acc_dt = torch.bfloat16 if compression == "bf16" else torch.float32
-    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                         device=p.device), params)
+    acc = accumulator(params, compression)
     lsum = None
     for i in range(grad_accum):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
         loss, grads = _value_and_grad(params, cfg, micro)
-        grads = _cast_grads(grads, compression)
-        for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
-            a.add_(g.to(acc_dt) / grad_accum)
+        accumulate(acc, _cast_grads(grads, compression), grad_accum)
         del grads
         part = loss / grad_accum
         lsum = part if lsum is None else lsum + part

@@ -1177,7 +1177,9 @@ def test_flash_backward_entry_takes_only_bwd_plans_path(cuda, dtype, hd,
 def test_reduced_train_step_card_matches_cpu(cuda):
     """One train step of the reduced llama3.2-3b in f32 on the card
     against the CPU from the same parameters and batch: loss and grad norm
-    within 1e-5, K6 = K7 = 4 launches (one per layer)."""
+    within 1e-5, K7 = 4 launches (one per layer) and K6 = 8 (under the
+    default full remat each layer's forward runs again in the
+    backward)."""
     from repro_torch.configs import get_config
     from repro_torch.data.synth import DataConfig, synth_batch
     from repro_torch.models import lm
@@ -1197,7 +1199,7 @@ def test_reduced_train_step_card_matches_cpu(cuda):
                               for k, v in nb.items()}, cfg=cfg, opt_cfg=oc)
         out[name] = (float(m["loss"]), float(m["grad_norm"]))
         want = 4 if name == "cuda" else 0
-        assert FK.launch_counts() == {"flash_attention_fwd": want,
+        assert FK.launch_counts() == {"flash_attention_fwd": 2 * want,
                                       "flash_attention_bwd": want}
     for a, b in zip(out["cuda"], out["cpu"]):
         assert abs(a - b) <= 1e-5 * abs(b)

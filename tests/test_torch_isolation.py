@@ -101,4 +101,8 @@ def test_walk_finds_the_kernel_modules():
             "repro_torch.train.optim",
             "repro_torch.train.step",
             "repro_torch.launch.train",
-            "repro_torch.launch.shapes"} <= names
+            "repro_torch.launch.shapes",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.hlo_cost",
+            "repro_torch.launch.mesh",
+            "repro_torch.kernels.flash.cost"} <= names

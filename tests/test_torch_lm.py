@@ -1,5 +1,7 @@
 """Parity of the port's LM with the JAX package on the reduced
-llama3.2-3b (dense), qwen3-moe-30b-a3b and dbrx-132b (moe, at the
+llama3.2-3b, chatglm3-6b (partial rotary), starcoder2-15b (layernorm with
+bias, ungated GELU) and deepseek-7b (full MHA) (dense), qwen3-moe-30b-a3b
+and dbrx-132b (moe, at the
 published capacity factor, so decode drops pairs), chameleon-34b (vlm,
 qk-norm), recurrentgemma-9b (hybrid, with a recurrent tail and a ring
 that wraps) and xlstm-1.3b (ssm: mLSTM and sLSTM groups; a reset slot
@@ -192,7 +194,10 @@ def test_reset_slot_empties_one_slot_in_place():
 # ---------------------------------------------------------------------------
 
 FAMILIES = ("qwen3_moe_30b_a3b", "dbrx_132b", "chameleon_34b",
-            "recurrentgemma_9b", "xlstm_1_3b")
+            "recurrentgemma_9b", "xlstm_1_3b",
+            # the other dense configs: partial rotary (rope_fraction 0.5),
+            # layernorm with bias and an ungated GELU MLP, full MHA
+            "chatglm3_6b", "starcoder2_15b", "deepseek_7b")
 S_FAM = 20          # > the hybrid test window: the ring wraps twice
 
 
