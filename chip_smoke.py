@@ -243,6 +243,21 @@ Slice 11 adds, in the same run:
               one beside the measured peaks; the "kernels" line adds K6's
               and K7's launches here.  The B=4 train row stays at remat
               "none", the setting its earlier readings were taken at
+Slice 12 adds, in the same run, after the fleet:
+  - fleet mesh  FleetSampler on the fused backend at the reference's
+              placement test's size (8 sphere studies, D=2, 2 slots a
+              device, B=4, pad 8, refit every 4th trial, 10 rounds
+              across the 8 → 16 bucket; cut in depth: 7 random trials,
+              10 MSO iterations), driven unsharded, on
+              make_fleet_mesh(1), on a Mesh of four entries of the card
+              and, with two cards or more, on make_fleet_mesh(all):
+              suggestions bitwise across the drives, equal program
+              counts, the 4-entry mesh's counters (4 devices, 2 studies
+              each, 8 migrations intra or cross), K1 = K2 = MSO rounds
+              summed over shards, K4 = fit evaluations, K3 = evaluations
+              + full and rank-one shard programs, every block program on
+              every shard, the phase within 40 s; the "kernels" line adds
+              K1–K4's launches of each drive
 Every timing line carries the card's name and power limit.
 Then it prints the card, a "kernels" JSON line (each "ms" with its
 source, "ms_from"; K6 at the serving step's shape), and the result line.
@@ -3455,6 +3470,122 @@ def phase_fleet(dev, c=FLEET):
                 solo_max_dx=max(worst), layers=layers)
 
 
+# ------------------------------------------------ slice 12: the fleet mesh
+# The size of the reference's placement test (tests/test_fleet_mesh.py): 8
+# sphere studies, D = 2, 2 slots a device, B = 4, pad 8, refit every 4th
+# trial, 10 rounds across the 8 → 16 bucket.  Cut in depth to fit its
+# 40 s: 7 random trials (the test: 4), so 3 GP rounds (full, rank-one,
+# the migration's full refit) where the test has 6, and 10 L-BFGS-B
+# iterations where it has 40.  At the test's depth the phase took
+# 28.8–39.7 s on one card (a drive 9.1–15.1 s, host-bound; 5.2 s at 10
+# iterations, 3.9–5.3 s with 7 random trials).
+FLEET_MESH = dict(D=2, studies=8, slots=2, B=4, pad=8, startup=7,
+                  refit_interval=4, rounds=10, maxiter=10, pgtol=1e-2,
+                  max_s=40.0)
+
+
+def phase_fleet_mesh(dev, c=FLEET_MESH):
+    """The fleet across a mesh on the card's default (fused) backend,
+    driven unsharded, on ``make_fleet_mesh(1)``, on a mesh of four entries
+    of the card and, with two cards or more, on ``make_fleet_mesh(all)``:
+    every drive's suggestions bitwise the unsharded ones, the same program
+    count, the four-entry mesh's counters (4 devices, 2 studies each,
+    every migration intra or cross), and K1–K4 launched by every shard's
+    programs: K1 = K2 = MSO rounds summed over shards, K4 = fit
+    evaluations, K3 = evaluations + full and rank-one shard programs.
+    Each drive's launch counts are set to 0 just before it and read just
+    after."""
+    import numpy as np
+    import torch
+    from repro_torch.bo.sampler import FleetSampler
+    from repro_torch.bo.space import BoxSpace
+    from repro_torch.core.mso import MsoOptions
+    from repro_torch.kernels.matern import kernel as K
+    from repro_torch.launch.mesh import Mesh, make_fleet_mesh
+    t_start = time.perf_counter()
+    S = c["studies"]
+    space = BoxSpace.cube(c["D"], -1.0, 1.0)
+
+    def obj(x):
+        return float(np.sum((x - 0.4) ** 2))
+
+    one = make_fleet_mesh(1)
+    drives = {"unsharded": None, "mesh1": one,
+              "mesh4_one_card": Mesh([one.devices[0]] * 4)}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        drives[f"mesh{n_cards}_cards"] = make_fleet_mesh(n_cards)
+    xs, launches, snaps = {}, {}, {}
+    for name, mesh in drives.items():
+        t0 = time.perf_counter()
+        fs = FleetSampler(space, n_studies=S, seed=5, slots=c["slots"],
+                          mesh=mesh, mso_options=MsoOptions(
+                              maxiter=c["maxiter"], pgtol=c["pgtol"]),
+                          **fleet_kw(c))
+        check(fs.fleet.cfg.backend == "fused",
+              f"fleet mesh {name}: not on the fused backend")
+        K.reset_launch_counts()
+        _, xs[name] = fleet_rounds(fs, obj, c["rounds"])
+        torch.cuda.synchronize()
+        launches[name] = got = K.launch_counts()
+        snaps[name] = snap = fs.fleet.stats_snapshot()
+        progs = snap["n_block_programs"]
+        log(f"[fleet mesh] {name}: {time.perf_counter() - t0:.1f} s, "
+            f"devices {snap['n_devices']}, slots_per_device "
+            f"{snap['slots_per_device']}, migrations {snap['n_migrations']} "
+            f"(intra {snap['n_migrations_intra']}, cross "
+            f"{snap['n_migrations_cross']}), programs "
+            f"{snap['n_fleet_compiles']}, shard programs {json.dumps(progs)}"
+            f", MSO rounds {snap['n_mso_rounds']}, fit evaluations "
+            f"{snap['n_fit_evals']}, launches {json.dumps(got)}")
+        check(got["matern52_posterior_fwd"] == snap["n_mso_rounds"] > 0
+              and got["matern52_posterior_bwd_xq"] == snap["n_mso_rounds"],
+              f"fleet mesh {name}: K1/K2 launches != MSO rounds summed "
+              f"over shards")
+        check(got["matern52_gram_bwd_theta"] == snap["n_fit_evals"] > 0,
+              f"fleet mesh {name}: K4 launches != fit evaluations")
+        check(got["matern52_gram_fwd"]
+              == snap["n_fit_evals"] + progs["full"] + progs["incr"],
+              f"fleet mesh {name}: K3 launches != evaluations + full + "
+              f"rank-one shard programs")
+        ndev = snap["n_devices"]
+        check(all(v % ndev == 0 and v > 0 for v in progs.values()),
+              f"fleet mesh {name}: a block program did not run on each of "
+              f"its {ndev} shards: {progs}")
+        check(bool(np.all(np.isfinite(xs[name])))
+              and bool(np.all(np.abs(xs[name]) <= 1.0)),
+              f"fleet mesh {name}: suggestions not finite or out of bounds")
+    for name in drives:
+        d = xs[name] - xs["unsharded"]
+        check(np.array_equal(xs[name], xs["unsharded"]),
+              f"fleet mesh {name}: suggestions differ from the unsharded "
+              f"fleet's by {np.abs(d).max()}")
+        check(snaps[name]["n_fleet_compiles"]
+              == snaps["unsharded"]["n_fleet_compiles"],
+              f"fleet mesh {name}: {snaps[name]['n_fleet_compiles']} "
+              f"programs, unsharded {snaps['unsharded']['n_fleet_compiles']}")
+    s4 = snaps["mesh4_one_card"]
+    check(s4["n_devices"] == 4 and s4["slots_per_device"] == [S // 4] * 4,
+          f"fleet mesh: the 4-entry mesh's placement {s4['n_devices']} "
+          f"devices, {s4['slots_per_device']}")
+    check(s4["n_migrations"] == S and s4["n_migrations_intra"]
+          + s4["n_migrations_cross"] == s4["n_migrations"],
+          f"fleet mesh: migrations {s4['n_migrations']} = intra "
+          f"{s4['n_migrations_intra']} + cross {s4['n_migrations_cross']}")
+    secs = time.perf_counter() - t_start
+    log(f"[fleet mesh] {len(drives)} drives bitwise, programs "
+        f"{s4['n_fleet_compiles']} each; phase {secs:.1f} s "
+        f"(limit {c['max_s']}); {card()}")
+    check(secs <= c["max_s"],
+          f"fleet mesh: the phase took {secs:.1f} s > {c['max_s']} s")
+    return dict(launches=launches, seconds=secs,
+                snapshots={k: {key: v[key] for key in (
+                    "n_devices", "slots_per_device", "n_migrations",
+                    "n_migrations_intra", "n_migrations_cross",
+                    "n_fleet_compiles", "n_block_programs")}
+                    for k, v in snaps.items()})
+
+
 # ------------------------------------------------ slice 6: the BO service
 # The service phase's full-width traffic (the fleet phase's studies, split
 # among three tenants: name, weight, studies [a, b), GP rounds) and its
@@ -4798,6 +4929,8 @@ def main() -> int:
     fleet = phase_fleet(dev)
     fleet_t = fleet_timing(dev)
     log(f"[time] fleet: {time.perf_counter() - t_start:.1f} s")
+    fleet_mesh = phase_fleet_mesh(dev)
+    log(f"[time] fleet mesh: {time.perf_counter() - t_start:.1f} s")
     service = phase_service(dev)
     log(f"[time] service: {time.perf_counter() - t_start:.1f} s")
     train_k = phase_train_kernels(dev, err)
@@ -4844,6 +4977,10 @@ def main() -> int:
             "service_launches": service["launches"][name],
             # the quickstart twin's path (slice 5), counted alone
             "quickstart_launches": paper["launches"]["quickstart"][name],
+            # the fleet mesh's drives (slice 12), each counted alone
+            "fleet_mesh_launches": {
+                drive: got[name]
+                for drive, got in fleet_mesh["launches"].items()},
             **fleet_t[key]})
     # the serving path's shape: a decode step, 8 slots at positions
     # 64–104 of a 512-slot bf16 cache; the kvp path's: q = B = 10 at

@@ -23,6 +23,7 @@ from typing import Any, Iterable, Iterator, List, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import Sharded
 from repro_torch.obs.trace import instant as _obs_instant
 
 
@@ -34,10 +35,14 @@ def _leaves(tree: Any, path: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
     """(path, tensor) of every floating tensor leaf, in order.  Paths read
     like ``jax.tree_util.keystr``: ``[i]`` for a tuple or list entry,
     ``['k']`` for a dict key, ``.name`` for a NamedTuple or dataclass
-    field."""
+    field; a mesh-sharded leaf is one leaf, as a sharded array is in
+    JAX, so each of its shards carries the leaf's path."""
     if isinstance(tree, torch.Tensor):
         if tree.is_floating_point():
             yield path, tree
+    elif isinstance(tree, Sharded):
+        for shard in tree.shards:
+            yield from _leaves(shard, path)
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
         for name, v in zip(tree._fields, tree):
             yield from _leaves(v, f"{path}.{name}")

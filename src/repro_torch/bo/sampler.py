@@ -508,6 +508,23 @@ _JAX_BACKENDS = {"xla": "cholesky", "pallas": "fused",
 _REF_BACKENDS = {"cholesky": "xla", "fused": "pallas"}
 
 
+def _fleet_device(device, mesh) -> torch.device:
+    """A fleet's own device: ``device`` by the entry-point rule, or with a
+    mesh its first device, which ``device`` (when given) must name: the
+    same type, and the same index where both have one."""
+    if mesh is None:
+        return resolve_device(device)
+    first = mesh.devices[0]
+    if device is not None:
+        want = torch.device(device)
+        if want.type != first.type or (
+                None not in (want.index, first.index)
+                and want.index != first.index):
+            raise ValueError(f"device {device!r} disagrees with the mesh, "
+                             f"whose first device is {first}")
+    return resolve_device(first)
+
+
 @dataclass
 class RecoveryReport:
     """What :meth:`FleetSampler.recover` reconstructed, and from where."""
@@ -546,7 +563,13 @@ class FleetSampler:
     ``fault_injector`` hooks the journal and the refit health flags.
     ``theta_draws`` (fit seed → (R−1, P)) and ``restart_draws`` ((study
     seed, trial count) → (B−1, D)) replace the studies' random streams,
-    as ``GPSampler``'s hooks do.  ``mesh`` (several cards) is not ported.
+    as ``GPSampler``'s hooks do.
+
+    ``mesh`` (a 1-D :class:`~repro_torch.launch.mesh.Mesh`, e.g.
+    ``make_fleet_mesh(n)``) shards the fleet's slot blocks over its
+    devices, ``slots`` studies a device; trajectories are bit for bit those
+    of the unsharded fleet.  The studies' own (solo) device is then the
+    mesh's first; a ``device`` that names another raises.
     """
 
     def __init__(
@@ -583,10 +606,6 @@ class FleetSampler:
         restart_draws: Optional[Callable[[int, int], np.ndarray]] = None,
         _journal: Optional[StudyJournal] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a fleet across several cards (mesh=) is not ported yet: "
-                "ROADMAP queue A item 9b")
         if strategy != "dbe_vec":
             raise ValueError("FleetSampler requires strategy='dbe_vec'")
         if isinstance(spaces, BoxSpace):
@@ -594,7 +613,7 @@ class FleetSampler:
         dims = {sp.dim for sp in spaces}
         if len(dims) != 1:
             raise ValueError(f"all studies must share one dim, got {dims}")
-        dev = resolve_device(device)
+        dev = _fleet_device(device, mesh)
         backend = resolve_backend(posterior_backend, dev)
         o = mso_options if mso_options is not None else MsoOptions()
         # ------------------------------------------------ durability plane
@@ -651,7 +670,7 @@ class FleetSampler:
             retry_backoff_base=retry_backoff_base,
             retry_backoff_cap=retry_backoff_cap,
             retry_backoff_jitter=retry_backoff_jitter),
-            journal=self.journal, fault_injector=fault_injector,
+            mesh=mesh, journal=self.journal, fault_injector=fault_injector,
             sleep_fn=sleep_fn)
         self.fleet.on_quarantine = self._on_quarantine
         self.samplers: List[GPSampler] = []
@@ -850,8 +869,10 @@ class FleetSampler:
         observation sync, studies re-admit through the scheduler, and the
         first full refit rebuilds the factors, as after a migration), so
         recovery adds no program.  Trials asked but never told stay
-        pending and are listed in the report.  A journal the reference
-        wrote recovers here too (its backend names map to the port's)."""
+        pending and are listed in the report.  ``mesh`` places the
+        rebuilt fleet, whatever placement the crashed one had.  A journal
+        the reference wrote recovers here too (its backend names map to
+        the port's)."""
         t0 = time.perf_counter()
         tr_obs = obs.get()
         t_obs = tr_obs.now_us() if tr_obs is not None else 0.0

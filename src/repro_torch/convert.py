@@ -71,24 +71,25 @@ def fleet_block_from_numpy(fleet: FleetEngine, *, x, y, theta, chol,
 
     ``x`` (S, b, D) and ``y`` (S, b) are the stacked padded observation
     buffers, ``theta`` (S, P), ``chol``, ``alpha`` and ``kinv`` (fused
-    backend) the stacked fits; S must be ``fleet.cfg.slots``.
+    backend) the stacked fits; S must be the fleet's block width
+    (``cfg.slots`` a mesh device), and each leaf is split onto the mesh.
     ``studies`` has one entry a slot: ``None`` for an idle slot, else a
     dict with the study's ``sid`` and ``n`` (live rows), and optionally
     ``n_fit``, ``since_refit``, ``has_factor``, ``has_theta`` and
     ``trial`` (its bookkeeping, 0/False by default).  The studies are
     registered and installed without admission, so the next ``step()``
     takes the same path (incremental or full) as the source fleet's."""
-    dev = fleet.device
+    cpu = torch.device("cpu")
     x = np.asarray(x, np.float64)
-    if x.shape[0] != fleet.cfg.slots or len(studies) != fleet.cfg.slots:
-        raise ValueError(f"a block has {fleet.cfg.slots} slots, got "
+    S = fleet._slots_total
+    if x.shape[0] != S or len(studies) != S:
+        raise ValueError(f"a block has {S} slots, got "
                          f"{x.shape[0]} rows and {len(studies)} studies")
-    blk = _Block(fleet.cfg, x.shape[1], dev)
-    blk.x, blk.y = _tensor(x, dev), _tensor(y, dev)
-    blk.theta, blk.chol = _tensor(theta, dev), _tensor(chol, dev)
-    blk.alpha = _tensor(alpha, dev)
+    blk = _Block(fleet.cfg, x.shape[1], fleet._mesh)
+    blk.x, blk.y, blk.theta, blk.chol, blk.alpha = (
+        fleet._shard(_tensor(a, cpu)) for a in (x, y, theta, chol, alpha))
     if blk.kinv is not None:
-        blk.kinv = _tensor(kinv, dev)
+        blk.kinv = fleet._shard(_tensor(kinv, cpu))
     y = np.asarray(y, np.float64)
     for s, rec in enumerate(studies):
         if rec is None:

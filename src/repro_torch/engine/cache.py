@@ -12,6 +12,12 @@ CUDA-graph capture would key on.
 Every new signature after the first is classified against the nearest
 earlier one by which component differs: ``static-arg``, ``shape``,
 ``dtype``, ``device`` (JAX's ``sharding``) or ``tree-structure``.
+
+With ``mesh``, the program runs shard by shard
+(:func:`~repro_torch.distributed.sharding.shard_map`) and the counted
+call is the whole mesh's, as the reference's ``jit`` wraps its
+``shard_map``: one signature holds every shard's leaves, so the count
+does not grow with the number of devices.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import shard_map
 from repro_torch.obs.trace import instant as _obs_instant
 
 # cap per-instance event history: retraces are supposed to be rare, and
@@ -60,8 +67,8 @@ class CountingJit:
     per-signature cause classification."""
 
     def __init__(self, fn: Callable, *, static_argnums: Sequence[int] = (),
-                 name: Optional[str] = None):
-        self._fn = fn
+                 name: Optional[str] = None, mesh=None):
+        self._fn = fn if mesh is None else shard_map(fn, mesh)
         self.n_compiles = 0
         self.n_calls = 0
         self.name = name or getattr(fn, "__name__", "program")

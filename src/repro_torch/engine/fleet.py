@@ -39,8 +39,25 @@ full refit with bounded, jittered backoff through ``sleep_fn``, parking,
 and a write-ahead ``journal`` of admissions, migrations, refit θs,
 quarantines and sheds.  ``fault_injector`` may veto the incremental and
 full-refit health flags and inject refit latency (``incr_ok``,
-``full_ok``, ``full_delay``).  Placing a block across several cards
-(``mesh=``) is not ported yet.
+``full_ok``, ``full_delay``).
+
+**Mesh sharding.**  Pass ``mesh=`` (a 1-D ``"study"`` mesh from
+``launch.mesh.make_fleet_mesh``, or a :class:`~repro_torch.launch.mesh.Mesh`
+that repeats a card) and every slot block widens to ``cfg.slots × ndev``
+rows: device d owns the ``cfg.slots`` contiguous slots ``[d·slots,
+(d+1)·slots)``, every leaf of the block is
+:class:`~repro_torch.distributed.sharding.Sharded` along the slot axis,
+and the three block programs run shard by shard, each under its own
+device and with its own lockstep MSO loop, so each device refits and
+solves only its own rows.  Every shard runs the same fixed-width program
+on exactly ``cfg.slots`` rows whatever the mesh's size, which with C14's
+study-by-study rule makes a study's bits independent of its placement.
+The scheduler balances admissions over per-device occupancy; bucket
+growth goes through the same evict → host-compact → re-admit path, which
+is also the cross-device move.  A counted call is a block's, over all of
+its shards, so program counts do not depend on the device count.
+Without a mesh the fleet is a mesh of one entry, the engine's device.
+Shards run one after another on the host.
 """
 from __future__ import annotations
 
@@ -53,6 +70,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.lbfgsb import LbfgsbOptions, lbfgsb_minimize
+from repro_torch.distributed.sharding import (Sharded, fleet_shard,
+                                              fleet_shards)
 from repro_torch.engine.ask import (_MSO_DEFAULT, SuggestInfo, incr_core,
                                     refit_core, restart_points)
 from repro_torch.engine.cache import CountingJit, retrace_report
@@ -63,6 +82,7 @@ from repro_torch.gp.fit import (FIT_OPTS, _FAR, pad_bucket_for,
                                 theta_init_grid, unpack_theta)
 from repro_torch.gp.gpr import GPState
 from repro_torch.kernels.matern.kernel import launch_counts
+from repro_torch.launch.mesh import Mesh
 from repro_torch.obs import trace as obs
 
 Tensor = torch.Tensor
@@ -129,7 +149,8 @@ class _Study:
 
     __slots__ = ("sid", "xs", "ys", "tags", "block", "slot", "n_fit",
                  "since_refit", "has_factor", "has_theta", "theta_host",
-                 "trial", "pending", "result", "deadline", "shed", "parked")
+                 "trial", "pending", "result", "from_device", "deadline",
+                 "shed", "parked")
 
     def __init__(self, sid: Hashable):
         self.sid = sid
@@ -147,6 +168,7 @@ class _Study:
         # (restart draws (B-1, D), fit seed, θ-grid draws or None)
         self.pending: Optional[Tuple[Tensor, int, Optional[np.ndarray]]] = None
         self.result = None  # (x, SuggestInfo) | FleetStudyError | None
+        self.from_device: Optional[int] = None   # device before migration
         self.deadline: Optional[float] = None    # admission deadline (mono)
         self.shed: Optional[str] = None          # load-shed reason
         self.parked: Optional[str] = None        # quarantine-parked reason
@@ -163,37 +185,35 @@ _IDLE_N = 2
 
 
 class _Block:
-    """One slot block: ``cfg.slots`` studies padded to one GP size bucket.
-    Blocks of equal (bucket, slots) share the fleet's programs."""
+    """One slot block: ``cfg.slots`` studies on each mesh device
+    (``cfg.slots × ndev`` slots in all), padded to one GP size bucket.
+    Every leaf is :class:`Sharded` along the slot axis, so each device
+    holds and runs exactly ``cfg.slots`` rows.  Blocks of equal (bucket,
+    slots) share the fleet's programs."""
 
-    def __init__(self, cfg: FleetConfig, bucket: int, device: torch.device):
-        S, b, D = cfg.slots, bucket, cfg.dim
-        f64 = dict(dtype=torch.float64, device=device)
+    def __init__(self, cfg: FleetConfig, bucket: int, mesh: Mesh):
+        S, b, D = cfg.slots * mesh.size, bucket, cfg.dim
+        f64 = dict(dtype=torch.float64)
         self.bucket = bucket
+        self.mesh, self.rows = mesh, cfg.slots
         self.idle_x = np.full((b, D), _FAR) + np.arange(b)[:, None]
-        self.x = torch.as_tensor(np.tile(self.idle_x[None], (S, 1, 1))).to(
-            device)
-        self.y = torch.zeros((S, b), **f64)
         th0 = np.zeros((D + 2,))
         th0[-1] = -4.0                               # theta_init_grid base
         self.theta0 = th0
-        self.theta = torch.as_tensor(np.tile(th0[None], (S, 1))).to(device)
-        eye = torch.eye(b, **f64)
-        self.chol = eye.expand(S, b, b).contiguous()
-        self.alpha = torch.zeros((S, b), **f64)
-        self.kinv = (None if cfg.backend == "cholesky"
-                     else eye.expand(S, b, b).contiguous())
+        eye = torch.eye(b, **f64).expand(S, b, b).contiguous()
+        self.x, self.y, self.theta, self.chol, self.alpha, self.kinv = \
+            fleet_shards(mesh, (
+                torch.as_tensor(np.tile(self.idle_x[None], (S, 1, 1))),
+                torch.zeros((S, b), **f64),
+                torch.as_tensor(np.tile(th0[None], (S, 1))), eye,
+                torch.zeros((S, b), **f64),
+                None if cfg.backend == "cholesky" else eye), cfg.slots)
         self.studies: List[Optional[_Study]] = [None] * S
 
-    def free_slot(self) -> int:
-        for s, st in enumerate(self.studies):
-            if st is None:
-                return s
-        return -1
-
-    def n_valid(self) -> Tensor:
+    def n_valid(self) -> Sharded:
         nv = [_IDLE_N if st is None else st.n for st in self.studies]
-        return torch.tensor(nv, dtype=torch.int64, device=self.x.device)
+        return fleet_shard(self.mesh, torch.tensor(nv, dtype=torch.int64),
+                           self.rows)
 
 
 def default_draws(sid: Hashable, trial: int, n: int, dim: int) -> Tensor:
@@ -217,17 +237,28 @@ class FleetEngine:
     requests, and ``pop_result()`` collects each suggestion.
     ``suggest()`` wraps the cycle for a synchronous caller; other studies'
     pending requests ride along in the same step.
+
+    ``mesh`` (optional): a 1-D study :class:`Mesh`.  Slot blocks then span
+    ``cfg.slots`` slots on every mesh device and the block programs run
+    shard by shard (module docstring); trajectories are bit for bit those
+    of the unsharded fleet, and a bucket-growth migration becomes a
+    cross-device move when the new slot lives on another device.
     """
 
-    def __init__(self, engine: EvalEngine, cfg: FleetConfig, mesh=None,
-                 journal=None, fault_injector=None, sleep_fn=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a fleet across several cards (mesh=) is not ported yet: "
-                "ROADMAP queue A item 9b")
+    def __init__(self, engine: EvalEngine, cfg: FleetConfig,
+                 mesh: Optional[Mesh] = None, journal=None,
+                 fault_injector=None, sleep_fn=None):
+        if mesh is not None and len(mesh.axis_names) != 1:
+            raise ValueError("fleet mesh must be 1-D (the study axis); "
+                             f"got axes {mesh.axis_names}")
         self.engine = engine
         self.cfg = cfg
+        self.mesh = mesh
         self.device = engine.device
+        # the shards' devices: unsharded, one entry of the engine's device
+        self._mesh = mesh if mesh is not None else Mesh([engine.device])
+        self._ndev = self._mesh.size
+        self._slots_total = cfg.slots * self._ndev
         self._sleep = time.sleep if sleep_fn is None else sleep_fn
         self._backoff_rng = np.random.default_rng(0xB0)
         # durability and chaos hooks, both host-side and optional:
@@ -241,13 +272,17 @@ class FleetEngine:
         self._plan = EvalPlan.for_batch(cfg.n_restarts, cfg.dim)
         self._fit_opts = FIT_OPTS._replace(maxiter=cfg.gp_fit_maxiter)
         # three programs per (bucket, slots): full refit, incremental
-        # refit, and the MSO tail
+        # refit, and the MSO tail, each run shard by shard on the mesh
+        m = self._mesh
         self._full_prog = obs.ProgramTimer(
-            CountingJit(self._full_impl, name="full"), "fleet.program.full")
+            CountingJit(self._full_impl, name="full", mesh=m),
+            "fleet.program.full")
         self._incr_prog = obs.ProgramTimer(
-            CountingJit(self._incr_impl, name="incr"), "fleet.program.incr")
+            CountingJit(self._incr_impl, name="incr", mesh=m),
+            "fleet.program.incr")
         self._mso_prog = obs.ProgramTimer(
-            CountingJit(self._mso_impl, name="mso"), "fleet.program.mso")
+            CountingJit(self._mso_impl, name="mso", mesh=m),
+            "fleet.program.mso")
         self._studies: Dict[Hashable, _Study] = {}
         self._queue: List[_Study] = []       # awaiting a slot
         self._blocks: List[_Block] = []
@@ -258,8 +293,12 @@ class FleetEngine:
         self.n_steps = 0
         self.n_admissions = 0
         self.n_migrations = 0
-        # the port's: batched fit evaluations and MSO rounds over every
-        # block program (each one K3 + one K4, one K1 + one K2 launch)
+        self.n_migrations_intra = 0      # re-admitted on the same device
+        self.n_migrations_cross = 0      # ... on a different device
+        # the port's: batched fit evaluations, MSO rounds and block
+        # programs, summed over shards (on the card each evaluation is one
+        # K3 + one K4 launch, each round one K1 + one K2, and each full or
+        # incremental shard program one more K3)
         self.n_fit_evals = 0
         self.n_mso_rounds = 0
         self.n_block_programs = {"full": 0, "incr": 0, "mso": 0}
@@ -338,7 +377,7 @@ class FleetEngine:
             self._evict(st)
         else:
             i = st.n - 1
-            blk.x[st.slot, i] = torch.as_tensor(x_unit).to(self.device)
+            blk.x[st.slot, i] = x_unit
             blk.y[st.slot, i] = y
 
     def request_suggest(self, sid: Hashable, draws=None,
@@ -454,8 +493,8 @@ class FleetEngine:
             "n_steps": self.n_steps,
             "n_admissions": self.n_admissions,
             "n_migrations": self.n_migrations,
-            "n_migrations_intra": self.n_migrations,   # one card: all
-            "n_migrations_cross": 0,
+            "n_migrations_intra": self.n_migrations_intra,
+            "n_migrations_cross": self.n_migrations_cross,
             "n_rejected": self.n_rejected,
             "n_shed": self.n_shed,
             "n_quarantined": self.n_quarantined,
@@ -463,9 +502,8 @@ class FleetEngine:
             "n_retries": self.n_retries,
             "n_retry_backoffs": self.n_retry_backoffs,
             "backoff_total_s": round(self.backoff_total_s, 6),
-            "n_devices": 1,
-            "slots_per_device": [sum(st is not None for blk in self._blocks
-                                     for st in blk.studies)],
+            "n_devices": self._ndev,
+            "slots_per_device": self._device_occupancy(),
             "queue_depth": len(self._queue),
             "n_full_compiles": self._full_prog.n_compiles,
             "n_incr_compiles": self._incr_prog.n_compiles,
@@ -478,15 +516,39 @@ class FleetEngine:
         }
 
     # ------------------------------------------------------- scheduler
-    def _pick_slot(self, bucket: int) -> Optional[Tuple[_Block, int]]:
-        """The first free slot of a ``bucket`` block (earliest block,
-        lowest slot)."""
+    def _shard(self, a) -> Sharded:
+        """A host-built per-slot operand, split onto the mesh."""
+        return fleet_shard(self._mesh, torch.as_tensor(a), self.cfg.slots)
+
+    def _slot_device(self, slot: int) -> int:
+        """Mesh device owning ``slot``: the slot axis splits into ndev
+        contiguous shards of ``cfg.slots`` rows each."""
+        return slot // self.cfg.slots
+
+    def _device_occupancy(self) -> List[int]:
+        """Live studies resident on each mesh device (all blocks)."""
+        occ = [0] * self._ndev
         for blk in self._blocks:
-            if blk.bucket == bucket:
-                s = blk.free_slot()
-                if s >= 0:
-                    return blk, s
-        return None
+            for s, st in enumerate(blk.studies):
+                if st is not None:
+                    occ[self._slot_device(s)] += 1
+        return occ
+
+    def _pick_slot(self, bucket: int) -> Optional[Tuple[_Block, int]]:
+        """Balanced admission: among free slots of ``bucket`` blocks, the
+        one whose device holds the fewest live studies (ties: earliest
+        block, lowest slot; on one device, the first free slot)."""
+        occ = self._device_occupancy()
+        best = None
+        for bi, blk in enumerate(self._blocks):
+            if blk.bucket != bucket:
+                continue
+            for s, cur in enumerate(blk.studies):
+                if cur is None:
+                    key = (occ[self._slot_device(s)], bi, s)
+                    if best is None or key < best[1]:
+                        best = ((blk, s), key)
+        return None if best is None else best[0]
 
     def _admit(self) -> None:
         still: List[_Study] = []
@@ -510,9 +572,12 @@ class FleetEngine:
                     else:
                         still.append(st)
                     continue
-                blk = _Block(self.cfg, bucket, self.device)
+                blk = _Block(self.cfg, bucket, self._mesh)
                 self._blocks.append(blk)
-                pick = (blk, 0)
+                occ = self._device_occupancy()
+                pick = (blk, min(range(self._slots_total),
+                                 key=lambda s: (occ[self._slot_device(s)],
+                                                s)))
             self._install(st, *pick)
             self.n_admissions += 1
         self._queue = still
@@ -536,40 +601,49 @@ class FleetEngine:
 
     def _install(self, st: _Study, blk: _Block, slot: int) -> None:
         """Host-side compaction: copy the study's observations into the
-        block's padded slot row (θ carried for warm starts)."""
+        block's padded slot row (θ carried for warm starts).  On a mesh
+        this is the cross-device move: the row lands on whichever device
+        owns the slot."""
         n = st.n
         x_row = np.array(blk.idle_x)
         x_row[:n] = np.stack(st.xs)
         y_row = np.zeros((blk.bucket,))
         y_row[:n] = st.ys
-        blk.x[slot] = torch.as_tensor(x_row).to(self.device)
-        blk.y[slot] = torch.as_tensor(y_row).to(self.device)
+        blk.x[slot] = x_row
+        blk.y[slot] = y_row
         if st.theta_host is not None:
-            blk.theta[slot] = torch.as_tensor(st.theta_host).to(self.device)
+            blk.theta[slot] = st.theta_host
         self._journal({"op": "admit", "sid": st.sid,
                        "bucket": blk.bucket, "slot": slot, "n": n})
         obs.instant("fleet.admit", sid=str(st.sid), bucket=blk.bucket,
                     slot=slot, n=n)
         blk.studies[slot] = st
         st.block, st.slot = blk, slot
+        if st.from_device is not None:       # bucket-growth re-admission
+            if self._slot_device(slot) == st.from_device:
+                self.n_migrations_intra += 1
+            else:
+                self.n_migrations_cross += 1
+            st.from_device = None
 
     def _clear_slot(self, st: _Study) -> None:
         """Free the study's slot: save θ for a warm start and reset the
         row to the benign idle pattern."""
         blk, s = st.block, st.slot
         if st.has_theta:
-            st.theta_host = blk.theta[s].cpu().numpy()
-        dev = self.device
-        blk.x[s] = torch.as_tensor(blk.idle_x).to(dev)
+            # a copy: on the CPU the row's numpy view would see the reset
+            st.theta_host = blk.theta[s].cpu().numpy().copy()
+        blk.x[s] = blk.idle_x
         blk.y[s] = 0.0
-        blk.theta[s] = torch.as_tensor(blk.theta0).to(dev)
-        eye = torch.eye(blk.bucket, dtype=torch.float64, device=dev)
+        blk.theta[s] = blk.theta0
+        eye = torch.eye(blk.bucket, dtype=torch.float64)
         blk.chol[s] = eye
         blk.alpha[s] = 0.0
         if blk.kinv is not None:
             blk.kinv[s] = eye
         blk.studies[s] = None
         st.block, st.slot = None, -1
+        st.from_device = self._slot_device(s)
         st.has_factor = False            # the factor dies with the bucket
 
     def _evict(self, st: _Study) -> None:
@@ -606,7 +680,7 @@ class FleetEngine:
         st.tags.pop()
         blk, s = st.block, st.slot
         if blk is not None:
-            blk.x[s, k] = torch.as_tensor(blk.idle_x[k]).to(self.device)
+            blk.x[s, k] = blk.idle_x[k]
             blk.y[s, k] = 0.0
         st.n_fit = min(st.n_fit, st.n)
         st.has_factor = False        # the factor summed the dropped row
@@ -617,7 +691,7 @@ class FleetEngine:
                        f"after quarantine")
 
     def _full_thetas(self, blk: _Block, pending: List[int],
-                     theta_host: np.ndarray) -> Tensor:
+                     theta_host: np.ndarray) -> Sharded:
         """(S, R, P) θ inits: each refitting slot's grid from its fit seed
         (warm-started from the snapshot θ), benign grids elsewhere."""
         cfg, dt = self.cfg, torch.float64
@@ -634,7 +708,7 @@ class FleetEngine:
                                             init=init, draws=draws))
             else:                        # masked-out slot: benign inits
                 rows.append(theta_init_grid(cfg.dim, dt, R, 0))
-        return torch.stack(rows).to(self.device)
+        return self._shard(torch.stack(rows))
 
     def _step_block(self, blk: _Block) -> int:
         cfg = self.cfg
@@ -647,9 +721,9 @@ class FleetEngine:
                 st.pending = None      # drop, don't wedge (see step())
                 raise ValueError(f"suggest() for study {st.sid!r} needs "
                                  f">= 2 observations, have {st.n}")
-        S = cfg.slots
+        S = self._slots_total
         sids = [None if st is None else st.sid for st in blk.studies]
-        fit_evals = 0
+        fit_evals = np.zeros((self._ndev,), np.int64)    # a shard each
 
         # refit_interval=k ⇒ a full MAP refit every k-th suggest per slot
         # (k=1: incremental updates off), AskEngine.suggest's predicate
@@ -664,9 +738,8 @@ class FleetEngine:
         if do_incr.any():
             blk.chol, blk.alpha, blk.kinv, ok = self._incr_prog(
                 blk.x, blk.y, blk.n_valid(), blk.theta, blk.chol,
-                blk.alpha, blk.kinv,
-                torch.as_tensor(do_incr).to(self.device))
-            self.n_block_programs["incr"] += 1
+                blk.alpha, blk.kinv, self._shard(do_incr))
+            self.n_block_programs["incr"] += self._ndev
             ok = ok.cpu().numpy()
             if self.fault_injector is not None:
                 ok = self.fault_injector.incr_ok(ok, sids)
@@ -686,7 +759,11 @@ class FleetEngine:
             # ONE warm-start snapshot for the whole retry loop: a retry
             # must not warm-start from the unhealthy θ it is retrying
             theta_host = blk.theta.cpu().numpy()
-            tlo, tup = theta_bounds(cfg.dim, torch.float64, self.device)
+            shape = (cfg.slots, cfg.gp_fit_restarts, cfg.dim + 2)
+            bounds = [theta_bounds(cfg.dim, torch.float64, dev)
+                      for dev in self._mesh.devices]
+            tlo = Sharded([lo.expand(shape) for lo, _ in bounds])
+            tup = Sharded([up.expand(shape) for _, up in bounds])
             pending_full = list(full_slots)
             for attempt in range(cfg.quarantine_retries + 1):
                 thetas = self._full_thetas(blk, pending_full, theta_host)
@@ -694,12 +771,11 @@ class FleetEngine:
                 do_full[pending_full] = True
                 (blk.theta, blk.chol, blk.alpha, blk.kinv, okf,
                  evals) = self._full_prog(
-                    blk.x, blk.y, blk.n_valid(), thetas,
-                    tlo.expand(thetas.shape), tup.expand(thetas.shape),
-                    torch.as_tensor(do_full).to(self.device), blk.theta,
-                    blk.chol, blk.alpha, blk.kinv)
-                self.n_block_programs["full"] += 1
-                self.n_fit_evals += evals
+                    blk.x, blk.y, blk.n_valid(), thetas, tlo, tup,
+                    self._shard(do_full), blk.theta, blk.chol, blk.alpha,
+                    blk.kinv)
+                self.n_block_programs["full"] += self._ndev
+                self.n_fit_evals += sum(evals)
                 fit_evals += evals
                 fi = self.fault_injector
                 if fi is not None and hasattr(fi, "full_delay"):
@@ -771,21 +847,25 @@ class FleetEngine:
         for s, st in req:
             draws[s] = st.pending[0]
         best_x, stats = self._mso_prog(
-            draws.to(self.device), blk.x, blk.y, blk.n_valid(), blk.theta,
+            self._shard(draws), blk.x, blk.y, blk.n_valid(), blk.theta,
             blk.chol, blk.alpha, blk.kinv)
-        self.n_block_programs["mso"] += 1
-        self.n_mso_rounds += stats["rounds"]
-        bx = best_x.cpu().numpy()                   # ONE (S, D) transfer
+        self.n_block_programs["mso"] += self._ndev
+        # each shard's own lockstep round count (devices loop apart)
+        rounds = stats["rounds"]
+        self.n_mso_rounds += sum(rounds)
+        bx = best_x.cpu().numpy()                   # (S, D), a shard each
         k_arr, ev_arr = stats["k"].cpu(), stats["n_evals"].cpu()
         bacq = stats["best_acq"].cpu()
         for s, st in req:
+            d = self._slot_device(s)
             st.n_fit = st.n
             st.has_factor = True
             st.trial += 1
             st.result = (bx[s], SuggestInfo(
                 kind=kind[s], n_iters=k_arr[s], n_evals=ev_arr[s],
-                rounds=stats["rounds"], best_acq=bacq[s],
-                fit_evals=fit_evals if kind[s] != "incremental" else 0))
+                rounds=rounds[d], best_acq=bacq[s],
+                fit_evals=(int(fit_evals[d]) if kind[s] != "incremental"
+                           else 0)))
             st.pending = None
         # frozen idle and non-requesting rows are the fleet's padding:
         # only requesters' evaluations count as live points
@@ -793,7 +873,7 @@ class FleetEngine:
         for s, _ in req:
             ev_live[s] = ev_arr[s]
         self.engine.record_lockstep_economy(S * cfg.n_restarts,
-                                            stats["rounds"], ev_live)
+                                            max(rounds), ev_live)
         return len(req)
 
     # ------------------------------------------------------- device side

@@ -704,8 +704,8 @@ class BOService:
         (this package's or the reference's).
 
         Fleet state recovers through :meth:`FleetSampler.recover` on
-        ``device`` (``None``: the card; the normal paths — bitwise at
-        ``refit_interval=1``).  The service
+        ``device`` (``None``: the card) and ``mesh`` (the normal paths —
+        bitwise at ``refit_interval=1``).  The service
         ledger then replays the ``svc_*`` records: every accepted ask
         that never resolved is restored — never-dispatched (or
         dispatched-but-never-asked) requests re-enter their tenant
@@ -714,12 +714,8 @@ class BOService:
         but never delivered come back pre-resolved in
         ``service.recovered["ready"]`` for the driver to collect.
         Returns ``(service, RecoveryReport)``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a fleet across several cards (mesh=) is not ported yet: "
-                "ROADMAP queue A item 9b")
         sleep_fn = None if clock is None else clock.sleep
-        fs, rep = FleetSampler.recover(journal_dir, device=device,
+        fs, rep = FleetSampler.recover(journal_dir, device=device, mesh=mesh,
                                        fault_injector=fault_injector,
                                        sleep_fn=sleep_fn)
         records = fs.journal.replay()

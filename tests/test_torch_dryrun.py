@@ -203,9 +203,19 @@ def test_cli_writes_one_json_a_cell_and_refuses_a_mesh(tmp_path):
     with pytest.raises(NotImplementedError, match="9b"):
         dryrun.main(["--sweep", "--mesh", "multi", "--out", str(tmp_path)])
     for fn in (mesh.make_production_mesh, mesh.make_smoke_mesh,
-               mesh.make_fleet_mesh, mesh.use_mesh):
+               mesh.use_mesh):
         with pytest.raises(NotImplementedError, match="9b"):
             fn()
+    # the fleet's mesh is ported: CPU entries only when asked for, and
+    # never more cards than are visible
+    assert mesh.make_fleet_mesh(3, device="cpu").devices == \
+        (torch.device("cpu"),) * 3
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mesh.make_fleet_mesh(1)
+    else:
+        with pytest.raises(ValueError, match="visible devices"):
+            mesh.make_fleet_mesh(torch.cuda.device_count() + 1)
     assert (mesh.HBM_BYTES, mesh.HBM_BW, mesh.PEAK_FLOPS_BF16) == \
         (80e9, 3.35e12, 989e12)
 

@@ -31,6 +31,7 @@ from repro_torch.engine.engine import EvalEngine  # noqa: E402
 from repro_torch.engine.fleet import (FleetConfig, FleetEngine,  # noqa: E402
                                       default_draws)
 from repro_torch.engine.posterior import fused_logei_acq  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.gp.fit import (FIT_OPTS, _FAR, theta_bounds,  # noqa: E402
                                 theta_init_grid)
 
@@ -357,8 +358,10 @@ def test_fleet_admission_and_errors():
                    n_restarts=6, pad_multiple=8, device="cpu")
     with pytest.raises(ValueError, match="config mismatch"):
         s2.attach_fleet(fleet)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FleetEngine(EvalEngine(logei_acq, "cpu"), cfg, mesh=object())
+    # the fleet's mesh is the study axis alone
+    with pytest.raises(ValueError, match="must be 1-D"):
+        FleetEngine(EvalEngine(logei_acq, "cpu"), cfg, mesh=Mesh(
+            ["cpu"] * 4, ("data", "model"), shape=(2, 2)))
 
 
 # ---------------------------------------------------- against the JAX one

@@ -14,6 +14,7 @@ from repro.bo.space import BoxSpace as JBox  # noqa: E402
 from repro_torch.bo.sampler import FleetSampler, GPSampler  # noqa: E402
 from repro_torch.bo.space import BoxSpace  # noqa: E402
 from repro_torch.engine.plan import EvalPlan  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 
 D, N_STARTUP, N_BO, FIT_RESTARTS = 3, 8, 3, 2
 
@@ -102,9 +103,9 @@ def test_unported_options_raise_naming_the_roadmap():
     with pytest.raises(ValueError, match="dbe_vec"):
         GPSampler(space, device="cpu", fused=True)
     s = GPSampler(space, device="cpu")
-    # a fleet across several cards is the one option still to port
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FleetSampler(space, device="cpu", mesh=object())
+    # a fleet's device and its mesh must agree
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        FleetSampler(space, device="cpu", mesh=Mesh(["cuda:0"]))
     with pytest.raises(ValueError, match="non-finite"):
         t = s.ask()
         s.tell(t.trial_id, float("nan"))

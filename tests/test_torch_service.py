@@ -36,6 +36,7 @@ from repro_torch.bo.sampler import FleetSampler  # noqa: E402
 from repro_torch.bo.space import BoxSpace  # noqa: E402
 from repro_torch.core.mso import MsoOptions  # noqa: E402
 from repro_torch.engine.fleet import FleetFullError  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.serve.bo_service import (BOService,  # noqa: E402
                                           DeadlineExceeded, OverloadConfig,
                                           RequestFailed, ServiceDraining,
@@ -246,8 +247,9 @@ def test_service_journal_recovers_in_the_other_package(tmp_path, writer):
     assert (tq, tr, tp) == (jq, jr, jp)
     assert len(tq) == 1 and len(tr) == 1
     assert tsvc._req_seq == jsvc._req_seq
-    with pytest.raises(NotImplementedError, match="9b"):
-        BOService.recover(dt, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="must be 1-D"):
+        BOService.recover(dt, device="cpu", mesh=Mesh(
+            ["cpu"] * 4, ("data", "model"), shape=(2, 2)))
 
 
 # ============================================= DRR fairness / starvation
