@@ -258,6 +258,25 @@ Slice 12 adds, in the same run, after the fleet:
               + full and rank-one shard programs, every block program on
               every shard, the phase within 40 s; the "kernels" line adds
               K1–K4's launches of each drive
+Slice 13 adds, in the same run, after the train phases:
+  - lm mesh   the LM across a ("data", "model") mesh over torch.distributed
+              (ranks spawned on the card; gloo where they share it, the
+              backend logged): (a) the reduced llama3.2-3b in f32 (2
+              layers, 12 heads on 4 kv_heads) on (2, 2), four ranks,
+              against the unsharded port on the card: 2 train steps at
+              grad_accum 2 with ZeRO-1 and shard_grads (parameters and
+              moments within 1e-5 per leaf, grad norm 1e-6, loss 1e-5),
+              4 decode steps (1e-5), reduced dbrx-132b's MoE expert-
+              parallel at capacity factor 100 (1e-5 of max|y|), and the
+              save on (2, 2) restored on (1, 2), bitwise; (b) llama3.2-3b
+              at full width and depth, bf16, B=4, S=512, full remat, on
+              (1, 2): every rank draws the weights from seed 0 and keeps
+              its half, 1 warm and 3 timed steps, ms a step, tokens/s,
+              each rank's peak GB, K6 = 2 × 28 and K7 = 28 launches a rank
+              a step, the first loss within 2e-2 of the unsharded
+              forward; with four cards or more also (b) on (2, 2) over
+              NCCL, one rank a card; the "kernels" line adds each rank's
+              K6 and K7 launches
 Every timing line carries the card's name and power limit.
 Then it prints the card, a "kernels" JSON line (each "ms" with its
 source, "ms_from"; K6 at the serving step's shape), and the result line.
@@ -375,51 +394,82 @@ def cuda_time_ms(fn, iters: int) -> float:
 
 PAD_KERNEL = "spin_kernel"        # torch.cuda._sleep's kernel
 PAD_S = 0.02                      # host seconds of padding a trace starts with
+TRACE_TRIES = 3                   # traces of one measurement, at most
+# _trace's traces in this run: taken, retaken, and the most spin kernels
+# of the padding one of them lost
+TRACE_STATS = dict(traces=0, retaken=0, most_spins_lost=0)
 
 
-def _device_us(ev) -> float:
-    """Device µs of a trace's event; 0 for card_trace's padding."""
-    if PAD_KERNEL in ev.key:
-        return 0.0
+def _timed_us(ev) -> float:
+    """Device µs of a trace's event, the padding's included."""
     return float(getattr(ev, "self_device_time_total", 0.0) or
                  getattr(ev, "self_cuda_time_total", 0.0) or 0.0)
 
 
+def _device_us(ev) -> float:
+    """Device µs of a trace's event; 0 for card_trace's padding."""
+    return 0.0 if PAD_KERNEL in ev.key else _timed_us(ev)
+
+
 @contextlib.contextmanager
-def card_trace():
+def card_trace(pad_s: float = PAD_S):
     """A torch.profiler trace of the card.  A trace can miss the first
     few launches after it starts (1–5 of them on the H100: 0.5–50 % of a
-    short trace's device time), so the trace starts with PAD_S seconds of
-    short spin kernels, each waited for, to take that loss, and ends
-    with a few more; ``_device_us`` leaves the padding out."""
+    short trace's device time), so the trace starts with ``pad_s``
+    seconds of short spin kernels, each waited for, to take that loss,
+    and ends with as many again; ``_device_us`` leaves the padding out.
+    ``prof.pad_spins`` is the number of spin kernels on each side: a trace
+    that holds more than that many lost no launch of its body to a loss
+    at either end (see ``_trace``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def pad(seconds):
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < seconds:
-            torch.cuda._sleep(100_000)
-            torch.cuda.synchronize()
+    def spin():
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pad(PAD_S)
+        t0, n = time.perf_counter(), 0
+        while time.perf_counter() - t0 < pad_s:
+            spin()
+            n += 1
+        prof.pad_spins = n
         yield prof
         torch.cuda.synchronize()
-        pad(PAD_S / 4)
+        for _ in range(n):
+            spin()
 
 
 def _trace(fn, iters: int):
     """{kernel or copy: (launches, device µs)} over ``iters`` calls, from
-    a card_trace."""
+    a card_trace.  A trace that holds no more timed spin kernels than one
+    side of its padding may have lost launches of the calls themselves
+    (a trace of three K6 calls on the H100 once held no K6 kernel), so it
+    is taken again, with twice the padding, up to TRACE_TRIES traces; the
+    last one stands."""
     import torch
     for _ in range(3):
         fn()
-    with card_trace() as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {ev.key: (ev.count, _device_us(ev)) for ev in prof.key_averages()
+    pad_s = PAD_S
+    for attempt in range(1, TRACE_TRIES + 1):
+        with card_trace(pad_s) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        spins = sum(ev.count for ev in avgs
+                    if PAD_KERNEL in ev.key and _timed_us(ev) > 0)
+        TRACE_STATS["traces"] += 1
+        TRACE_STATS["most_spins_lost"] = max(TRACE_STATS["most_spins_lost"],
+                                             2 * prof.pad_spins - spins)
+        if spins > prof.pad_spins:
+            break
+        TRACE_STATS["retaken"] += 1
+        log(f"[timing] trace {attempt} of {TRACE_TRIES} incomplete: "
+            f"{spins} of 2 × {prof.pad_spins} spin kernels")
+        pad_s *= 2
+    return {ev.key: (ev.count, _device_us(ev)) for ev in avgs
             if _device_us(ev) > 0}
 
 
@@ -2904,9 +2954,14 @@ def phase_paper(dev, state, sampler):
 # refits and the 544 → 576 migration's full refit in the first 4 rounds,
 # the ones held against the solo samplers; 8 rounds, since a full round,
 # its Cholesky factorizations study by study, takes ~12 s
+# Cut in depth to keep the script's time: 4 fleet rounds (were 8), the
+# rounds the solo comparison covers (a full refit, rank-one refits, the
+# 544 → 576 migration's full refit), and 2 steps of the bits check (were
+# 4: full and incremental, then the same two again).  On one H100 the
+# last 4 of the 8 rounds took 14.8 s ("[fleet] round" lines).
 FLEET = dict(D=20, studies=16, slots=8, B=10, pad=32, refit_interval=8,
-             startup=542, rounds=8, solo_rounds=4,
-             bits=dict(D=20, n=40, steps=4), recover=dict(D=5, rounds=12, kill_at=50))
+             startup=542, rounds=4, solo_rounds=4,
+             bits=dict(D=20, n=40, steps=2), recover=dict(D=5, rounds=12, kill_at=50))
 
 
 @functools.lru_cache(maxsize=None)
@@ -4263,6 +4318,13 @@ TRAIN_K7 = (
      "bfloat16", True, 128, "self"),
     ("bf16 hd 64 no visible key: window 0, causal", 2, 96, 96, 4, 2, 64,
      "bfloat16", True, 0, "self"),
+    # slice 13: a rank's heads on the LM mesh: (b) llama3.2-3b at TP=2
+    # (24 → 12 heads, 8 → 4 kv heads), (a) the reduced llama on (2, 2)
+    # (12 → 6 heads, 4 → 2; a microbatch's one row a "data" rank)
+    ("mesh (b): llama3.2-3b TP=2 B=4 S=512", 4, 512, 512, 12, 4, 128,
+     "bfloat16", True, None, "self"),
+    ("mesh (a): reduced llama f32 on (2, 2) B=1 S=16", 1, 16, 16, 6, 2, 32,
+     "float32", True, None, "self"),
 )
 K7_F32_TOL = 1e-4
 
@@ -4879,6 +4941,451 @@ def phase_train_remat(dev):
     return row, launches
 
 
+# slice 13: the LM across a ("data", "model") mesh over torch.distributed.
+# (a) the reduced llama3.2-3b in f32 at 2 layers, 12 heads on 4 kv_heads
+# (the reduced config's one kv head divides no model axis), on (2, 2);
+# (b) llama3.2-3b at full width and depth, bf16, B=4, S=512, full remat,
+# on (1, 2); with four cards or more, (b) on (2, 2) over NCCL too
+LM_MESH = dict(arch="llama3.2-3b", heads=12, kv_heads=4, layers=2, batch=4,
+               seq=16, steps=2, grad_accum=2, decode=4, max_len=16,
+               moe_arch="dbrx-132b", moe_rows=4, moe_seq=8, lr=3e-4,
+               weight_decay=0.1, device=None)
+LM_MESH_FULL = dict(arch="llama3.2-3b", batch=4, seq=512, warm=1, timed=3,
+                    layers=28, remat="full", lr=3e-4, weight_decay=0.1,
+                    reduced=False)
+# the tolerances of tests/test_torch_lm_mesh.py (per leaf ‖Δ‖/‖ref‖);
+# at full width the first step's loss (absolute) and gradient norm
+# (relative) against the unsharded port's on the same parameters and
+# batch (lm_mesh_timing.py --faults reads a sound layout and faulty ones)
+LM_MESH_TOL = dict(loss=1e-5, state=1e-5, grad_norm=1e-6, decode=1e-5,
+                   moe=1e-5, full_loss=2e-3, full_grad_norm=1e-2)
+LM_MESH_TIMEOUT = 600
+
+
+def lm_mesh_cfg(c=LM_MESH):
+    from repro_torch.configs import get_config
+    return get_config(c["arch"]).reduced().replace(
+        dtype="float32", n_heads=c["heads"], n_kv_heads=c["kv_heads"],
+        n_layers=c["layers"])
+
+
+def lm_mesh_moe_cfg(c=LM_MESH):
+    from repro_torch.configs import get_config
+    return get_config(c["moe_arch"]).reduced().replace(
+        dtype="float32", moe_capacity_factor=100.0)
+
+
+def lm_mesh_opt(c, steps):
+    from repro_torch.train.optim import OptimConfig
+    return OptimConfig(lr=c["lr"], weight_decay=c["weight_decay"],
+                       warmup_steps=1, total_steps=steps)
+
+
+def to_numpy(t):
+    if isinstance(t, dict):
+        return {k: to_numpy(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(to_numpy(v) for v in t)
+    return t.detach().cpu().numpy().copy()
+
+
+def lm_mesh_inputs(c=LM_MESH):
+    """(a)'s inputs, on the host: the reduced llama's parameters (seed
+    0), ``c["steps"]`` batches and the MoE's parameters (seed 3) and
+    input (numpy's seed 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    cfg = lm_mesh_cfg(c)
+    params_np = to_numpy(lm.init_params(cfg, torch.Generator().manual_seed(0),
+                                        stacked=True))
+    rng = np.random.default_rng(0)
+    batches = [{k: rng.integers(0, cfg.vocab_size, (c["batch"], c["seq"]))
+                .astype(np.int32) for k in ("tokens", "targets")}
+               for _ in range(c["steps"])]
+    mcfg = lm_mesh_moe_cfg(c)
+    moe_np = (to_numpy(MOE.init_moe(torch.Generator().manual_seed(3), mcfg,
+                                    torch.float32)),
+              rng.standard_normal((c["moe_rows"], c["moe_seq"],
+                                   mcfg.d_model)).astype(np.float32))
+    return params_np, batches, moe_np
+
+
+def lm_mesh_full_inputs(cfg, f, device):
+    """(b)'s inputs: ``warm`` + ``timed`` batches of synth_batch (seed 0,
+    on the host) and the global parameters drawn on ``device`` from seed
+    0, the same on every rank."""
+    import torch
+    from repro_torch.data.synth import DataConfig, synth_batch
+    from repro_torch.models import lm
+    dcfg = DataConfig(global_batch=f["batch"], seq_len=f["seq"], seed=0)
+    batches = [{k: torch.from_numpy(v) for k, v in synth_batch(
+        cfg, dcfg, i).items()} for i in range(f["warm"] + f["timed"])]
+    full = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                          stacked=True)
+    return batches, full
+
+
+def lm_mesh_unsharded(full, cfg, batch, device):
+    """The unsharded port's loss and gradient norm on the global
+    parameters and one batch, off the mesh: what the sharded first step
+    must give.  ``full`` itself gains no gradient."""
+    from repro_torch.train import optim
+    from repro_torch.train.step import compute_grads
+    loss, grads = compute_grads(optim.tree_map(lambda p: p.detach(), full),
+                                cfg, {k: v.to(device)
+                                      for k, v in batch.items()})
+    return float(loss), float(optim.global_norm(grads))
+
+
+def lm_mesh_small(dev_or_mesh, c, params_np, batches, moe_np, ckpt_dir=None):
+    """The small checks' path, unsharded on a device or on a mesh: the
+    train steps' state (gathered), their metrics, the decode logits
+    (gathered over "data") and the MoE output (gathered).  On a mesh the
+    state after the last step is saved to ``ckpt_dir`` (elastic)."""
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import (gather_tree, local_shardings,
+                                                  shard_tree)
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+    cfg = lm_mesh_cfg(c)
+    mesh = None if isinstance(dev_or_mesh, torch.device) else dev_or_mesh
+    dev = dev_or_mesh if mesh is None else mesh.device
+    oc = lm_mesh_opt(c, c["steps"])
+    axes = lm.param_axes(cfg) if mesh is not None else None
+
+    def load():
+        if mesh is None:
+            return lm_params_from_numpy(params_np, device=dev, stacked=True)
+        return lm_params_from_numpy(params_np, stacked=True, mesh=mesh,
+                                    cfg=cfg)
+    params = load()
+    state = optim.init_opt_state(params, oc, axes)
+    step = make_train_step(cfg, oc, c["grad_accum"])
+    metrics = []
+    for b in batches:
+        params, state, m = step(params, state, {
+            k: (torch.from_numpy(v) if mesh is not None else
+                torch.from_numpy(v).to(dev)) for k, v in b.items()})
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    if mesh is None:
+        out = dict(params=to_numpy(params), mu=to_numpy(state.mu),
+                   nu=to_numpy(state.nu))
+    else:
+        sh = optim.state_shardings(params, axes, mesh, oc)
+        out = dict(params=to_numpy(gather_tree(params, axes, mesh)),
+                   **{k: to_numpy(gather_tree(getattr(state, k),
+                                              getattr(sh, k)))
+                      for k in ("mu", "nu")})
+        CheckpointManager(ckpt_dir).save(len(batches), {
+            "params": params, "opt": state}, shardings={
+            "params": local_shardings(params, axes, mesh), "opt": sh})
+    out["metrics"] = metrics
+    params = load()
+    tokens = torch.from_numpy(batches[0]["tokens"])
+    if mesh is not None:
+        tokens = shard_tree({"t": tokens}, {"t": ("batch", None)}, mesh)["t"]
+    cache = lm.init_cache(cfg, c["batch"], c["max_len"], device=(
+        dev if mesh is None else None))
+    logits = []
+    with torch.no_grad():
+        for i in range(c["decode"]):
+            lg, cache = lm.decode_step(params, cfg,
+                                       tokens[:, i:i + 1].to(dev), cache, i)
+            logits.append(to_numpy(C.all_gather(lg, "data")))
+        mp = {k: torch.from_numpy(v) for k, v in moe_np[0].items()}
+        x = torch.from_numpy(moe_np[1])
+        if mesh is None:
+            y, _ = MOE.apply_moe({k: v.to(dev) for k, v in mp.items()},
+                                 lm_mesh_moe_cfg(c), x.to(dev))
+        else:
+            moe_axes = lm.param_axes(lm_mesh_moe_cfg(c))["blocks"]["moe"]
+            mine = shard_tree(mp, {k: v[1:] for k, v in moe_axes.items()},
+                              mesh)
+            xs = shard_tree({"x": x}, {"x": ("batch", None, None)}, mesh)
+            y, _ = MOE.apply_moe(mine, lm_mesh_moe_cfg(c), xs["x"],
+                                 mesh=mesh)
+            y = C.all_gather(y, "data")
+    out["decode"] = np.stack(logits)
+    out["moe"] = to_numpy(y)
+    return out
+
+
+def lm_mesh_small_rank(rank, c, params_np, batches, moe_np, ckpt_dir):
+    """Rank ``rank`` of the (2, 2) world of check (a)."""
+    import torch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.launch.mesh import make_smoke_mesh, use_mesh
+    mesh = make_smoke_mesh((2, 2), device=c["device"])
+    FK.reset_launch_counts()
+    with use_mesh(mesh):
+        out = lm_mesh_small(mesh, c, params_np, batches, moe_np, ckpt_dir)
+    on_cuda(mesh.device, torch.cuda.synchronize)
+    return dict(out if rank == 0 else {}, launches=FK.launch_counts(),
+                backend=mesh.backend, device=str(mesh.device))
+
+
+def on_cuda(dev, fn, default=None):
+    """``fn()`` when ``dev`` is a card (``default`` on the CPU, where the
+    mesh phase's ``device="cpu"`` rehearses it)."""
+    return fn() if dev.type == "cuda" else default
+
+
+def lm_mesh_restore(mesh, c, ckpt_dir, step):
+    """Check (a)'s checkpoint restored on ``mesh``, gathered."""
+    import torch
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.distributed.sharding import (gather_tree, local_shardings,
+                                                  shard_tree)
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+    cfg = lm_mesh_cfg(c)
+    axes = lm.param_axes(cfg)
+    oc = lm_mesh_opt(c, c["steps"])
+    params = shard_tree(lm.init_params(
+        cfg, torch.Generator().manual_seed(1), stacked=True), axes, mesh)
+    state = optim.init_opt_state(params, oc, axes)
+    sh = optim.state_shardings(params, axes, mesh, oc)
+    got = CheckpointManager(ckpt_dir).restore(
+        step, {"params": params, "opt": state}, shardings={
+            "params": local_shardings(params, axes, mesh), "opt": sh})
+    return dict(params=to_numpy(gather_tree(got["params"], axes, mesh)),
+                **{k: to_numpy(gather_tree(getattr(got["opt"], k),
+                                           getattr(sh, k)))
+                   for k in ("mu", "nu")})
+
+
+def lm_mesh_full_cfg(f=LM_MESH_FULL, c=LM_MESH):
+    from repro_torch.configs import get_config
+    return (lm_mesh_cfg(c) if f["reduced"] else get_config(f["arch"])
+            ).replace(remat=f["remat"])
+
+
+def lm_mesh_rank(rank, c, f, inputs, ckpt_dir, port, backend):
+    """Rank ``rank`` of the phase's one world of four: (a) on (2, 2);
+    then ranks 0 and 1 leave it for a world of two (on ``port`` over
+    ``backend``) and run (b) on (1, 2), while ranks 2 and 3 return.  The
+    ranks' start and first use of the card are paid once."""
+    import datetime
+    import torch.distributed as dist
+    out = {"a": lm_mesh_small_rank(rank, c, *inputs, ckpt_dir)}
+    dist.destroy_process_group()
+    if rank >= 2:
+        return out
+    os.environ.update(WORLD_SIZE="2", LOCAL_WORLD_SIZE="2")
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(
+                                seconds=LM_MESH_TIMEOUT))
+    out["b"] = lm_mesh_full_rank(rank, (1, 2), f, c, ckpt_dir)
+    return out
+
+
+def lm_mesh_full_rank(rank, shape, f, c, ckpt_dir):
+    """Rank ``rank`` of check (b) on ``shape``: (a)'s checkpoint restored
+    here first (on (1, 2) only); then llama3.2-3b at full width drawn on
+    the card from seed 0 (every rank draws the global tensors and keeps
+    its slice), rank 0's unsharded loss and gradient norm on the first
+    batch, and ``warm`` + ``timed`` train steps with every count reset
+    before them: per-step wall ms, losses, gradient norms, peak memory,
+    K6/K7 launches."""
+    import gc
+    import torch
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.launch.mesh import make_smoke_mesh, use_mesh
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+    mesh = make_smoke_mesh(shape, device=c["device"])
+    out = {"backend": mesh.backend, "device": str(mesh.device)}
+    if ckpt_dir is not None:
+        with use_mesh(mesh):
+            restored = lm_mesh_restore(mesh, c, ckpt_dir, c["steps"])
+        if rank == 0:
+            out["restored"] = restored
+    cfg = lm_mesh_full_cfg(f, c)
+    batches, full = lm_mesh_full_inputs(cfg, f, mesh.device)
+    if rank == 0:
+        out["unsharded_loss"], out["unsharded_grad_norm"] = \
+            lm_mesh_unsharded(full, cfg, batches[0], mesh.device)
+    axes = lm.param_axes(cfg)
+    oc = lm_mesh_opt(f, len(batches))
+    with use_mesh(mesh):
+        params = shard_tree(full, axes, mesh)
+        del full
+        gc.collect()
+        on_cuda(mesh.device, torch.cuda.empty_cache)
+        state = optim.init_opt_state(params, oc, axes)
+        step = make_train_step(cfg, oc)
+        on_cuda(mesh.device, torch.cuda.synchronize)
+        on_cuda(mesh.device, torch.cuda.reset_peak_memory_stats)
+        FK.reset_launch_counts()
+        wall, losses, norms = [], [], []
+        for b in batches:
+            t1 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            on_cuda(mesh.device, torch.cuda.synchronize)
+            wall.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out["launches"] = FK.launch_counts()
+    out.update(step_ms=wall, losses=losses, grad_norms=norms, peak_gb=on_cuda(
+        mesh.device, torch.cuda.max_memory_allocated, 0) / 1e9)
+    return out
+
+
+def lm_mesh_close(got, want, tol, path=""):
+    """The largest per-leaf ‖got − want‖ / ‖want‖; fails past ``tol``."""
+    import numpy as np
+    if isinstance(want, dict):
+        return max(lm_mesh_close(got[k], want[k], tol, f"{path}/{k}")
+                   for k in want)
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(g.shape == w.shape, f"lm mesh: {path} shape {g.shape} != {w.shape}")
+    r = float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+    check(r <= tol, f"lm mesh: {path} off by {r:.3e} (relative) > {tol}")
+    return r
+
+
+def lm_mesh_full_row(shape, backend, f, ranks, world_s):
+    """Check (b) on ``shape`` from its ranks' rows; the row, logged."""
+    import numpy as np
+    steps = f["warm"] + f["timed"]
+    want = {"flash_attention_fwd": 2 * f["layers"] * steps,
+            "flash_attention_bwd": f["layers"] * steps}
+    for r, o in enumerate(ranks):
+        check(o["backend"] == backend, f"lm mesh {shape}: rank {r} on "
+              f"{o['backend']}, want {backend}")
+        check(o["launches"] == want, f"lm mesh {shape}: rank {r} launches "
+              f"{o['launches']}, want {want} (2 × {f['layers']} K6 and "
+              f"{f['layers']} K7 a step under full remat)")
+        check(all(math.isfinite(x) for x in o["losses"] + o["grad_norms"]),
+              f"lm mesh {shape}: rank {r} losses {o['losses']}, gradient "
+              f"norms {o['grad_norms']}")
+        check(o["losses"] == ranks[0]["losses"], f"lm mesh {shape}: the "
+              f"ranks' losses differ {o['losses']} {ranks[0]['losses']}")
+    ref, ref_norm = (ranks[0]["unsharded_loss"],
+                     ranks[0]["unsharded_grad_norm"])
+    gap = abs(ranks[0]["losses"][0] - ref)
+    check(gap <= LM_MESH_TOL["full_loss"], f"lm mesh {shape}: first loss "
+          f"{ranks[0]['losses'][0]} vs unsharded {ref} (gap {gap})")
+    norm_gap = abs(ranks[0]["grad_norms"][0] - ref_norm) / ref_norm
+    check(norm_gap <= LM_MESH_TOL["full_grad_norm"], f"lm mesh {shape}: "
+          f"first gradient norm {ranks[0]['grad_norms'][0]} vs unsharded "
+          f"{ref_norm} ({norm_gap:.3e} relative)")
+    per_rank_ms = [float(np.median(o["step_ms"][f["warm"]:]))
+                   for o in ranks]
+    ms = max(per_rank_ms)
+    row = dict(shape=list(shape), backend=backend, arch=f["arch"],
+               batch=f["batch"], seq=f["seq"], remat=f["remat"],
+               steps=steps, ms_per_step=ms, per_rank_ms=per_rank_ms,
+               first_step_ms=[o["step_ms"][0] for o in ranks],
+               tokens_per_s=f["batch"] * f["seq"] / (ms / 1e3),
+               losses=ranks[0]["losses"], unsharded_loss=ref,
+               first_loss_gap=gap, grad_norms=ranks[0]["grad_norms"],
+               unsharded_grad_norm=ref_norm, first_grad_norm_gap=norm_gap,
+               peak_gb=[o["peak_gb"] for o in ranks],
+               launches=[o["launches"] for o in ranks], world_s=world_s)
+    log("[lm mesh] " + json.dumps(on_card(row)))
+    return row
+
+
+def phase_lm_mesh(dev, c=LM_MESH, f=LM_MESH_FULL):
+    """Slice 13, in one spawned world of four ranks on the card: (a) the
+    reduced llama on (2, 2) (gloo: the ranks share the card), against the
+    unsharded port on the card: 2 train steps (grad_accum 2, ZeRO-1,
+    shard_grads), 4 decode steps, the MoE (reduced dbrx-132b, capacity
+    factor 100) expert-parallel, and an elastic save restored on (1, 2)
+    with identical values; then (b) llama3.2-3b at full width on (1, 2),
+    ranks 0 and 1: one warm and 3 timed steps, ms a step, tokens/s, each
+    rank's peak, K6 = 2 × 28 and K7 = 28 launches a rank a step, the
+    first loss within 2e-3 and the first gradient norm within 1e-2
+    (relative) of the unsharded port's; with four cards or more, (b) on
+    (2, 2) over NCCL in a world of its own.  → the row, with every
+    rank's launches."""
+    import numpy as np
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.distributed.world import free_port, run_world
+    from repro_torch.launch.mesh import collective_backend
+    from repro_torch.train.optim import tree_leaves
+    t0 = time.perf_counter()
+    cards = on_cuda(dev, torch.cuda.device_count, 0)
+    backend = collective_backend(c["device"], local_world=4)
+    backend_b = collective_backend(c["device"], local_world=2)
+    log(f"[lm mesh] (a) 4 ranks on {cards} card(s): backend {backend}; "
+        f"(b) 2 ranks: backend {backend_b}")
+    inputs = lm_mesh_inputs(c)
+    ref = lm_mesh_small(dev, c, *inputs)
+    gc.collect()
+    on_cuda(dev, torch.cuda.empty_cache)
+    ckpt = tempfile.mkdtemp(prefix="lm_mesh_")
+    try:
+        ranks = run_world(lm_mesh_rank, 4, (
+            c, f, inputs, ckpt, free_port(), backend_b), backend=backend,
+            timeout=LM_MESH_TIMEOUT)
+        world_s = time.perf_counter() - t0
+        small_ranks = [o["a"] for o in ranks]
+        got = small_ranks[0]
+        err = {k: lm_mesh_close(got[k], ref[k], LM_MESH_TOL["state"], k)
+               for k in ("params", "mu", "nu")}
+        for (gl, gn), (rl, rn) in zip(got["metrics"], ref["metrics"]):
+            check(abs(gl - rl) <= LM_MESH_TOL["loss"] * abs(rl),
+                  f"lm mesh (a): loss {gl} vs unsharded {rl}")
+            check(abs(gn - rn) <= LM_MESH_TOL["grad_norm"] * rn,
+                  f"lm mesh (a): grad norm {gn} vs unsharded {rn}")
+        err["decode"] = float(np.abs(got["decode"] - ref["decode"]).max())
+        check(err["decode"] <= LM_MESH_TOL["decode"],
+              f"lm mesh (a): decode logits off by {err['decode']}")
+        err["moe"] = float(np.abs(got["moe"] - ref["moe"]).max()
+                           / np.abs(ref["moe"]).max())
+        check(err["moe"] <= LM_MESH_TOL["moe"],
+              f"lm mesh (a): the MoE off by {err['moe']} of max|y|")
+        check(all(o["backend"] == backend for o in small_ranks) and (
+            cards != 1 or all(o["device"] == "cuda:0" for o in small_ranks)),
+            f"lm mesh (a): ranks on {[o['device'] for o in small_ranks]}")
+        small = dict(err=err, launches=[o["launches"] for o in small_ranks],
+                     metrics=got["metrics"])
+        log("[lm mesh] (a) " + json.dumps(on_card(small)))
+        full_ranks = [o["b"] for o in ranks[:2]]
+        restored = full_ranks[0]["restored"]
+        for k in ("params", "mu", "nu"):
+            check(all(np.array_equal(a, b) for a, b in zip(
+                tree_leaves(restored[k]), tree_leaves(got[k]))),
+                f"lm mesh: (a)'s {k} restored on (1, 2) differ")
+        rows = {"1x2": lm_mesh_full_row((1, 2), backend_b, f, full_ranks,
+                                        world_s)}
+        if cards >= 4:
+            rows["2x2"] = lm_mesh_full((2, 2), collective_backend(
+                local_world=4), f, c)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    row = dict(a=small, b=rows, phase_s=time.perf_counter() - t0)
+    log(f"[time] lm mesh: {row['phase_s']:.1f} s")
+    return row
+
+
+def lm_mesh_full(shape, backend, f, c):
+    """Check (b) on ``shape`` in a world of its own; the row."""
+    from repro_torch.distributed.world import run_world
+    t0 = time.perf_counter()
+    ranks = run_world(lm_mesh_full_rank, math.prod(shape),
+                      (shape, f, c, None), backend=backend,
+                      timeout=LM_MESH_TIMEOUT)
+    return lm_mesh_full_row(shape, backend, f, ranks,
+                            time.perf_counter() - t0)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found next to the script",
@@ -4938,6 +5445,15 @@ def main() -> int:
     log(f"[time] train: {time.perf_counter() - t_start:.1f} s")
     remat, remat_launches = phase_train_remat(dev)
     log(f"[time] train remat: {time.perf_counter() - t_start:.1f} s")
+    lm_mesh = phase_lm_mesh(dev)
+    log(f"[time] lm mesh: {time.perf_counter() - t_start:.1f} s")
+    # slice 13: every rank's K6 and K7 launches, check (a) on (2, 2) and
+    # the full-width steps (b) on (1, 2) (and (2, 2) with four cards)
+    mesh_launches = {name: dict(
+        a=[r[name] for r in lm_mesh["a"]["launches"]],
+        **{f"b_{k}": [r[name] for r in row["launches"]]
+           for k, row in lm_mesh["b"].items()})
+        for name in ("flash_attention_fwd", "flash_attention_bwd")}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5019,6 +5535,7 @@ def main() -> int:
                 # step: each layer's forward again in the backward)
                 "train_remat_launches":
                     remat_launches["flash_attention_fwd"],
+                "lm_mesh_launches": mesh_launches["flash_attention_fwd"],
                 "train_timing": {
                     key: train_k[key] for key in (
                         "shape", "flash_ms", "flash_ms_from", "flash_lse_ms",
@@ -5060,10 +5577,13 @@ def main() -> int:
             "busy_device_ms_per_step", "peak_memory_gb")},
         # slice 11: the B=8 train steps under full remat (28 a step)
         "train_remat_launches": remat_launches["flash_attention_bwd"],
+        # slice 13: each rank's launches on the meshes
+        "lm_mesh_launches": mesh_launches["flash_attention_bwd"],
         "train_remat": {k: remat["full"][k] for k in (
             "ms_per_step", "tokens_per_s", "mfu", "k6_device_ms_per_step",
             "k7_device_ms_per_step", "busy_device_ms_per_step",
             "peak_memory_gb")}})
+    log("[trace] " + json.dumps(TRACE_STATS))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,17 @@ raw bits, uint16, and restored into a bfloat16 template).
   template; :meth:`CheckpointManager.latest_step` skips corrupt files.
 * **Preemption** — :func:`install_sigterm_handler` flips a flag the
   caller polls at a safe boundary.
+* **Elastic** — on a mesh (``shardings=``: a tree of
+  ``distributed/sharding.py::NamedSharding`` beside the tree, None where
+  a leaf is the same on every rank) a save gathers one leaf at a time
+  to its global array (on every rank's device, a collective) and rank 0
+  copies it to the host while the others drop it, so a rank's device
+  holds at most one leaf's global array beyond its shards; rank 0
+  writes, synchronously, and every rank waits for the write before the
+  save returns.  A restore reads the global arrays and places each on
+  the current mesh's shards.  A checkpoint therefore
+  holds global arrays only, and restores on any mesh, or on none, with
+  identical values.
 """
 from __future__ import annotations
 
@@ -87,14 +98,21 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
     return {k: _to_numpy(v) for k, v in leaves.items()}
 
 
-def _unflatten_into(template, flat: Dict[str, np.ndarray], prefix: str = ""):
+def _unflatten_into(template, flat: Dict[str, np.ndarray], prefix: str = "",
+                    shardings=None):
     """``template``'s structure with its leaves read from ``flat``: a
-    tensor leaf comes back as a tensor on the template's device."""
+    tensor leaf comes back as a tensor on the template's device, or, with
+    a sharding, as this rank's slice of the saved global array on the
+    sharding's mesh (the template's shape is then the slice's or the
+    global one)."""
     if isinstance(template, dict):
-        return {k: _unflatten_into(v, flat, _join(prefix, k))
+        return {k: _unflatten_into(v, flat, _join(prefix, k),
+                                   None if shardings is None
+                                   else shardings[k])
                 for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        vals = [_unflatten_into(v, flat, _join(prefix, i))
+        vals = [_unflatten_into(v, flat, _join(prefix, i),
+                                None if shardings is None else shardings[i])
                 for i, v in enumerate(template)]
         # a NamedTuple (the optimizer state) takes its fields positionally
         return (type(template)(*vals) if hasattr(template, "_fields")
@@ -103,6 +121,12 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray], prefix: str = ""):
         raise KeyError(f"checkpoint missing leaf {prefix}")
     val = flat[prefix]
     shape, dtype = _spec(template)
+    if shardings is not None and shape != tuple(val.shape):
+        local = shardings.local_shape(val.shape)
+        if local != shape:
+            raise ValueError(f"shape mismatch at {prefix}: ckpt {val.shape} "
+                             f"(a shard {local}) vs template {shape}")
+        shape = tuple(val.shape)
     if tuple(val.shape) != shape:
         raise ValueError(f"shape mismatch at {prefix}: ckpt {val.shape} vs "
                          f"template {shape}")
@@ -115,8 +139,23 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray], prefix: str = ""):
         arr = np.array(val)
         t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
              if template.dtype == torch.bfloat16 else torch.from_numpy(arr))
+        if shardings is not None:
+            return shardings.shard(t)
         return t.to(template.device)
     return val
+
+
+def _mesh_of(shardings):
+    """The mesh of the first sharding in a tree of them (None: none)."""
+    if isinstance(shardings, dict):
+        shardings = list(shardings.values())
+    if isinstance(shardings, (list, tuple)):
+        for s in shardings:
+            m = _mesh_of(s)
+            if m is not None:
+                return m
+        return None
+    return getattr(shardings, "mesh", None)
 
 
 class CheckpointManager:
@@ -175,11 +214,36 @@ class CheckpointManager:
         return None
 
     # -------------------------------------------------------------- save
-    def save(self, step: int, tree, *, block: bool = False) -> None:
+    def save(self, step: int, tree, *, block: bool = False,
+             shardings=None) -> None:
         """Save ``tree`` (nested dicts/lists/tuples of tensors, arrays or
         scalars) under the reference's flat keys: copied to the host now,
         written on a daemon thread (after any save still in flight) unless
-        ``block`` or the manager is synchronous."""
+        ``block`` or the manager is synchronous.  With ``shardings`` (a
+        collective: every rank of the mesh calls it) the leaves are
+        gathered to their global arrays, rank 0 writes, and every rank
+        returns once the file is in place."""
+        if shardings is not None:
+            from repro_torch.distributed.collectives import barrier
+            from repro_torch.distributed.sharding import NamedSharding
+            mesh = _mesh_of(shardings)
+            leaves: Dict[str, Any] = {}
+            specs: Dict[str, Any] = {}
+            _walk(tree, "", leaves)
+            _walk(shardings, "", specs)
+            flat = {}
+            for key, leaf in leaves.items():
+                sh = specs.get(key)
+                if isinstance(sh, NamedSharding):
+                    leaf = sh.gather(leaf)
+                if mesh.rank == 0:
+                    flat[key] = _to_numpy(leaf)
+                del leaf
+            if mesh.rank == 0:
+                self.wait()
+                self._write(step, flat)
+            barrier(mesh)
+            return
         flat = _flatten(tree)            # sync device→host copy
         self.wait()                      # one in-flight save at a time
         if self.async_save and not block:
@@ -234,10 +298,14 @@ class CheckpointManager:
             return {k: z[k] for k in z.files}
 
     # ----------------------------------------------------------- restore
-    def restore(self, step: int, template):
+    def restore(self, step: int, template, shardings=None):
         """Restore into ``template``'s structure (shapes and dtypes must
-        match; tensors land on the template's devices)."""
-        return _unflatten_into(template, self.load_flat(step))
+        match; tensors land on the template's devices).  With
+        ``shardings`` (a tree beside the template; None at a leaf read
+        whole) each tensor is this rank's slice of the saved global array
+        on the sharding's mesh."""
+        return _unflatten_into(template, self.load_flat(step),
+                               shardings=shardings)
 
 
 # ---------------------------------------------------------------------------

@@ -122,7 +122,8 @@ def _lm_tensor(a, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
-def lm_params_from_numpy(tree, device=None, *, stacked: bool = False):
+def lm_params_from_numpy(tree, device=None, *, stacked: bool = False,
+                         mesh=None, cfg=None):
     """The port's LM parameters from the JAX package's unboxed parameter
     tree as numpy arrays: ``{"embed", "final_norm", "blocks"}`` (dense,
     moe, vlm), ``{"embed", "final_norm", "triples", "tail"}`` (hybrid),
@@ -135,7 +136,19 @@ def lm_params_from_numpy(tree, device=None, *, stacked: bool = False):
     training holds).  Every dtype is kept (the router, ``lambda_param``,
     ``w_if`` and ``r_*`` stay float32 in a bfloat16 model).  On
     ``device``: ``None`` means the card, as at every entry point
-    (``repro_torch.resolve_device``), and raises without one."""
+    (``repro_torch.resolve_device``), and raises without one.
+
+    With ``mesh`` (and the model's ``cfg``, whose ``lm.param_axes`` place
+    the leaves) each leaf is this rank's slice, on the mesh's device."""
+    if mesh is not None:
+        from repro_torch.distributed.sharding import shard_tree
+        from repro_torch.models.lm import param_axes
+        if cfg is None:
+            raise ValueError("lm_params_from_numpy(mesh=) needs the model's "
+                             "cfg")
+        out = shard_tree(_tree_from_numpy(tree, torch.device("cpu")),
+                         param_axes(cfg), mesh)
+        return out if stacked else per_layer(out)
     out = _tree_from_numpy(tree, resolve_device(device))
     return out if stacked else per_layer(out)
 
@@ -146,15 +159,32 @@ def _tree_from_numpy(node, dev: torch.device):
     return _lm_tensor(node, dev)
 
 
-def opt_state_from_numpy(state, device=None):
+def opt_state_from_numpy(state, device=None, *, mesh=None, cfg=None):
     """The port's ``AdamState`` from the JAX package's (``step``, ``mu``,
     ``nu``, ``ef`` with their trees unboxed, as numpy arrays): the moments
     and residuals as tensors on ``device`` (``None`` means the card), the
-    step on the host, as the port keeps it."""
-    from repro_torch.train.optim import AdamState
-    dev = resolve_device(device)
+    step on the host, as the port keeps it.  With ``mesh`` (and the
+    model's ``cfg``) each moment is this rank's ZeRO slice
+    (``train/optim.py``), on the mesh's device."""
+    from repro_torch.train.optim import AdamState, zero_sharding
     step, mu, nu, ef = state
+    if mesh is not None:
+        from repro_torch.distributed.sharding import zip_map
+        from repro_torch.models.lm import param_axes
+        if cfg is None:
+            raise ValueError("opt_state_from_numpy(mesh=) needs the model's "
+                             "cfg")
+        axes = param_axes(cfg)
+
+        def tree(t):
+            return zip_map(lambda x, ax: zero_sharding(
+                x.shape, ax, mesh).shard(x),
+                _tree_from_numpy(t, torch.device("cpu")), axes)
+    else:
+        dev = resolve_device(device)
+
+        def tree(t):
+            return _tree_from_numpy(t, dev)
     return AdamState(
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32),
-        mu=_tree_from_numpy(mu, dev), nu=_tree_from_numpy(nu, dev),
-        ef=_tree_from_numpy(ef, dev) if isinstance(ef, dict) else ())
+        mu=tree(mu), nu=tree(nu), ef=tree(ef) if isinstance(ef, dict) else ())

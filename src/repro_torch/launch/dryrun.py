@@ -41,8 +41,7 @@ from typing import Optional
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.hlo_cost import count_cell
-from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16,
-                                     make_production_mesh)
+from repro_torch.launch.mesh import HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16
 from repro_torch.launch.shapes import (SHAPES, build_cell, cell_supported,
                                        default_grad_accum)
 from repro_torch.models import lm
@@ -184,7 +183,9 @@ def main(argv=None) -> None:
                     help="cfg override key=value (e.g. remat=dots)")
     args = ap.parse_args(argv)
     if args.mesh != "single":
-        make_production_mesh()                 # raises: item 9b
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the dry run's meshes and their collective "
+            f"bytes are ROADMAP queue A item 9b")
     overrides = _overrides(args.set)
     os.makedirs(args.out, exist_ok=True)
 

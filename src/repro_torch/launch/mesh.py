@@ -14,16 +14,30 @@ the fleet's 1-D ``"study"`` mesh over the visible cards (or, asked with
 tests use forced host devices).  A mesh built directly may repeat a
 card: one card then runs the sharded path with several shards.
 
-The reference's LM meshes (``make_production_mesh``, ``make_smoke_mesh``,
-``use_mesh``) place a model's tensor- and data-parallel program across
-cards; they are the LM half of ROADMAP queue A item 9b, so each raises.
+The LM's meshes are a :class:`ProcessMesh`: the ranks of an initialized
+``torch.distributed`` world laid out row-major over named axes ("data",
+"model", and "pod" for the multi-pod layout), one process a rank, each
+holding its own slice of every tensor on its own device.
+:func:`make_smoke_mesh` builds one of any shape over the world,
+:func:`make_production_mesh` the reference's (16, 16) and (2, 16, 16)
+layouts, and :func:`use_mesh` installs one as the ambient mesh (the
+counterpart of ``jax.set_mesh``) that the LM's layers, loss, train step
+and optimizer read.  :func:`collective_backend` picks the backend from
+the layout: NCCL with one rank a card, gloo where ranks share a card
+(NCCL refuses two ranks of one communicator on one card) and on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import math
-from typing import Optional, Sequence
+import os
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import _MESH
 
 HBM_BYTES = 80e9                 # 80 GB of device memory
 HBM_BW = 3.35e12                 # B/s
@@ -91,16 +105,148 @@ def make_fleet_mesh(n_devices: Optional[int] = None, axis: str = "study",
     return Mesh([torch.device("cuda", i) for i in range(n)], (axis,))
 
 
-def _no_mesh(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: the LM's meshes are the LM half of ROADMAP queue A "
-            f"item 9b")
-    fn.__name__ = name
-    fn.__doc__ = f"Raises: {name} waits for ROADMAP queue A item 9b."
-    return fn
+def collective_backend(device=None, local_world: Optional[int] = None
+                       ) -> str:
+    """The backend a layout takes: "gloo" on the CPU and where more ranks
+    of this host share its cards than it has cards (``local_world``:
+    ``LOCAL_WORLD_SIZE``, else ``WORLD_SIZE``), "nccl" with one rank a
+    card at most.  Never chosen by catching a failure."""
+    kind = torch.device("cuda" if device is None else device).type
+    if kind == "cpu":
+        return "gloo"
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' for a "
+                           "mesh of the CPU")
+    if local_world is None:
+        local_world = int(os.environ.get(
+            "LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
+    return "nccl" if local_world <= torch.cuda.device_count() else "gloo"
 
 
-make_production_mesh = _no_mesh("make_production_mesh")
-make_smoke_mesh = _no_mesh("make_smoke_mesh")
-use_mesh = _no_mesh("use_mesh")
+def rank_device(device=None) -> torch.device:
+    """This rank's device: ``cuda:(LOCAL_RANK % cards)`` (made current),
+    or the CPU when asked with ``device="cpu"``; raises without CUDA
+    otherwise, never falling back to the CPU."""
+    kind = torch.device("cuda" if device is None else device).type
+    if kind == "cpu":
+        return torch.device("cpu")
+    if kind != "cuda":
+        raise ValueError(f"a mesh over {kind!r} devices: use 'cuda' or "
+                         f"'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' for a "
+                           "mesh of the CPU")
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    idx = local % torch.cuda.device_count()
+    torch.cuda.set_device(idx)
+    return torch.device("cuda", idx)
+
+
+class ProcessMesh:
+    """The ranks of the initialized ``torch.distributed`` world laid out
+    row-major over ``shape`` with ``axis_names``; this process is rank
+    ``rank`` at ``coords`` (axis → index) on ``device``.  ``groups[a]``
+    is the process group of the ranks that differ from this one along
+    axis ``a`` only (an axis of one rank has none).  Every rank builds
+    every group, in the same order, members or not, as ``new_group``
+    asks; a rank that skipped one would hang the others."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 device=None):
+        if not dist.is_initialized():
+            raise RuntimeError("a process mesh needs an initialized process "
+                               "group (torch.distributed.init_process_group)")
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axis_names)
+        if len(self.shape) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} over axes "
+                             f"{self.axis_names}")
+        world = dist.get_world_size()
+        if math.prod(self.shape) != world:
+            raise ValueError(f"mesh shape {self.shape} needs "
+                             f"{math.prod(self.shape)} ranks; the world "
+                             f"has {world}")
+        self.rank = dist.get_rank()
+        self.backend = str(dist.get_backend())
+        self.device = rank_device(device)
+        flat = list(itertools.product(*(range(s) for s in self.shape)))
+        self.coords: Dict[str, int] = dict(zip(self.axis_names,
+                                               flat[self.rank]))
+        self.groups: Dict[str, object] = {}
+        self.members: Dict[str, Tuple[int, ...]] = {}
+        for i, a in enumerate(self.axis_names):
+            if self.shape[i] == 1:
+                continue
+            rest = [range(s) if j != i else range(1)
+                    for j, s in enumerate(self.shape)]
+            for base in itertools.product(*rest):
+                ranks = []
+                for k in range(self.shape[i]):
+                    c = list(base)
+                    c[i] = k
+                    ranks.append(flat.index(tuple(c)))
+                group = dist.new_group(ranks)
+                if self.rank in ranks:
+                    self.groups[a], self.members[a] = group, tuple(ranks)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def axis_sizes(self) -> Tuple[int, ...]:
+        return self.shape
+
+    @property
+    def empty(self) -> bool:
+        return False
+
+    def axis_size(self, axis: str) -> int:
+        """Ranks along ``axis``; 1 for an axis the mesh lacks."""
+        return self.sizes.get(axis, 1)
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh(shape={self.shape}, axes={self.axis_names}, "
+                f"rank={self.rank}, coords={self.coords}, "
+                f"device={self.device}, backend={self.backend})")
+
+
+def make_smoke_mesh(shape=(2, 2), axes=("data", "model"), device=None
+                    ) -> ProcessMesh:
+    """A mesh of ``shape`` over ``axes`` spanning the whole initialized
+    world (whose size must be ``prod(shape)``): the smoke and test
+    meshes, on the card (one device a rank, ``cuda:(LOCAL_RANK %
+    cards)``) or, with ``device="cpu"``, on the CPU."""
+    return ProcessMesh(shape, axes, device)
+
+
+def make_production_mesh(multi_pod: bool = False, device=None
+                         ) -> ProcessMesh:
+    """The reference's layouts: one pod (16, 16) over ("data", "model"),
+    256 ranks; multi-pod (2, 16, 16) over ("pod", "data", "model"), 512
+    ranks, "pod" extending data parallelism.  Raises a ValueError naming
+    the world's size on any other world."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = dist.get_world_size() if dist.is_initialized() else None
+    if world != math.prod(shape):
+        raise ValueError(f"make_production_mesh(multi_pod={multi_pod}) "
+                         f"needs a world of {math.prod(shape)} ranks; it "
+                         f"has {world}")
+    return ProcessMesh(shape, axes, device)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[ProcessMesh]):
+    """Install ``mesh`` as the ambient mesh for the block (None: no
+    mesh), the counterpart of ``jax.set_mesh``; every thread of the
+    process sees it (autograd's device threads included)."""
+    outer, _MESH[0] = _MESH[0], mesh
+    try:
+        yield mesh
+    finally:
+        _MESH[0] = outer

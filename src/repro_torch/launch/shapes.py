@@ -8,7 +8,8 @@ gives the step the cell runs and its arguments as meta tensors, which
 ``launch/dryrun.py`` turns into a record.  The reference's shardings,
 output layouts and donation place a step on a mesh; on one card there
 is nothing to place or alias, so the port returns the step and its
-arguments alone, and a mesh raises (ROADMAP queue A item 9b).
+arguments alone.  A mesh raises: a cell's shardings and the collective
+bytes its count needs are ROADMAP queue A item 9b.
 
 Cell eligibility as in the reference: ``long_500k`` needs sub-quadratic
 decode (the hybrid and ssm families); full-attention archs skip it.
@@ -119,8 +120,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeCell, *,
     ``decode_step`` over (params, tokens (B, 1), cache, position)."""
     if mesh is not None:
         raise NotImplementedError(
-            "build_cell(mesh=): the port runs on one card; meshes are "
-            "ROADMAP queue A item 9b")
+            "build_cell(mesh=): a cell's shardings and collective bytes "
+            "are ROADMAP queue A item 9b")
     ok, why = cell_supported(cfg, shape)
     if not ok:
         raise ValueError(f"{cfg.name} × {shape.name}: {why}")

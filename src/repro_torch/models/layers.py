@@ -13,6 +13,20 @@ and without the KV cache.  Cache writes happen in place.
 :func:`attention_xla` is the reference's plain masked attention in torch
 (C9's rule: a query that sees no key gets the mean of v); the tests hold
 the kernels' path against it, and no path of the port calls it.
+
+On a ("data", "model") mesh (``launch/mesh.py::use_mesh``) the layers
+are tensor-parallel over "model", as the reference's logical axes place
+them: ``wq``/``wk``/``wv`` column-parallel by heads and kv_heads (K6 and
+K7 run on each rank's own heads), ``wo`` row-parallel; ``w_up``/
+``w_gate`` column-parallel by "ff", ``w_down`` row-parallel; ``tok``
+split by vocabulary rows and ``head`` by vocabulary columns (each rank
+computes its slice of the logits).  Megatron's *f*
+(``collectives.copy_to``) sits at the input of each column-parallel
+product and *g* (``collectives.reduce_from``) after each row-parallel
+one and after the embedding lookup; without a mesh both are the
+identity and nothing is issued.  Where kv_heads do not divide "model"
+the reference shards the cache's head dim and partial-sums the scores;
+K6 takes no partial scores, so that raises (ROADMAP queue A item 9b).
 """
 from __future__ import annotations
 
@@ -22,6 +36,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import constrain, get_abstract_mesh
 from repro_torch.kernels.flash.kernel import attention
 from repro_torch.models.config import ModelConfig
 
@@ -193,8 +209,17 @@ def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     if None).
     """
     b, s, _ = x.shape
-    q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
+    mesh = get_abstract_mesh()
+    if mesh is not None and cfg.n_kv_heads % mesh.axis_size("model"):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_kv_heads} kv_heads do not divide the "
+            f"model axis ({mesh.axis_size('model')}); the head-dim-sharded "
+            f"cache this needs is ROADMAP queue A item 9b")
+    x = C.copy_to(x, "model")
+    q = constrain(_project(x, p["wq"]), "batch", None, "heads", None,
+                  shape=(None, None, cfg.n_heads, cfg.head_dim))
+    k = constrain(_project(x, p["wk"]), "batch", None, "kv_heads", None,
+                  shape=(None, None, cfg.n_kv_heads, cfg.head_dim))
     v = _project(x, p["wv"])
     if cfg.qk_norm:
         q = _qk_normalize(q, p["q_norm"])
@@ -237,7 +262,7 @@ def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
 
     wo = p["wo"]
     y = out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
-    return y, cache
+    return C.reduce_from(y, "model"), cache
 
 
 def _attend_block(qg: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
@@ -342,13 +367,15 @@ def _gelu(x: Tensor) -> Tensor:
 
 
 def apply_mlp(p: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    x = C.copy_to(x, "model")
     h = x @ p["w_up"]
     if cfg.activation in ("swiglu", "geglu"):
         g = x @ p["w_gate"]
         h = (F.silu(g) if cfg.activation == "swiglu" else _gelu(g)) * h
     else:
         h = _gelu(h)
-    return h @ p["w_down"]
+    h = constrain(h, "batch", None, "ff", shape=(None, None, cfg.d_ff))
+    return C.reduce_from(h @ p["w_down"], "model")
 
 
 # ---------------------------------------------------------------------------
@@ -367,10 +394,31 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
+def vocab_range(v_local: int, mesh=None) -> Tuple[int, int]:
+    """[first, end) of the vocabulary rows this rank holds when the
+    vocabulary (``v_local`` rows a rank) splits over "model"."""
+    mesh = get_abstract_mesh() if mesh is None else mesh
+    first = 0 if mesh is None else mesh.coords.get("model", 0) * v_local
+    return first, first + v_local
+
+
 def embed_tokens(p: Params, tokens: Tensor) -> Tensor:
-    return p["tok"][tokens]
+    """Token rows of ``tok``.  On a mesh split over "model", each rank
+    looks up the tokens in its vocabulary rows, zeroes the others, and
+    *g* sums the ranks' rows."""
+    tok = p["tok"]
+    mesh = get_abstract_mesh()
+    if mesh is None or mesh.axis_size("model") == 1:
+        return tok[tokens]
+    first, end = vocab_range(tok.shape[0], mesh)
+    ids = tokens.long() - first
+    mine = (ids >= 0) & (ids < tok.shape[0])
+    rows = tok[ids.clamp(0, tok.shape[0] - 1)]
+    return C.reduce_from(rows.masked_fill(~mine[..., None], 0), "model")
 
 
 def lm_logits(p: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    """The vocabulary head's logits; on a mesh this rank's vocabulary
+    columns (B, S, V/model), after *f*."""
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
-    return x @ w
+    return C.copy_to(x, "model") @ w

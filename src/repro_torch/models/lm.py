@@ -41,10 +41,22 @@ W) float32) and ``attn``, a ring of min(max_len, window) slots, and
 = (conv (G, M, B, K−1, up), (C (G, M, B, H, dk, dv), n, m)) and ``slstm``
 = (c, n, h, m) (G, B, d), the cell states float32.  Every step writes
 into it in place (JAX threads it through a scan carry that XLA aliases).
+
+On a ("data", "model") mesh (``launch/mesh.py::use_mesh``; the dense
+family) every rank holds its slice of each leaf, as
+:func:`param_axes`' logical axes place it (``distributed/sharding.py::
+shard_tree``), and its rows of every batch (the "batch" axis splits
+over "data"): ``forward`` runs the layers tensor-parallel over "model"
+(``models/layers.py``), :func:`cross_entropy` is the reference's
+vocab-sharded loss (the full logits are never gathered) and returns the
+global batch's mean on every rank, ``init_cache`` allocates this rank's
+rows and kv_heads, and ``decode_step`` returns its rows' logits over the
+whole vocabulary (gathered over "model").  Off a mesh nothing changes.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
@@ -52,6 +64,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import data_axes, get_abstract_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
@@ -186,6 +200,145 @@ def per_layer(params: Dict[str, Any], keys=STACKS) -> Dict[str, Any]:
         out["groups"] = [dict(g, mlstm=unstack_layers(g["mlstm"]))
                          for g in unstack_layers(out["groups"])]
     return out
+
+
+# ---------------------------------------------------------------------------
+# logical axes (the reference's box(...) annotations)
+# ---------------------------------------------------------------------------
+
+def _norm_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    p = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        p["bias"] = ("embed",)
+    return p
+
+
+def _attention_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    p = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", "head"),
+         "wv": ("embed", "kv_heads", "head"), "wo": ("heads", None, "embed")}
+    if cfg.qk_norm:
+        p["q_norm"] = p["k_norm"] = (None,)
+    return p
+
+
+def _mlp_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    p = {"w_up": ("embed", "ff"), "w_down": ("ff", "embed")}
+    if cfg.activation in ("swiglu", "geglu"):
+        p["w_gate"] = ("embed", "ff")
+    return p
+
+
+_MOE_AXES = {"router": ("embed", None), "w_up": ("experts", "embed", None),
+             "w_gate": ("experts", "embed", None),
+             "w_down": ("experts", None, "embed")}
+_REC_AXES = {"w_gate_in": ("embed", "lru"), "w_rec_in": ("embed", "lru"),
+             "w_out": ("lru", "embed"), "conv_w": (None, "lru"),
+             "conv_b": ("lru",), "w_input_gate": ("lru", None),
+             "w_rec_gate": ("lru", None), "lambda_param": ("lru",)}
+_MLSTM_AXES = {"w_up": ("embed", "lru"), "w_gate": ("embed", "lru"),
+               "conv_w": (None, "lru"), "conv_b": ("lru",),
+               "w_q": ("lru", "heads", None), "w_k": ("lru", "heads", None),
+               "w_if": ("lru", "heads", None), "w_down": ("lru", "embed"),
+               "skip_scale": ("lru",)}
+_SLSTM_AXES = {"w_in": ("embed", "lru"), "w_out": ("embed", None),
+               **{k: ("heads", None, None)
+                  for k in ("r_z", "r_i", "r_f", "r_o")}}
+
+
+def _lead(tree):
+    """``tree``'s axes with a stacking axis (None) in front."""
+    if isinstance(tree, dict):
+        return {k: _lead(v) for k, v in tree.items()}
+    return (None,) + tree
+
+
+def _unlead(tree, count: int):
+    """``count`` per-layer copies of a stacked axes tree."""
+    if isinstance(tree, dict):
+        parts = {k: _unlead(v, count) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(count)]
+    return [tree[1:]] * count
+
+
+def param_axes(cfg: ModelConfig, stacked: bool = True) -> Dict[str, Any]:
+    """The logical axes of every leaf of ``init_params(cfg, stacked=)``
+    (whisper's for the encoder-decoder): the reference's ``box(...)``
+    names, None for each stacked layer axis; stacked, the tree
+    ``repro.distributed.sharding.boxed_axes`` gives of the reference's
+    parameters."""
+    emb = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        emb["head"] = ("embed", "vocab")
+    norm, attn, mlp = _norm_axes(cfg), _attention_axes(cfg), _mlp_axes(cfg)
+    tree: Dict[str, Any] = {"embed": emb, "final_norm": norm}
+
+    def rg(kind):
+        p = {"mix_norm": norm, "mlp_norm": norm, "mlp": mlp}
+        p["attn" if kind == "attn" else "rec"] = (
+            attn if kind == "attn" else _REC_AXES)
+        return _lead(p)
+
+    if cfg.family == "encdec":
+        tree["enc_norm"] = norm
+        tree["enc"] = _lead({"attn_norm": norm, "attn": attn,
+                             "mlp_norm": norm, "mlp": mlp})
+        tree["dec"] = _lead({"self_norm": norm, "self_attn": attn,
+                             "cross_norm": norm, "cross_attn": attn,
+                             "mlp_norm": norm, "mlp": mlp})
+        counts = {"enc": cfg.n_enc_layers, "dec": cfg.n_dec_layers}
+    elif cfg.family == "ssm":
+        n_groups, n_m = ssm_layout(cfg)
+        tree["groups"] = _lead({"mlstm": _lead(_MLSTM_AXES),
+                                "slstm": _SLSTM_AXES})
+        counts = {"groups": n_groups}
+    elif cfg.family == "hybrid":
+        n_triples, n_tail = hybrid_layout(cfg)
+        tree["triples"] = {"rec1": rg("rec"), "rec2": rg("rec"),
+                           "attn": rg("attn")}
+        counts = {"triples": n_triples}
+        if n_tail:
+            tree["tail"] = rg("rec")
+            counts["tail"] = n_tail
+    else:
+        _require_served(cfg)
+        block = {"attn_norm": norm, "attn": attn, "mlp_norm": norm}
+        block["moe" if cfg.is_moe else "mlp"] = (
+            _MOE_AXES if cfg.is_moe else mlp)
+        tree["blocks"] = _lead(block)
+        counts = {"blocks": cfg.n_layers}
+    if not stacked:
+        for key, n in counts.items():
+            tree[key] = _unlead(tree[key], n)
+        if cfg.family == "ssm":
+            tree["groups"] = [dict(g, mlstm=_unlead(g["mlstm"], n_m))
+                              for g in tree["groups"]]
+    return tree
+
+
+def mesh_for(cfg: ModelConfig):
+    """The ambient mesh, checked for ``cfg`` (None without one): only the
+    dense family runs on a mesh (the others wait for ROADMAP queue A item
+    9b), and heads, kv_heads, d_ff and the vocabulary must divide the
+    model axis (kv_heads that do not need the head-dim-sharded cache of
+    item 9b)."""
+    mesh = get_abstract_mesh()
+    if mesh is None:
+        return None
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family on a mesh waits for "
+            f"ROADMAP queue A item 9b")
+    m = mesh.axis_size("model")
+    if cfg.n_kv_heads % m:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_kv_heads} kv_heads do not divide the model "
+            f"axis ({m}); the head-dim-sharded cache this needs is ROADMAP "
+            f"queue A item 9b")
+    for name in ("n_heads", "d_ff", "vocab_size"):
+        if getattr(cfg, name) % m:
+            raise ValueError(f"{cfg.name}: {name}={getattr(cfg, name)} does "
+                             f"not divide the model axis ({m})")
+    return mesh
 
 
 def tensors(tree: Tree) -> Iterator[Tensor]:
@@ -405,6 +558,7 @@ def forward(params, cfg: ModelConfig, tokens: Optional[Tensor],
     (B, S, D) replaces the token lookup (stub frontends).  On CUDA each
     attention layer is one K6 launch."""
     _require_served(cfg)
+    mesh_for(cfg)
     x = L.embed_tokens(params["embed"], tokens) if embeddings is None \
         else embeddings
     b, s = x.shape[:2]
@@ -425,12 +579,39 @@ def cross_entropy(params, cfg: ModelConfig, hidden: Tensor,
     shifted by the row's max (detached, as the reference's
     ``stop_gradient``), minus the target's logit.  The target's logit is a
     ``gather``, which equals the reference's one-hot sum exactly (every
-    other term is 0·logit = 0) and saves a (B, S, V) float32 tensor."""
+    other term is 0·logit = 0) and saves a (B, S, V) float32 tensor.
+
+    On a mesh (the reference's vocab-sharded loss): the logits are this
+    rank's vocabulary columns and rows; the detached row max is
+    all-reduced with MAX over "model", Σexp and the target's logit (its
+    owner's; 0 from the other ranks) with SUM (*g*), so the full logits
+    are never gathered; the mean over the global batch is each rank's
+    sum over the global count, summed over the batch's axes by *g*:
+    every rank returns the same loss, and its gradient is this rank's
+    rows' share (the train step sums the ranks' gradients)."""
     logits = L.lm_logits(params["embed"], cfg, hidden).float()
-    lmax = logits.amax(-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(logits - lmax).sum(-1)) + lmax[..., 0]
-    true_logit = logits.gather(-1, targets[..., None].long())[..., 0]
-    return (lse - true_logit).mean()
+    mesh = get_abstract_mesh()
+    if mesh is None:
+        lmax = logits.amax(-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(logits - lmax).sum(-1)) + lmax[..., 0]
+        true_logit = logits.gather(-1, targets[..., None].long())[..., 0]
+        return (lse - true_logit).mean()
+    lmax = C.all_reduce(logits.amax(-1, keepdim=True).detach(), "model",
+                        op="max")
+    lse = torch.log(C.reduce_from(torch.exp(logits - lmax).sum(-1),
+                                  "model")) + lmax[..., 0]
+    first, _ = L.vocab_range(logits.shape[-1], mesh)
+    ids = targets.long() - first
+    mine = (ids >= 0) & (ids < logits.shape[-1])
+    own = logits.gather(-1, ids.clamp(0, logits.shape[-1] - 1)[..., None])
+    true_logit = C.reduce_from(own[..., 0].masked_fill(~mine, 0.0),
+                               "model")
+    axes = data_axes(mesh)
+    count = lse.numel() * math.prod(mesh.axis_size(a) for a in axes)
+    loss = (lse - true_logit).sum() / count
+    for a in axes:
+        loss = C.reduce_from(loss, a)
+    return loss
 
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Tensor]) -> Tensor:
@@ -452,9 +633,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None
     recurrent states as the reference's init: 0, but the mLSTM ``m``
     −1e30 and the sLSTM ``n`` 1), on ``device``: ``None`` means the card,
     as at every entry point (``repro_torch.resolve_device``), so pass
-    ``device="cpu"`` on the CPU."""
+    ``device="cpu"`` on the CPU.
+
+    On a mesh ``batch`` is the global batch: the cache holds this rank's
+    rows (``batch`` over the "data" ranks) and kv_heads (over "model"),
+    on the mesh's device unless ``device`` says otherwise."""
     _require_served(cfg)
-    dtype, dev = torch_dtype(cfg), resolve_device(device)
+    mesh = mesh_for(cfg)
+    dtype = torch_dtype(cfg)
+    if mesh is not None:
+        rows = math.prod(mesh.axis_size(a) for a in data_axes(mesh))
+        if batch % rows:
+            raise ValueError(f"a batch of {batch} does not split over "
+                             f"{rows} data ranks")
+        dev = mesh.device if device is None else resolve_device(device)
+        local = cfg.replace(n_kv_heads=cfg.n_kv_heads
+                            // mesh.axis_size("model"))
+        return L.init_attn_cache(local, batch // rows, max_len, dtype,
+                                 lead=(cfg.n_layers,), device=dev)
+    dev = resolve_device(device)
     if cfg.family == "ssm":
         n_groups, n_m = ssm_layout(cfg)
         return {"groups": {
@@ -506,8 +703,11 @@ def decode_step(params, cfg: ModelConfig, tokens: Tensor,
     row's index of this token (the vector form is continuous batching; a
     row at −1 is idle: its attention writes go to the trash slot, and its
     recurrent states advance on its token as in the reference).  Writes
-    the cache in place and returns (logits (B, V), the same cache)."""
+    the cache in place and returns (logits (B, V), the same cache).  On
+    a mesh, ``tokens`` and ``position`` are this rank's rows, and so are
+    the logits, over the whole vocabulary."""
     _require_served(cfg)
+    mesh_for(cfg)
     x = L.embed_tokens(params["embed"], tokens)
     b = x.shape[0]
     pos = torch.as_tensor(position, dtype=torch.int32, device=x.device)
@@ -518,4 +718,5 @@ def decode_step(params, cfg: ModelConfig, tokens: Tensor,
     index = position if isinstance(position, int) else pos
     x, _ = _run_layers(params, cfg, x, positions.contiguous(), cache, index)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    return L.lm_logits(params["embed"], cfg, x)[:, 0, :], cache
+    logits = L.lm_logits(params["embed"], cfg, x)[:, 0, :]
+    return C.all_gather(logits, "model", dim=-1), cache

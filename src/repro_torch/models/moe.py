@@ -1,6 +1,7 @@
-"""Mixture-of-Experts block: top-k routing and GShard capacity dispatch.
+"""Mixture-of-Experts block: top-k routing and GShard capacity dispatch,
+with expert parallelism over a mesh's "model" axis.
 
-Counterpart of the local (no mesh) path of ``repro/models/moe.py``: every
+Counterpart of ``repro/models/moe.py``.  The local path holds every
 expert's weights on one device, tokens gathered into an (E, C, D)
 capacity buffer, the experts' SwiGLU FFN as three batched products over
 all E experts (the reference's einsums), the outputs combined back to
@@ -15,7 +16,16 @@ toward the lower expert index (``lax.top_k``'s order) by a stable
 descending sort; the combine adds a token's k contributions in k order in
 the model dtype (the reference's scatter-add order, zero for a dropped
 pair), with no atomics, so a row's output is the same run to run.
-Expert parallelism over a mesh is ROADMAP queue A item 9b.
+
+On a mesh (``apply_moe(mesh=)``) each rank holds E/model experts (the
+"experts" axis over "model") and its rows of the batch (over "data"),
+replicated over "model" as the tensor-parallel layers leave them: it
+routes its own tokens to its own experts, with the capacity of the rows
+it holds, and one all-reduce over "model" (*g*) combines the ranks'
+parts; the aux loss is its mean over "model".  No all-to-all is needed.
+Under autograd *f* (``collectives.copy_to``) sums over "model" the
+gradients of the tokens and of the replicated router, each rank's part
+coming from its own experts' gates.
 """
 from __future__ import annotations
 
@@ -25,6 +35,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dense_init, draw_device
 
@@ -116,15 +128,30 @@ def _local_moe(x_flat: Tensor, router_w: Tensor, w_up: Tensor,
 
 def apply_moe(p: Dict[str, Tensor], cfg: ModelConfig, x: Tensor,
               mesh=None) -> Tuple[Tensor, Tensor]:
-    """x: (B, S, D) → (y (B, S, D), aux loss), every expert local."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert parallelism over a mesh waits for ROADMAP queue A "
-            "item 9b")
+    """x: (B, S, D) → (y (B, S, D), aux loss).  Without ``mesh`` (or on
+    one with no "model" axis) every expert is local; on ``mesh`` the
+    experts ``p["w_*"]`` are this rank's E/model, ``x`` its rows, and
+    the capacity is that of those rows.  E not divisible by the model
+    axis raises the reference's ValueError."""
     b, s, d = x.shape
     k, E = cfg.experts_per_token, cfg.n_experts
     cap = max(int(math.ceil(b * s * k / E * cfg.moe_capacity_factor)), 1)
-    y, aux = _local_moe(x.reshape(b * s, d), p["router"], p["w_up"],
+    if mesh is None or "model" not in mesh.axis_names:
+        y, aux = _local_moe(x.reshape(b * s, d), p["router"], p["w_up"],
+                            p["w_gate"], p["w_down"], k=k,
+                            n_experts_global=E, e_start=0, capacity=cap)
+        return y.reshape(b, s, d), aux
+    m = mesh.axis_size("model")
+    if E % m:
+        raise ValueError(f"n_experts={E} not divisible by model={m}")
+    e_loc = E // m
+    w_up = constrain(p["w_up"], "experts", None, None, shape=(E, None, None),
+                     mesh=mesh)
+    x = C.copy_to(x, "model", mesh)
+    y, aux = _local_moe(x.reshape(b * s, d),
+                        C.copy_to(p["router"], "model", mesh), w_up,
                         p["w_gate"], p["w_down"], k=k, n_experts_global=E,
-                        e_start=0, capacity=cap)
+                        e_start=mesh.coords["model"] * e_loc, capacity=cap)
+    y = C.reduce_from(y, "model", mesh)
+    aux = C.reduce_from(aux, "model", mesh) / m
     return y.reshape(b, s, d), aux

@@ -21,7 +21,8 @@ cross-entropy); under autograd every K6 call's backward is K7.  When a
 gradient is taken and ``cfg.remat`` is not "none", each encoder and
 decoder layer body runs under ``torch.utils.checkpoint`` ("dots" is plain
 checkpointing here, as in the reference), so its K6 calls run again in
-the backward.
+the backward.  The encoder-decoder does not run on a mesh yet: with an
+ambient one each entry point raises (ROADMAP queue A item 9b).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import require_no_mesh
 from repro_torch.kernels.flash.kernel import attention
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -123,6 +125,7 @@ def _enc_layer(p, cfg: ModelConfig, x: Tensor, pos: Tensor) -> Tensor:
 
 def encode(params, cfg: ModelConfig, frames: Tensor) -> Tensor:
     """frames: (B, S_enc, D) stub embeddings → encoder hidden states."""
+    require_no_mesh("the encoder-decoder")
     b, s, d = frames.shape
     dt = torch_dtype(cfg)
     pos = _positions(b, s, frames.device)
@@ -148,6 +151,7 @@ def _dec_layer(p, cfg: ModelConfig, x: Tensor, pos: Tensor,
 def decode_train(params, cfg: ModelConfig, enc_out: Tensor,
                  tokens: Tensor) -> Tensor:
     """Teacher-forced decoder pass → final hidden (B, S_dec, D)."""
+    require_no_mesh("the encoder-decoder")
     b, s = tokens.shape
     pos = _positions(b, s, tokens.device)
     x = L.embed_tokens(params["embed"], tokens)
@@ -178,6 +182,7 @@ def init_cache(params, cfg: ModelConfig, enc_out: Tensor, batch: int,
     self-attention KV cache (``k``/``v`` (L, B, max_len, KH, hd), ``pos``
     (L, B, max_len), all slots empty), ``cross``, every layer's encoder
     K/V (``k``/``v`` (L, B, S_enc, KH, hd)), and ``enc_pos`` (B, S_enc)."""
+    require_no_mesh("the encoder-decoder")
     self_cache = L.init_attn_cache(cfg, batch, max_len, torch_dtype(cfg),
                                    lead=(cfg.n_dec_layers,),
                                    device=resolve_device(device))
@@ -201,6 +206,7 @@ def decode_step(params, cfg: ModelConfig, tokens: Tensor, cache,
                 position: int) -> Tuple[Tensor, Any]:
     """One decoder step, every row at the same ``position``.  tokens:
     (B, 1) → (logits (B, V), the same cache, written in place)."""
+    require_no_mesh("the encoder-decoder")
     b = tokens.shape[0]
     pos = torch.full((b, 1), int(position), dtype=torch.int32,
                      device=tokens.device)

@@ -13,6 +13,19 @@ float32 otherwise.  Without microbatches the gradients stay in the
 parameters' dtype (bfloat16 under compression) and the update casts each
 leaf to float32 in its turn: the reference's float32 tree has the same
 values.
+
+On a ("data", "model") mesh (``launch/mesh.py::use_mesh``; the dense
+family, stacked parameters as ``lm.param_axes`` places them) the batch
+is the global batch, the same on every rank: each microbatch is the
+reference's (a reshape to (grad_accum, B/grad_accum)), and each "data"
+rank takes its rows of it.  The layers run tensor-parallel over "model"
+and the loss is the microbatch's global mean on every rank; each
+microbatch's gradients are reduced over "data" once, by
+``reduce_scatter`` into the ZeRO slice with ``shard_grads`` (the
+accumulator then holds only that slice) and by ``all_reduce`` without
+it; under ``grad_compression="bf16"`` the tensors handed to the
+collective and the accumulator are bfloat16.  ``apply_updates`` then
+runs ZeRO-1.
 """
 from __future__ import annotations
 
@@ -20,10 +33,12 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import data_axes, get_abstract_mesh
 from repro_torch.models import lm
 from repro_torch.models import whisper as wh
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optim import (AdamState, OptimConfig, apply_updates,
+                                     constrain_grads_zero1, reduce_grads,
                                      tree_leaves, tree_map)
 
 Tensor = torch.Tensor
@@ -71,23 +86,45 @@ def compute_grads(params, cfg: ModelConfig, batch, *, grad_accum: int = 1,
                   compression: str = "none", shard_grads: bool = True):
     """(loss, grads) with optional microbatch accumulation: microbatch i
     is rows [i·B/grad_accum, (i+1)·B/grad_accum) of every batch entry, as
-    the reference's reshape.  ``shard_grads`` acts on a mesh only."""
-    if grad_accum <= 1:
-        loss, grads = _value_and_grad(params, cfg, batch)
-        return loss, _cast_grads(grads, compression)
+    the reference's reshape, and a "data" rank takes its share of those
+    rows (off a mesh: one rank, all of them).  ``shard_grads`` acts on a
+    mesh only (see the module's docstring)."""
+    mesh = get_abstract_mesh()
+    if mesh is not None:
+        mesh = lm.mesh_for(cfg)
+        if not isinstance(params.get("blocks"), dict):
+            raise ValueError("on a mesh the train step takes stacked "
+                             "parameters (lm.init_params(stacked=True))")
+        axes = lm.param_axes(cfg)
+    shards, idx = 1, 0
+    for a in (() if mesh is None else data_axes(mesh)):
+        shards, idx = (shards * mesh.axis_size(a),
+                       idx * mesh.axis_size(a) + mesh.coords[a])
     rows = next(iter(batch.values())).shape[0]
-    if rows % grad_accum:
-        raise ValueError(f"batch of {rows} rows does not split into "
-                         f"{grad_accum} microbatches")
-    mb = rows // grad_accum
-    acc = accumulator(params, compression)
-    lsum = None
-    for i in range(grad_accum):
-        micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+    ga = max(grad_accum, 1)
+    if rows % (ga * shards):
+        raise ValueError(f"batch of {rows} rows does not split into {ga} "
+                         f"microbatches over {shards} data ranks")
+    mb = rows // ga
+    mine = mb // shards
+    acc = lsum = None
+    for i in range(ga):
+        lo = i * mb + idx * mine
+        micro = {k: v[lo:lo + mine] for k, v in batch.items()}
+        if mesh is not None:
+            micro = {k: v.to(mesh.device) for k, v in micro.items()}
         loss, grads = _value_and_grad(params, cfg, micro)
-        accumulate(acc, _cast_grads(grads, compression), grad_accum)
+        grads = _cast_grads(grads, compression)
+        if mesh is not None:
+            grads = (constrain_grads_zero1(grads, mesh, axes) if shard_grads
+                     else reduce_grads(grads, mesh))
+        if ga == 1:
+            return loss, grads
+        if acc is None:
+            acc = accumulator(grads, compression)
+        accumulate(acc, grads, ga)
         del grads
-        part = loss / grad_accum
+        part = loss / ga
         lsum = part if lsum is None else lsum + part
     return lsum, acc
 
@@ -101,8 +138,9 @@ def train_step(params, opt_state: AdamState, batch, *, cfg: ModelConfig,
     loss, grads = compute_grads(params, cfg, batch, grad_accum=grad_accum,
                                 compression=opt_cfg.grad_compression,
                                 shard_grads=opt_cfg.shard_grads)
+    axes = None if get_abstract_mesh() is None else lm.param_axes(cfg)
     new_params, new_state, metrics = apply_updates(params, grads,
-                                                   opt_state, opt_cfg)
+                                                   opt_state, opt_cfg, axes)
     return new_params, new_state, dict(metrics, loss=loss)
 
 

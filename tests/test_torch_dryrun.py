@@ -47,6 +47,7 @@ from repro.launch.mesh import make_smoke_mesh, use_mesh  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash import cost as FC  # noqa: E402
 from repro_torch.kernels.flash.ref import position_mask  # noqa: E402
+from repro_torch.distributed.sharding import get_abstract_mesh  # noqa: E402
 from repro_torch.launch import dryrun, mesh  # noqa: E402
 from repro_torch.kernels.flash import kernel as FK  # noqa: E402
 from repro_torch.launch import hlo_cost  # noqa: E402
@@ -202,10 +203,14 @@ def test_cli_writes_one_json_a_cell_and_refuses_a_mesh(tmp_path):
     assert rec["memory"]["cache_bytes"] > 0 and rec["k7_calls"] == 0
     with pytest.raises(NotImplementedError, match="9b"):
         dryrun.main(["--sweep", "--mesh", "multi", "--out", str(tmp_path)])
-    for fn in (mesh.make_production_mesh, mesh.make_smoke_mesh,
-               mesh.use_mesh):
-        with pytest.raises(NotImplementedError, match="9b"):
-            fn()
+    # the LM's meshes are ported: they need an initialized process group
+    # (never falling back), and use_mesh installs the ambient mesh
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        mesh.make_smoke_mesh(device="cpu")
+    with pytest.raises(ValueError, match="256 ranks"):
+        mesh.make_production_mesh()
+    with mesh.use_mesh(None) as m:
+        assert m is None and get_abstract_mesh() is None
     # the fleet's mesh is ported: CPU entries only when asked for, and
     # never more cards than are visible
     assert mesh.make_fleet_mesh(3, device="cpu").devices == \

@@ -53,6 +53,8 @@ TRAIN_K7_PATHS = {
     "no visible key: window 0, causal": "fma",
     "bf16 hd 128 ragged S=300 window 128 G=3": "mma",
     "bf16 hd 64 no visible key: window 0, causal": "mma",
+    "mesh (b): llama3.2-3b TP=2 B=4 S=512": "mma",
+    "mesh (a): reduced llama f32 on (2, 2) B=1 S=16": "fma",
 }
 
 

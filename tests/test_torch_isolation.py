@@ -1,6 +1,6 @@
 """The port stands alone: ``repro_torch``, ``chip_smoke.py``,
-``flash_ab.py``, ``gram_ab.py``, ``kvp_ab.py``, ``fleet_bits_probe.py``
-and the example twins ``examples/*_torch.py`` import neither jax nor
+``flash_ab.py``, ``gram_ab.py``, ``kvp_ab.py``, ``fleet_bits_probe.py``,
+``lm_mesh_timing.py``, ``smoke_phase_split.py`` and the example twins ``examples/*_torch.py`` import neither jax nor
 anything of the JAX package ``repro``."""
 import glob
 import os
@@ -22,7 +22,8 @@ TWINS = sorted(glob.glob(os.path.join(REPO, "examples", "*_torch.py")))
 def _sources():
     files = [os.path.join(REPO, f)
              for f in ("chip_smoke.py", "flash_ab.py", "gram_ab.py",
-                       "kvp_ab.py", "fleet_bits_probe.py")] + TWINS
+                       "kvp_ab.py", "fleet_bits_probe.py",
+                       "lm_mesh_timing.py", "smoke_phase_split.py")] + TWINS
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, f) for f in names
                   if f.endswith((".py", ".cu", ".cuh"))]
@@ -40,7 +41,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             importlib.import_module(name)
         sys.path.insert(0, REPO)
         import chip_smoke, flash_ab, gram_ab, kvp_ab  # noqa: F401
-        import fleet_bits_probe  # noqa: F401
+        import fleet_bits_probe, lm_mesh_timing  # noqa: F401
+        import smoke_phase_split  # noqa: F401
         sys.path.insert(0, REPO + "/examples")
         twins = {[os.path.basename(f)[:-3] for f in TWINS]!r}
         for name in twins:

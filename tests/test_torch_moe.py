@@ -10,7 +10,11 @@ the same inputs drawn with numpy from a seed.
   0…k−1 with gates 1/k each;
 * bfloat16: y within 2e-2 of max|y| (the packages round SiLU and the
   combine at other places);
-* the mesh path raises, naming ROADMAP queue A item 9b.
+* expert parallelism (``apply_moe(mesh=)``) on a (1, 4) mesh of torch's
+  fake process group, one rank at a time: each rank's part (its 2 of 8
+  experts; the fake all-reduce does nothing) sums to the local path's y
+  within 1e-5 of max|y|, and E = 6 raises the reference's ValueError.
+  The spawned worlds of ``test_torch_lm_mesh.py`` check the all-reduce.
 """
 import jax
 import jax.numpy as jnp
@@ -24,7 +28,9 @@ from repro.distributed.sharding import unbox  # noqa: E402
 from repro.models import moe as JMOE  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import _lm_tensor  # noqa: E402
+from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from lm_mesh_ranks import fake_world  # noqa: E402
 
 ARCHS = ("qwen3_moe_30b_a3b", "dbrx_132b")
 B, S = 2, 16
@@ -97,6 +103,23 @@ def test_apply_moe_matches_jax_in_bfloat16(arch):
 
 
 def test_mesh_raises_naming_the_roadmap():
-    _, (cfg, p) = sides("qwen3_moe_30b_a3b", "float32", 1.25)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        MOE.apply_moe(p, cfg, torch.zeros(1, 1, cfg.d_model), mesh=object())
+    """The mesh path is ported (the name is kept from when it raised):
+    the four ranks' parts sum to the local path's output, each rank's
+    aux is the local aux over the model axis's 4 ranks (the fake
+    all-reduce adds nothing), and E = 6 on 4 ranks raises."""
+    _, (cfg, p) = sides("dbrx_132b", "float32", 100.0)
+    _, x = inputs(cfg.d_model, "float32")
+    want, want_aux = MOE.apply_moe(p, cfg, x)
+    total = torch.zeros_like(want)
+    for r in range(4):
+        with fake_world(r, 4):
+            mesh = make_smoke_mesh((1, 4), device="cpu")
+            mine = {k: v if k == "router" else v[2 * r:2 * r + 2]
+                    for k, v in p.items()}
+            y, aux = MOE.apply_moe(mine, cfg, x, mesh=mesh)
+            total += y
+            assert abs(float(aux) * 4 - float(want_aux)) <= 1e-6
+            with pytest.raises(ValueError, match="n_experts=6 not "
+                               "divisible by model=4"):
+                MOE.apply_moe(p, cfg.replace(n_experts=6), x, mesh=mesh)
+    assert (total - want).abs().max() <= 1e-5 * want.abs().max()

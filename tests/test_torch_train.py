@@ -38,7 +38,9 @@ from repro_torch.convert import (lm_params_from_numpy,  # noqa: E402
                                  opt_state_from_numpy)
 from repro_torch.data import synth  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
+from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
+from lm_mesh_ranks import fake_world  # noqa: E402
 
 B, S = 4, 32
 
@@ -169,8 +171,20 @@ def test_apply_updates_matches_jax(compression):
 
 
 def test_mesh_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        optim.constrain_grads_zero1({}, mesh=object())
+    """ZeRO-2's gradient reduction is ported (the name is kept from when a
+    mesh raised): off a mesh the identity; on a (2, 1) mesh of torch's
+    fake process group (whose reduction adds nothing) each rank keeps
+    the rows of its ZeRO slice, and a leaf no dim of which "data"
+    divides stays whole; ``zero1_pspec`` as the reference's."""
+    g = {"w": torch.arange(32.0).reshape(8, 4), "b": torch.ones(3)}
+    axes = {"w": ("embed", "ff"), "b": ("embed",)}
+    assert optim.constrain_grads_zero1(g) is g
+    for r in range(2):
+        with fake_world(r, 2):
+            out = optim.constrain_grads_zero1(
+                g, mesh=make_smoke_mesh((2, 1), device="cpu"), axes=axes)
+            assert torch.equal(out["w"], g["w"][4 * r:4 * r + 4])
+            assert torch.equal(out["b"], g["b"])
     assert optim.zero1_pspec((None, "model"), (8, 4), ("data", "model"),
                              {"data": 2, "model": 2}) == ("data", "model")
     assert optim.zero1_pspec((None,), (8,), ("model",), {"model": 2}) == \
