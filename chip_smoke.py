@@ -277,6 +277,31 @@ Slice 13 adds, in the same run, after the train phases:
               forward; with four cards or more also (b) on (2, 2) over
               NCCL, one rank a card; the "kernels" line adds each rank's
               K6 and K7 launches
+Slice 14 adds, before the lm mesh phase and inside it:
+  - split decode  K8 (flash_decode_scores) and K9 (flash_decode_pv) at
+              recurrentgemma-9b's decode on a model axis of 2 (B=8,
+              NH=16, KH=1, d=128 of hd 256, L=2048, bf16; full rings,
+              partial ones, an idle row) against their plain versions
+              (K8 within 1e-5 of max |s|, K9 within K6's limit, the idle
+              row 0, both bitwise run to run), their device and call ms,
+              bounds, plain versions' and torch.matmul's for K8's
+              product; TRAIN_K7 gains (c)'s shape (8 heads on 1, hd 256:
+              K7's FMA path), timed beside SDPA
+  - lm mesh (c)  in (b)'s world of two, (b)'s memory freed:
+              recurrentgemma-9b at full width and depth (38 layers,
+              10,444,771,328 parameters, drawn from seed 0 on every rank,
+              each keeping its slices leaf by leaf) decodes 16 steps of 8
+              slots on (1, 2) against the unsharded port's decode on the
+              card (run before the world starts): logits within 0.2 of
+              max |logit|, K8 = K9 = 12 launches a step a rank and no
+              K6, and 4 steps with RoPE on a head-dim slice that the
+              check must catch; then 8 of its 38 layers at full width
+              train 1 warm and 3 timed steps (B=4, S=512, full remat):
+              the first loss within 2e-3 and gradient norm within 1e-2
+              of the unsharded port's, K6 = 2 × 2 and K7 = 2 a rank a
+              step; ms a step, tokens/s and each rank's peak for both;
+              the "kernels" line adds K8 and K9, and K6/K7's launches in
+              (c)
 Every timing line carries the card's name and power limit.
 Then it prints the card, a "kernels" JSON line (each "ms" with its
 source, "ms_from"; K6 at the serving step's shape), and the result line.
@@ -299,9 +324,11 @@ SRC = os.path.join(ROOT, "src")
 if os.path.isdir(os.path.join(SRC, "repro_torch")):
     sys.path.insert(0, SRC)
     # the card's rates (H100 SXM data sheet: HBM3 3.35 TB/s, bf16 989
-    # TFLOP/s on the tensor cores) and K6's and K7's costs, one source
-    # with the dry run's roofline
-    from repro_torch.kernels.flash.cost import flash_bwd_cost, flash_cost
+    # TFLOP/s on the tensor cores) and K6's–K9's costs, one source with
+    # the dry run's roofline
+    from repro_torch.kernels.flash.cost import (decode_pv_cost,
+                                                decode_scores_cost,
+                                                flash_bwd_cost, flash_cost)
     from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S
 
@@ -2958,9 +2985,13 @@ def phase_paper(dev, state, sampler):
 # rounds the solo comparison covers (a full refit, rank-one refits, the
 # 544 → 576 migration's full refit), and 2 steps of the bits check (were
 # 4: full and incremental, then the same two again).  On one H100 the
-# last 4 of the 8 rounds took 14.8 s ("[fleet] round" lines).
+# last 4 of the 8 rounds took 14.8 s ("[fleet] round" lines).  The solo
+# comparison holds 4 of the 16 studies (0, 4, 8, 12: both blocks' first
+# and middle slots), each to 1e-10 over the same rounds: all 16 × 4 solo
+# asks took ~81 s, and with the LM mesh's part (c) the script reached
+# 1,101.1 s on a slow H100 host.
 FLEET = dict(D=20, studies=16, slots=8, B=10, pad=32, refit_interval=8,
-             startup=542, rounds=4, solo_rounds=4,
+             startup=542, rounds=4, solo_rounds=4, solo_studies=4,
              bits=dict(D=20, n=40, steps=2), recover=dict(D=5, rounds=12, kill_at=50))
 
 
@@ -3466,11 +3497,13 @@ def phase_fleet(dev, c=FLEET):
     fleet_first = sum(r["ms"] for r in rows[:k]) / 1e3
     layers = fleet_layers(c, fs, state0, draws0, seeds0, xs[0])
 
-    # the same studies solo, in turn: the throughput of the first rounds,
-    # and each study's suggestions against its solo fused sampler's
+    # c["solo_studies"] of the studies, spread over the blocks, solo in
+    # turn: the throughput of the first rounds, and each one's suggestions
+    # against its solo fused sampler's
     solo_s, worst = 0.0, [0.0] * k
+    solo = range(0, S, S // c["solo_studies"])
     import torch
-    for i in range(S):
+    for i in solo:
         s = GPSampler(space, strategy="dbe_vec", seed=i, **fleet_kw(c))
         startup(s, obj, c["startup"])
         for r in range(k):
@@ -3482,8 +3515,8 @@ def phase_fleet(dev, c=FLEET):
             s.tell(t.trial_id, obj(t.x))
             worst[r] = max(worst[r], float(np.abs(
                 space.to_unit(t.x) - space.to_unit(xs[r, i])).max()))
-    log(f"[fleet] against each study's solo fused sampler (end to end, "
-        f"{S} studies, rounds 1–{k}: full and rank-one refits, "
+    log(f"[fleet] against solo fused samplers (end to end, studies "
+        f"{list(solo)} of {S}, rounds 1–{k}: full and rank-one refits, "
         f"{c['startup']} → {c['startup'] + k} trials across the bucket "
         f"boundary): max |Δx| in unit space by round "
         f"{', '.join(f'{w:.3e}' for w in worst)} (≤ 1e-10)")
@@ -3499,9 +3532,9 @@ def phase_fleet(dev, c=FLEET):
           f"refit or a bucket migration")
     thr = dict(fleet_suggests_per_s=S * c["rounds"] / wall,
                fleet_first_suggests_per_s=S * k / fleet_first,
-               solo_first_suggests_per_s=S * k / solo_s,
+               solo_first_suggests_per_s=len(solo) * k / solo_s,
                fleet_ms_per_round=1e3 * wall / c["rounds"],
-               solo_ms_per_suggest=1e3 * solo_s / (S * k))
+               solo_ms_per_suggest=1e3 * solo_s / (len(solo) * k))
     thr["card"] = card()
     log("[fleet] throughput: " + json.dumps(thr))
 
@@ -4325,6 +4358,10 @@ TRAIN_K7 = (
      "bfloat16", True, None, "self"),
     ("mesh (a): reduced llama f32 on (2, 2) B=1 S=16", 1, 16, 16, 6, 2, 32,
      "float32", True, None, "self"),
+    # slice 14: a rank's heads in (c)'s train step, recurrentgemma-9b on
+    # (1, 2) (16 → 8 heads on the one kv head, gathered to whole hd 256)
+    ("mesh (c): recurrentgemma-9b TP=2 B=4 S=512", 4, 512, 512, 8, 1, 256,
+     "bfloat16", True, 2048, "self"),
 )
 K7_F32_TOL = 1e-4
 
@@ -4447,6 +4484,37 @@ def k7_timing(q, k, v, do, qp, kp, out, lse, causal, window):
     return row
 
 
+def rg_mesh_timing(case, got):
+    """K6 with its log-sum-exp (and its plain version) and K7 (k7_timing)
+    at a rank's attention in (c)'s train step: recurrentgemma-9b's 8 local
+    heads on its one kv head at the whole hd 256 (K7's FMA path), beside
+    SDPA's forward and backward with the window's mask (timed only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash.ref import (flash_attention_fwd_ref,
+                                               position_mask)
+    q, k, v, do, qp, kp, out, lse = got
+    kw = dict(causal=case[8], window=case[9])
+    mask = position_mask(qp, kp, case[8], case[9])[:, None]
+    calls = {"flash_lse": lambda: FK.flash_attention_fwd(
+        q, k, v, qp, kp, return_lse=True, **kw),
+        "flash_lse_plain": lambda: flash_attention_fwd_ref(
+            q, k, v, qp, kp, return_lse=True, **kw),
+        "sdpa_fwd": lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)}
+    row = dict(shape=case[0] + " NH=8 KH=1 hd=256 bf16 causal window 2048",
+               plan=list(FK.plan_of(q, k)))
+    for key, fn in calls.items():
+        row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(fn, 10)
+        row[f"{key}_call_ms"] = cuda_time_ms(fn, 10)
+    nbytes, ops, rate = flash_cost(q, k, qp, kp, **kw)
+    row["flash_lse_bound_ms"], row["flash_lse_bound_by"] = flash_bound_ms(
+        nbytes + 4 * lse.numel(), ops, rate)
+    row.update(k7_timing(q, k, v, do, qp, kp, out, lse, **kw))
+    return row
+
+
 def phase_train_kernels(dev, err):
     """Slices 9–10's kernels: K6 with its log-sum-exp and K7 at every
     TRAIN_K7 case (check_k7, with each case's backward plan); then at the
@@ -4461,13 +4529,15 @@ def phase_train_kernels(dev, err):
     from repro_torch.kernels.flash import kernel as FK
     from repro_torch.kernels.flash.ref import flash_attention_fwd_ref
     t0 = time.perf_counter()
-    whisper = None
+    whisper = rg_mesh = None
     for i, case in enumerate(TRAIN_K7[1:]):
         got = check_k7(dev, case, 200 + i, err)
         if case[0].startswith("whisper encoder"):
             whisper = dict(shape=case[0] + " NH=KH=8 hd=64 bf16",
                            **k7_timing(*got, causal=case[8],
                                        window=case[9]))
+        if case[0].startswith("mesh (c)"):
+            rg_mesh = rg_mesh_timing(case, got)
         del got
         torch.cuda.empty_cache()
     q, k, v, do, qp, kp, out, lse = check_k7(dev, TRAIN_K7[0], 199, err)
@@ -4493,6 +4563,7 @@ def phase_train_kernels(dev, err):
     row.update(k7_timing(q, k, v, do, qp, kp, out, lse, causal=True,
                          window=TRAIN_K7[0][9]))
     row["whisper_bwd"] = whisper
+    row["rg_mesh"] = rg_mesh
     log("[timing] " + json.dumps(on_card(row)))
     log(f"[time] train kernels: {time.perf_counter() - t0:.1f} s")
     del q, k, v, do, out, lse
@@ -4535,6 +4606,13 @@ def train_device_ms(prof):
         out[cls] += us / 1e3
         out["busy"] += us / 1e3
     return out
+
+
+def flash_launches(**counts):
+    """The flash kernels' launch counts a path must show: ``counts``, and
+    0 for every other kernel of kernels/flash (K6–K9)."""
+    from repro_torch.kernels.flash import kernel as FK
+    return {**dict.fromkeys(FK.LAUNCHES, 0), **counts}
 
 
 def k6_runs(cfg) -> int:
@@ -4602,8 +4680,8 @@ def train_full_width(dev, c=TRAIN):
         gnorms.append(float(m["grad_norm"]))
     launches = FK.launch_counts()
     want = c["layers"] * c["steps"]
-    check(launches == {"flash_attention_fwd": k6_runs(cfg) * want,
-                       "flash_attention_bwd": want},
+    check(launches == flash_launches(flash_attention_fwd=k6_runs(cfg) * want,
+                                     flash_attention_bwd=want),
           f"train (remat {cfg.remat}): launches {launches}, want K7 {want} "
           f"({c['layers']} a step) and K6 {k6_runs(cfg)} × that")
     check(all(math.isfinite(x) for x in losses + gnorms),
@@ -4693,8 +4771,8 @@ def train_card_vs_cpu(dev, arch, seed=0, **opt):
     calls = grad_accum * (cfg.n_enc_layers + 2 * cfg.n_dec_layers
                           if cfg.family == "encdec"
                           else lm.attention_layers(cfg))
-    check(launched == {"flash_attention_fwd": k6_runs(cfg) * calls,
-                       "flash_attention_bwd": calls},
+    check(launched == flash_launches(flash_attention_fwd=k6_runs(cfg) * calls,
+                                     flash_attention_bwd=calls),
           f"train card vs CPU {arch}: launches {launched}, want K7 {calls} "
           f"and K6 {k6_runs(cfg)} × that (remat {cfg.remat})")
     rel_l, rel_g = abs(ld - lc) / abs(lc), abs(gd - gc) / abs(gc)
@@ -4752,8 +4830,8 @@ def train_resume(dev):
     FK.reset_launch_counts()
     a = T.main(common + ["--ckpt-dir", a_dir])
     # 4 layers × 6 steps; K6 twice a layer under the default full remat
-    check(FK.launch_counts() == {"flash_attention_fwd": 48,
-                                 "flash_attention_bwd": 24},
+    check(FK.launch_counts() == flash_launches(flash_attention_fwd=48,
+                                               flash_attention_bwd=24),
           f"train resume: launches {FK.launch_counts()}, want K6 48 and "
           f"K7 24")
     os.makedirs(b_dir)
@@ -4788,8 +4866,8 @@ def train_twin(dev, trials=7, steps=5):
     wall = time.perf_counter() - t0
     fl, ml = FK.launch_counts(), MK.launch_counts()
     want = 2 * steps * trials
-    check(fl == {"flash_attention_fwd": 2 * want,
-                 "flash_attention_bwd": want},
+    check(fl == flash_launches(flash_attention_fwd=2 * want,
+                               flash_attention_bwd=want),
           f"hpo_train twin: K6/K7 launches {fl}, want {2 * want}/{want}")
     check(all(v > 0 for v in ml.values()), f"hpo_train twin: K1–K4 "
           f"launches {ml}")
@@ -4867,9 +4945,9 @@ def remat_grads(dev, c=TRAIN_REMAT):
                    held_before_gb=held / 1e9, loss=float(loss),
                    launches=FK.launch_counts())
         want = c["layers"]
-        check(row["launches"] == {
-            "flash_attention_fwd": (1 if mode == "none" else 2) * want,
-            "flash_attention_bwd": want},
+        check(row["launches"] == flash_launches(
+            flash_attention_fwd=(1 if mode == "none" else 2) * want,
+            flash_attention_bwd=want),
             f"remat {mode}: launches {row['launches']}, want K7 {want}")
         leaves = tree_leaves(grads)
         if ref is None:
@@ -4943,7 +5021,7 @@ def phase_train_remat(dev):
 
 # slice 13: the LM across a ("data", "model") mesh over torch.distributed.
 # (a) the reduced llama3.2-3b in f32 at 2 layers, 12 heads on 4 kv_heads
-# (the reduced config's one kv head divides no model axis), on (2, 2);
+# (the full model's G = 3: kv_heads over "model"), on (2, 2);
 # (b) llama3.2-3b at full width and depth, bf16, B=4, S=512, full remat,
 # on (1, 2); with four cards or more, (b) on (2, 2) over NCCL too
 LM_MESH = dict(arch="llama3.2-3b", heads=12, kv_heads=4, layers=2, batch=4,
@@ -4960,6 +5038,396 @@ LM_MESH_FULL = dict(arch="llama3.2-3b", batch=4, seq=512, warm=1, timed=3,
 LM_MESH_TOL = dict(loss=1e-5, state=1e-5, grad_norm=1e-6, decode=1e-5,
                    moe=1e-5, full_loss=2e-3, full_grad_norm=1e-2)
 LM_MESH_TIMEOUT = 600
+
+
+# slice 14, part (c) of the phase's world: recurrentgemma-9b (the hybrid
+# family, one kv head: attention by head dim, K8/K9 in decode) on (1, 2),
+# ranks 0 and 1, bf16.  Decode at full width and depth (38 layers, 12 of
+# them attention), 8 slots, 16 steps over the window's 2048-slot ring;
+# training at full width and 8 of 38 layers (2 triples + 2 recurrent
+# layers), B=4, S=512, full remat, one warm and 3 timed steps.
+LM_MESH_HYBRID = dict(arch="recurrentgemma-9b", shape=(1, 2), slots=8,
+                      decode=16, max_len=4096, fault_steps=4, layers=8,
+                      batch=4, seq=512, warm=1, timed=3, remat="full",
+                      lr=3e-4, weight_decay=0.1, reduced=False)
+# (c)'s decode logits against the unsharded port's on the card (max |Δ|
+# over max |logit|): bf16 sums split over "model" through 38 layers read
+# 7.08e-2 on the H100, RoPE on a head-dim slice 0.789; each run reads the
+# fault again and fails unless the limit lies below it.  The first loss
+# (absolute) and gradient norm (relative) with (b)'s limits: sound 1.10e-3
+# and 1.0e-4 (at random weights the slice fault moves that loss by only
+# 6.4e-4, so the decode check is the one that sees it)
+LM_MESH_HYBRID_TOL = dict(decode=0.2, loss=2e-3, grad_norm=1e-2)
+# K8 against its plain version: float32 sums of the same products in
+# another order, |Δ| ≤ this · max |s|
+SPLIT_SCORES_TOL = 1e-5
+
+
+def lm_mesh_hybrid_cfg(h, layers=None):
+    """(c)'s config (``reduced`` for a CPU rehearsal), at ``layers``
+    layers (default: all)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(h["arch"])
+    cfg = (cfg.reduced() if h["reduced"] else cfg).replace(remat=h["remat"])
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def lm_mesh_hybrid_tokens(h, vocab):
+    """(tokens (slots, decode), positions (decode, slots)) of (c)'s
+    decode: slot b at 64·b + step, the last slot idle every other step
+    (its recurrent states still advance, C17; its attention gets C9's
+    mean of v)."""
+    import numpy as np
+    rng = np.random.default_rng(14)
+    toks = rng.integers(0, vocab, (h["slots"], h["decode"])).astype(np.int32)
+    pos = np.array([[64 * b + i for b in range(h["slots"] - 1)]
+                    + [-1 if i % 2 else i] for i in range(h["decode"])],
+                   np.int32)
+    return toks, pos
+
+
+def hybrid_decode(params, cfg, toks, pos, max_len, device, steps=None):
+    """Decode ``steps`` (default all) steps of the schedule from an empty
+    cache: (logits (steps, B, V) float32 on the host, wall ms a step)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    cache = lm.init_cache(cfg, toks.shape[0], max_len, device=device)
+    t, p = torch.from_numpy(toks).to(device), torch.from_numpy(pos).to(device)
+    out, wall = [], []
+    with torch.no_grad():
+        for i in range(pos.shape[0] if steps is None else steps):
+            t1 = time.perf_counter()
+            lg, cache = lm.decode_step(params, cfg, t[:, i:i + 1], cache,
+                                       p[i])
+            on_cuda(torch.device(device), torch.cuda.synchronize)
+            wall.append((time.perf_counter() - t1) * 1e3)
+            out.append(lg.float().cpu().numpy())
+    return np.stack(out), wall
+
+
+def lm_mesh_hybrid_unsharded(dev, h):
+    """(c)'s references from the unsharded port on ``dev``, before the
+    world starts: the full-depth decode's logits, and the 8-layer train
+    step's first loss and gradient norm; every global tensor dropped
+    after."""
+    import gc
+    import torch
+    from repro_torch.models import lm
+    cfg = lm_mesh_hybrid_cfg(h)
+    full = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          stacked=True)
+    n_params = sum(t.numel() for t in lm.tensors(full))
+    toks, pos = lm_mesh_hybrid_tokens(h, cfg.vocab_size)
+    logits, wall = hybrid_decode(full, cfg, toks, pos, h["max_len"], dev)
+    del full
+    gc.collect()
+    on_cuda(dev, torch.cuda.empty_cache)
+    tcfg = lm_mesh_hybrid_cfg(h, h["layers"])
+    batches, full = lm_mesh_full_inputs(tcfg, h, dev)
+    loss, norm = lm_mesh_unsharded(full, tcfg, batches[0], dev)
+    del full
+    gc.collect()
+    on_cuda(dev, torch.cuda.empty_cache)
+    return dict(logits=logits, decode_ms=wall, loss=loss, grad_norm=norm,
+                params=n_params)
+
+
+def shard_dropping(full, axes, mesh):
+    """shard_tree of a stacked tree, each global leaf taken out of
+    ``full`` once its slice is made, so a rank holds at most the global
+    tree plus one leaf's slice."""
+    from repro_torch.distributed.sharding import NamedSharding, pspec
+    out = {}
+    for key in list(full):
+        leaf = full.pop(key)
+        out[key] = (shard_dropping(leaf, axes[key], mesh)
+                    if isinstance(leaf, dict) else
+                    NamedSharding(mesh, pspec(leaf.shape, axes[key],
+                                              mesh.axis_names,
+                                              mesh.sizes)).shard(leaf))
+        del leaf
+    return out
+
+
+def rope_on_a_slice(p, cfg, k, tables):
+    """A fault for (c)'s decode check: ``layers._whole_k`` replaced by a
+    rotation of each rank's head-dim slice (pairs within the slice, at
+    the slice's width, for the step's positions that ``record`` in
+    hybrid_mesh_decode keeps) before the gather.  The check must see
+    it."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models import layers as L
+    t = L.rope_tables(_FAULT_POSITIONS[0], k.shape[-1], cfg.rope_theta,
+                      cfg.rope_fraction)
+    return C.gather_from(L.apply_rope(k, t), "model", dim=-1).contiguous()
+
+
+_FAULT_POSITIONS = [None]
+
+
+def hybrid_mesh_decode(params, cfg, h, mesh, fault=False):
+    """(c)'s decode on the mesh, sound or (its first ``fault_steps``) with
+    ``rope_on_a_slice`` in place of ``layers._whole_k`` (and the step's
+    rope tables recorded for it)."""
+    from repro_torch.models import layers as L
+    toks, pos = lm_mesh_hybrid_tokens(h, cfg.vocab_size)
+    if not fault:
+        return hybrid_decode(params, cfg, toks, pos, h["max_len"],
+                             mesh.device)
+    whole, tables = L._whole_k, L.rope_tables
+
+    def record(positions, *a, **k):
+        _FAULT_POSITIONS[0] = positions
+        return tables(positions, *a, **k)
+    L._whole_k, L.rope_tables = rope_on_a_slice, record
+    try:
+        return hybrid_decode(params, cfg, toks, pos, h["max_len"],
+                             mesh.device, steps=h["fault_steps"])
+    finally:
+        L._whole_k, L.rope_tables = whole, tables
+
+
+def lm_mesh_hybrid_rank(rank, h, c):
+    """Rank ``rank`` of (c) on ``h["shape"]``: recurrentgemma-9b at full
+    width and depth drawn on the card from seed 0 (every rank draws the
+    global tree and keeps its slice, leaf by leaf), ``decode`` steps with
+    every count reset before them (wall ms a step, the peak, K6–K9
+    launches, rank 0's logits) and ``fault_steps`` with RoPE on a slice;
+    then the 8-layer model's ``warm`` + ``timed`` train steps as (b)'s."""
+    import gc
+    import torch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.launch.mesh import make_smoke_mesh, use_mesh
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+    mesh = make_smoke_mesh(h["shape"], device=c["device"])
+    out = {"backend": mesh.backend, "device": str(mesh.device)}
+    with use_mesh(mesh):
+        cfg = lm_mesh_hybrid_cfg(h)
+        params = shard_dropping(lm.init_params(
+            cfg, torch.Generator(device=mesh.device).manual_seed(0),
+            stacked=True), lm.param_axes(cfg), mesh)
+        rank_log(rank, "(c) 38 layers drawn and sliced")
+        gc.collect()
+        on_cuda(mesh.device, torch.cuda.empty_cache)
+        on_cuda(mesh.device, torch.cuda.reset_peak_memory_stats)
+        FK.reset_launch_counts()
+        logits, wall = hybrid_mesh_decode(params, cfg, h, mesh)
+        out.update(decode_launches=FK.launch_counts(), decode_ms=wall,
+                   decode_peak_gb=on_cuda(
+                       mesh.device, torch.cuda.max_memory_allocated, 0) / 1e9,
+                   param_gb=lm.param_bytes(params) / 1e9)
+        rank_log(rank, f"(c) decoded, {sum(wall) / 1e3:.1f} s")
+        fault, _ = hybrid_mesh_decode(params, cfg, h, mesh, fault=True)
+        rank_log(rank, "(c) fault decoded")
+        if rank == 0:
+            out.update(logits=logits, fault_logits=fault)
+        del params
+        gc.collect()
+        on_cuda(mesh.device, torch.cuda.empty_cache)
+        tcfg = lm_mesh_hybrid_cfg(h, h["layers"])
+        batches, full = lm_mesh_full_inputs(tcfg, h, mesh.device)
+        axes = lm.param_axes(tcfg)
+        params = shard_dropping(full, axes, mesh)
+        del full
+        gc.collect()
+        on_cuda(mesh.device, torch.cuda.empty_cache)
+        rank_log(rank, "(c) 8 layers drawn and sliced")
+        oc = lm_mesh_opt(h, len(batches))
+        state = optim.init_opt_state(params, oc, axes)
+        step = make_train_step(tcfg, oc)
+        on_cuda(mesh.device, torch.cuda.synchronize)
+        on_cuda(mesh.device, torch.cuda.reset_peak_memory_stats)
+        FK.reset_launch_counts()
+        wall, losses, norms = [], [], []
+        for b in batches:
+            t1 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            on_cuda(mesh.device, torch.cuda.synchronize)
+            wall.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            rank_log(rank, f"(c) step {len(wall)}: "
+                     f"{wall[-1]:.0f} ms")
+        out.update(train_launches=FK.launch_counts(), step_ms=wall,
+                   losses=losses, grad_norms=norms,
+                   train_peak_gb=on_cuda(
+                       mesh.device, torch.cuda.max_memory_allocated, 0) / 1e9)
+        del params, state
+        gc.collect()
+        on_cuda(mesh.device, torch.cuda.empty_cache)
+    return out
+
+
+def lm_mesh_hybrid_row(h, backend, ranks, ref):
+    """Check (c) from its ranks' rows and the unsharded references; the
+    row, logged."""
+    import numpy as np
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.models import lm
+    cfg = lm_mesh_hybrid_cfg(h)
+    n_attn = lm.attention_layers(cfg)
+    want_dec = {**dict.fromkeys(FK.LAUNCHES, 0),
+                "flash_decode_scores": n_attn * h["decode"],
+                "flash_decode_pv": n_attn * h["decode"]}
+    steps = h["warm"] + h["timed"]
+    t_attn = lm.attention_layers(lm_mesh_hybrid_cfg(h, h["layers"]))
+    want_train = {**dict.fromkeys(FK.LAUNCHES, 0),
+                  "flash_attention_fwd": 2 * t_attn * steps,
+                  "flash_attention_bwd": t_attn * steps}
+    for r, o in enumerate(ranks):
+        check(o["backend"] == backend, f"lm mesh (c): rank {r} on "
+              f"{o['backend']}, want {backend}")
+        check(o["decode_launches"] == want_dec, f"lm mesh (c): rank {r} "
+              f"decode launches {o['decode_launches']}, want {want_dec} "
+              f"(K8 = K9 = {n_attn} a step, no K6)")
+        check(o["train_launches"] == want_train, f"lm mesh (c): rank {r} "
+              f"train launches {o['train_launches']}, want {want_train} "
+              f"(2 × {t_attn} K6 and {t_attn} K7 a step under full remat)")
+        check(all(math.isfinite(x) for x in o["losses"] + o["grad_norms"]),
+              f"lm mesh (c): rank {r} losses {o['losses']}, gradient "
+              f"norms {o['grad_norms']}")
+        check(o["losses"] == ranks[0]["losses"], f"lm mesh (c): the ranks' "
+              f"losses differ {o['losses']} {ranks[0]['losses']}")
+    got, want = ranks[0]["logits"], ref["logits"]
+    check(got.shape == want.shape and bool(np.isfinite(got).all()),
+          f"lm mesh (c): decode logits {got.shape} (want {want.shape}), "
+          f"finite {bool(np.isfinite(got).all())}")
+    scale = float(np.abs(want).max())
+    gap = float(np.abs(got - want).max()) / scale
+    fault_gap = float(np.abs(ranks[0]["fault_logits"]
+                             - want[:h["fault_steps"]]).max()) / scale
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    check(gap <= LM_MESH_HYBRID_TOL["decode"], f"lm mesh (c): decode "
+          f"logits off by {gap:.3e} of max |logit| (limit "
+          f"{LM_MESH_HYBRID_TOL['decode']})")
+    check(fault_gap > LM_MESH_HYBRID_TOL["decode"], f"lm mesh (c): RoPE on "
+          f"a head-dim slice passes the decode check ({fault_gap:.3e})")
+    loss_gap = abs(ranks[0]["losses"][0] - ref["loss"])
+    check(loss_gap <= LM_MESH_HYBRID_TOL["loss"], f"lm mesh (c): first "
+          f"loss {ranks[0]['losses'][0]} vs unsharded {ref['loss']}")
+    norm_gap = abs(ranks[0]["grad_norms"][0] - ref["grad_norm"]) / \
+        ref["grad_norm"]
+    check(norm_gap <= LM_MESH_HYBRID_TOL["grad_norm"], f"lm mesh (c): first "
+          f"gradient norm {ranks[0]['grad_norms'][0]} vs unsharded "
+          f"{ref['grad_norm']} ({norm_gap:.3e} relative)")
+    dec_ms = max(float(np.median(o["decode_ms"][1:])) for o in ranks)
+    step_ms = max(float(np.median(o["step_ms"][h["warm"]:])) for o in ranks)
+    row = dict(
+        shape=list(h["shape"]), backend=backend, arch=h["arch"],
+        decode=dict(layers=cfg.n_layers, params=ref["params"],
+                    slots=h["slots"], steps=h["decode"],
+                    ms_per_step=dec_ms,
+                    first_step_ms=[o["decode_ms"][0] for o in ranks],
+                    tokens_per_s=h["slots"] / (dec_ms / 1e3),
+                    unsharded_ms_per_step=float(np.median(
+                        ref["decode_ms"][1:])),
+                    logits_gap=gap, argmax_agree=agree,
+                    logits_rel_norm=float(np.linalg.norm(got - want)
+                                          / np.linalg.norm(want)),
+                    rope_fault_gap=fault_gap,
+                    param_gb=[o["param_gb"] for o in ranks],
+                    peak_gb=[o["decode_peak_gb"] for o in ranks],
+                    launches=[o["decode_launches"] for o in ranks]),
+        train=dict(layers=h["layers"], batch=h["batch"], seq=h["seq"],
+                   remat=h["remat"], ms_per_step=step_ms,
+                   first_step_ms=[o["step_ms"][0] for o in ranks],
+                   tokens_per_s=h["batch"] * h["seq"] / (step_ms / 1e3),
+                   losses=ranks[0]["losses"], unsharded_loss=ref["loss"],
+                   first_loss_gap=loss_gap,
+                   grad_norms=ranks[0]["grad_norms"],
+                   unsharded_grad_norm=ref["grad_norm"],
+                   first_grad_norm_gap=norm_gap,
+                   peak_gb=[o["train_peak_gb"] for o in ranks],
+                   launches=[o["train_launches"] for o in ranks]))
+    log("[lm mesh] (c) " + json.dumps(on_card(row)))
+    return row
+
+
+def split_decode_inputs(dev, b=8, length=2048, nh=16, kh=1, d=128,
+                        dtype="bfloat16", seed=30):
+    """K8/K9's inputs at (c)'s decode shape: one rank's q slice (B, 1, NH,
+    d) and its cache slices over the window's ring (B, L, KH, d), summed
+    scores for K9; rows 0–3 past the window (a full ring: slot j holds
+    the newest position ≡ j mod L), rows 4–6 part way into their first
+    pass (slots past the position empty, −1), row 7 idle (−1)."""
+    import numpy as np
+    import torch
+    starts = [2048 + 37 * r for r in range(4)] + [100, 700, 1500]
+    q_pos = np.full((b, 1), -1, np.int32)
+    kv_pos = np.full((b, length), -1, np.int32)
+    for r, p in enumerate(starts[:b - 1]):
+        q_pos[r, 0] = p
+        j = np.arange(length)
+        newest = p - ((p - j) % length)
+        kv_pos[r] = np.where(newest >= 0, newest, -1)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(sh, generator=g, device=dev).to(dt)
+               for sh in ((b, 1, nh, d), (b, length, kh, d),
+                          (b, length, kh, d)))
+    return (q, k, v, torch.from_numpy(q_pos).to(dev),
+            torch.from_numpy(kv_pos).to(dev))
+
+
+def phase_split_decode_kernels(dev, err):
+    """K8 and K9 at (c)'s decode shape (B=8, NH=16, KH=1, d=128 of hd 256,
+    L=2048, bf16; causal, window 2048) against their plain versions:
+    K8 within SPLIT_SCORES_TOL·max|s|, K9 within flash_tol on live rows
+    and exactly 0 on the idle row, both bitwise from run to run; then
+    their device and call ms beside their plain versions', their bounds
+    and, for K8's product, torch.matmul's.  → the row."""
+    import torch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash.ref import (flash_decode_pv_ref,
+                                               flash_decode_scores_ref,
+                                               position_mask)
+    t0 = time.perf_counter()
+    q, k, v, qp, kp = split_decode_inputs(dev)
+    kw = dict(causal=True, window=2048, scale=256 ** -0.5)
+    s = FK.flash_decode_scores(q, k)
+    s_ref = flash_decode_scores_ref(q, k)
+    s2 = s_ref * 2.0              # the scores summed over the two ranks
+    out = FK.flash_decode_pv(s2, v, qp, kp, **kw)
+    ref = flash_decode_pv_ref(s2, v, qp, kp, **kw)
+    again = (FK.flash_decode_scores(q, k), FK.flash_decode_pv(s2, v, qp, kp,
+                                                              **kw))
+    torch.cuda.synchronize()
+    e_s = float((s - s_ref).abs().max())
+    check(e_s <= SPLIT_SCORES_TOL * float(s_ref.abs().max()),
+          f"K8: |Δ| {e_s} over {SPLIT_SCORES_TOL}·max|s|")
+    seen = position_mask(qp, kp, True, 2048).any(-1)          # (B, 1)
+    e_o, ok = flash_err(out, ref, seen)
+    check(ok, f"K9: |Δ| {e_o} over its limit")
+    check(not bool(out[~seen].any()), "K9: the idle row is not 0")
+    check(torch.equal(s, again[0]) and torch.equal(out, again[1]),
+          "K8/K9 not bitwise from run to run")
+    check(bool(torch.isfinite(out.float()).all()), "K9 not finite")
+    err["decode_scores"], err["decode_pv"] = e_s, e_o
+    qg = q.view(q.shape[0], k.shape[2], -1, q.shape[-1])
+    kt = k.permute(0, 2, 3, 1)
+    calls = {"scores": lambda: FK.flash_decode_scores(q, k),
+             "scores_plain": lambda: flash_decode_scores_ref(q, k),
+             "scores_matmul": lambda: torch.matmul(qg, kt),
+             "pv": lambda: FK.flash_decode_pv(s2, v, qp, kp, **kw),
+             "pv_plain": lambda: flash_decode_pv_ref(s2, v, qp, kp, **kw)}
+    row = dict(shape="B=8 NH=16 KH=1 d=128 (hd 256 over 2) L=2048 bf16, "
+               "rows 0-3 full rings, 4-6 partial, 7 idle")
+    for key, fn in calls.items():
+        row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(fn, 20)
+        row[f"{key}_call_ms"] = cuda_time_ms(fn, 20)
+    row["scores_bound_ms"], row["scores_bound_by"] = flash_bound_ms(
+        *decode_scores_cost(q, k))
+    row["pv_bound_ms"], row["pv_bound_by"] = flash_bound_ms(
+        *decode_pv_cost(s2, v, qp, kp, causal=True, window=2048))
+    row["scores_kernels"] = kernel_us(calls["scores"], "flash_decode_")
+    row["pv_kernels"] = kernel_us(calls["pv"], "flash_decode_")
+    row.update(scores_err=e_s, pv_err=e_o)
+    log("[split decode] " + json.dumps(on_card(row)))
+    log(f"[time] split decode kernels: {time.perf_counter() - t0:.1f} s")
+    return row
 
 
 def lm_mesh_cfg(c=LM_MESH):
@@ -5168,15 +5636,38 @@ def lm_mesh_full_cfg(f=LM_MESH_FULL, c=LM_MESH):
             ).replace(remat=f["remat"])
 
 
-def lm_mesh_rank(rank, c, f, inputs, ckpt_dir, port, backend):
+_RANK_T0 = [None]
+
+
+def rank_log(rank, msg):
+    """A rank's progress line in the mesh phase (seconds since its first
+    line), so a world that stalls shows where."""
+    if _RANK_T0[0] is None:
+        _RANK_T0[0] = time.perf_counter()
+    sys.stdout.write(f"[lm mesh] rank {rank} +"
+                     f"{time.perf_counter() - _RANK_T0[0]:.1f} s: {msg}\n")
+    sys.stdout.flush()
+
+
+def lm_mesh_rank(rank, c, f, inputs, ckpt_dir, backend, h=None):
     """Rank ``rank`` of the phase's one world of four: (a) on (2, 2);
-    then ranks 0 and 1 leave it for a world of two (on ``port`` over
-    ``backend``) and run (b) on (1, 2), while ranks 2 and 3 return.  The
-    ranks' start and first use of the card are paid once."""
+    then ranks 0 and 1 leave it for a world of two (over ``backend``, on
+    a port rank 0 finds free just before, sent to the others over the
+    world of four) and run (b) on (1, 2), then (with ``h``) (c), while
+    ranks 2 and 3 return.  The ranks' start and first use of the card
+    are paid once."""
     import datetime
+    import gc
+    import torch
     import torch.distributed as dist
+    from repro_torch.distributed.world import free_port
+    rank_log(rank, "(a) starts")
     out = {"a": lm_mesh_small_rank(rank, c, *inputs, ckpt_dir)}
+    port = torch.tensor([free_port() if rank == 0 else 0])
+    dist.broadcast(port, src=0)
+    port = int(port)
     dist.destroy_process_group()
+    rank_log(rank, "(a) done")
     if rank >= 2:
         return out
     os.environ.update(WORLD_SIZE="2", LOCAL_WORLD_SIZE="2")
@@ -5184,7 +5675,14 @@ def lm_mesh_rank(rank, c, f, inputs, ckpt_dir, port, backend):
                             rank=rank, world_size=2,
                             timeout=datetime.timedelta(
                                 seconds=LM_MESH_TIMEOUT))
+    rank_log(rank, "(b) world of two formed")
     out["b"] = lm_mesh_full_rank(rank, (1, 2), f, c, ckpt_dir)
+    rank_log(rank, "(b) done")
+    if h is not None:
+        gc.collect()
+        on_cuda(torch.device(out["b"]["device"]), torch.cuda.empty_cache)
+        out["c"] = lm_mesh_hybrid_rank(rank, h, c)
+        rank_log(rank, "(c) done")
     return out
 
 
@@ -5211,6 +5709,7 @@ def lm_mesh_full_rank(rank, shape, f, c, ckpt_dir):
             restored = lm_mesh_restore(mesh, c, ckpt_dir, c["steps"])
         if rank == 0:
             out["restored"] = restored
+        rank_log(rank, "(b) (a)'s checkpoint restored")
     cfg = lm_mesh_full_cfg(f, c)
     batches, full = lm_mesh_full_inputs(cfg, f, mesh.device)
     if rank == 0:
@@ -5223,6 +5722,7 @@ def lm_mesh_full_rank(rank, shape, f, c, ckpt_dir):
         del full
         gc.collect()
         on_cuda(mesh.device, torch.cuda.empty_cache)
+        rank_log(rank, "(b) drawn and sliced")
         state = optim.init_opt_state(params, oc, axes)
         step = make_train_step(cfg, oc)
         on_cuda(mesh.device, torch.cuda.synchronize)
@@ -5236,6 +5736,8 @@ def lm_mesh_full_rank(rank, shape, f, c, ckpt_dir):
             wall.append((time.perf_counter() - t1) * 1e3)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
+            rank_log(rank, f"(b) step {len(wall)}: "
+                     f"{wall[-1]:.0f} ms")
         out["launches"] = FK.launch_counts()
     out.update(step_ms=wall, losses=losses, grad_norms=norms, peak_gb=on_cuda(
         mesh.device, torch.cuda.max_memory_allocated, 0) / 1e9)
@@ -5259,8 +5761,8 @@ def lm_mesh_full_row(shape, backend, f, ranks, world_s):
     """Check (b) on ``shape`` from its ranks' rows; the row, logged."""
     import numpy as np
     steps = f["warm"] + f["timed"]
-    want = {"flash_attention_fwd": 2 * f["layers"] * steps,
-            "flash_attention_bwd": f["layers"] * steps}
+    want = flash_launches(flash_attention_fwd=2 * f["layers"] * steps,
+                          flash_attention_bwd=f["layers"] * steps)
     for r, o in enumerate(ranks):
         check(o["backend"] == backend, f"lm mesh {shape}: rank {r} on "
               f"{o['backend']}, want {backend}")
@@ -5298,7 +5800,7 @@ def lm_mesh_full_row(shape, backend, f, ranks, world_s):
     return row
 
 
-def phase_lm_mesh(dev, c=LM_MESH, f=LM_MESH_FULL):
+def phase_lm_mesh(dev, c=LM_MESH, f=LM_MESH_FULL, h=LM_MESH_HYBRID):
     """Slice 13, in one spawned world of four ranks on the card: (a) the
     reduced llama on (2, 2) (gloo: the ranks share the card), against the
     unsharded port on the card: 2 train steps (grad_accum 2, ZeRO-1,
@@ -5309,14 +5811,20 @@ def phase_lm_mesh(dev, c=LM_MESH, f=LM_MESH_FULL):
     rank's peak, K6 = 2 × 28 and K7 = 28 launches a rank a step, the
     first loss within 2e-3 and the first gradient norm within 1e-2
     (relative) of the unsharded port's; with four cards or more, (b) on
-    (2, 2) over NCCL in a world of its own.  → the row, with every
-    rank's launches."""
+    (2, 2) over NCCL in a world of its own; then (c), slice 14 (with
+    ``h``; None leaves it out): recurrentgemma-9b on (1, 2) in the same
+    world of two, (b)'s memory freed: the full-depth decode against the
+    unsharded port's (run on the card before the world starts) with K8 =
+    K9 = 12 launches a step a rank and no K6, and a RoPE-on-a-slice fault
+    that its check must catch, and the 8-layer train steps' first loss
+    and gradient norm against the unsharded port's with K6 = 2 × 2 and
+    K7 = 2 a step.  → the row, with every rank's launches."""
     import numpy as np
     import gc
     import shutil
     import tempfile
     import torch
-    from repro_torch.distributed.world import free_port, run_world
+    from repro_torch.distributed.world import run_world
     from repro_torch.launch.mesh import collective_backend
     from repro_torch.train.optim import tree_leaves
     t0 = time.perf_counter()
@@ -5329,10 +5837,13 @@ def phase_lm_mesh(dev, c=LM_MESH, f=LM_MESH_FULL):
     ref = lm_mesh_small(dev, c, *inputs)
     gc.collect()
     on_cuda(dev, torch.cuda.empty_cache)
+    t_ref = time.perf_counter()
+    hybrid_ref = None if h is None else lm_mesh_hybrid_unsharded(dev, h)
+    t_ref = time.perf_counter() - t_ref
     ckpt = tempfile.mkdtemp(prefix="lm_mesh_")
     try:
         ranks = run_world(lm_mesh_rank, 4, (
-            c, f, inputs, ckpt, free_port(), backend_b), backend=backend,
+            c, f, inputs, ckpt, backend_b, h), backend=backend,
             timeout=LM_MESH_TIMEOUT)
         world_s = time.perf_counter() - t0
         small_ranks = [o["a"] for o in ranks]
@@ -5365,12 +5876,18 @@ def phase_lm_mesh(dev, c=LM_MESH, f=LM_MESH_FULL):
                 f"lm mesh: (a)'s {k} restored on (1, 2) differ")
         rows = {"1x2": lm_mesh_full_row((1, 2), backend_b, f, full_ranks,
                                         world_s)}
+        hybrid = None
+        if h is not None:
+            hybrid = lm_mesh_hybrid_row(h, backend_b,
+                                        [o["c"] for o in ranks[:2]],
+                                        hybrid_ref)
+            hybrid["reference_s"] = t_ref
         if cards >= 4:
             rows["2x2"] = lm_mesh_full((2, 2), collective_backend(
                 local_world=4), f, c)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    row = dict(a=small, b=rows, phase_s=time.perf_counter() - t0)
+    row = dict(a=small, b=rows, c=hybrid, phase_s=time.perf_counter() - t0)
     log(f"[time] lm mesh: {row['phase_s']:.1f} s")
     return row
 
@@ -5445,15 +5962,22 @@ def main() -> int:
     log(f"[time] train: {time.perf_counter() - t_start:.1f} s")
     remat, remat_launches = phase_train_remat(dev)
     log(f"[time] train remat: {time.perf_counter() - t_start:.1f} s")
+    split_t = phase_split_decode_kernels(dev, err)
     lm_mesh = phase_lm_mesh(dev)
     log(f"[time] lm mesh: {time.perf_counter() - t_start:.1f} s")
     # slice 13: every rank's K6 and K7 launches, check (a) on (2, 2) and
     # the full-width steps (b) on (1, 2) (and (2, 2) with four cards)
+    # slice 14: part (c)'s decode (K8, K9) and train steps (K6, K7) on
+    # (1, 2), each rank's
+    hybrid = lm_mesh["c"]
     mesh_launches = {name: dict(
         a=[r[name] for r in lm_mesh["a"]["launches"]],
         **{f"b_{k}": [r[name] for r in row["launches"]]
-           for k, row in lm_mesh["b"].items()})
-        for name in ("flash_attention_fwd", "flash_attention_bwd")}
+           for k, row in lm_mesh["b"].items()},
+        c_decode=[r[name] for r in hybrid["decode"]["launches"]],
+        c_train=[r[name] for r in hybrid["train"]["launches"]])
+        for name in ("flash_attention_fwd", "flash_attention_bwd",
+                     "flash_decode_scores", "flash_decode_pv")}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5582,7 +6106,34 @@ def main() -> int:
         "train_remat": {k: remat["full"][k] for k in (
             "ms_per_step", "tokens_per_s", "mfu", "k6_device_ms_per_step",
             "k7_device_ms_per_step", "busy_device_ms_per_step",
-            "peak_memory_gb")}})
+            "peak_memory_gb")},
+        # slice 14: K6 with lse and K7 (its FMA path) at a rank's heads in
+        # (c)'s recurrentgemma-9b train step on (1, 2)
+        "rg_mesh_timing": train_k["rg_mesh"]})
+    # K8 and K9 replace no TPU kernel: the reference leaves the head-dim
+    # sharded decode attention to XLA under GSPMD (attention_xla, whose
+    # scores it partial-sums over "model"); at (c)'s decode shape
+    for name, key, lib in (("flash_decode_scores", "scores",
+                            "scores_matmul"),
+                           ("flash_decode_pv", "pv", None)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash/csrc/flash_split.cu",
+            "replaces": "src/repro/models/layers.py:147",
+            "replaces_note": "no TPU kernel: XLA's partial-sum lowering of "
+                             "attention_xla over a head-dim-sharded cache "
+                             "(src/repro/models/layers.py:221-231)",
+            "launches": mesh_launches[name]["c_decode"][0],
+            "max_abs_err": err[f"decode_{key}"],
+            "ms": split_t[f"{key}_ms"], "plain_ms": split_t[f"{key}_plain_ms"],
+            "bound_ms": split_t[f"{key}_bound_ms"],
+            "bound_by": split_t[f"{key}_bound_by"],
+            "library_ms": split_t[f"{lib}_ms"] if lib else None,
+            "ms_from": split_t[f"{key}_ms_from"],
+            "call_ms": split_t[f"{key}_call_ms"],
+            "kernels_us": split_t[f"{key}_kernels"],
+            "shape": split_t["shape"],
+            "lm_mesh_launches": mesh_launches[name]})
     log("[trace] " + json.dumps(TRACE_STATS))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

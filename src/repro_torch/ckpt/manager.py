@@ -34,7 +34,8 @@ raw bits, uint16, and restored into a bfloat16 template).
   save returns.  A restore reads the global arrays and places each on
   the current mesh's shards.  A checkpoint therefore
   holds global arrays only, and restores on any mesh, or on none, with
-  identical values.
+  identical values (a leaf split by heads, by head dim or by "lru" alike:
+  the shardings say which dim).
 """
 from __future__ import annotations
 

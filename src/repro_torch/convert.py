@@ -139,7 +139,9 @@ def lm_params_from_numpy(tree, device=None, *, stacked: bool = False,
     (``repro_torch.resolve_device``), and raises without one.
 
     With ``mesh`` (and the model's ``cfg``, whose ``lm.param_axes`` place
-    the leaves) each leaf is this rank's slice, on the mesh's device."""
+    the leaves: the dense and hybrid trees, a head dim split where kv_heads
+    do not divide "model", the recurrent blocks' "lru" dims) each leaf is
+    this rank's slice, on the mesh's device."""
     if mesh is not None:
         from repro_torch.distributed.sharding import shard_tree
         from repro_torch.models.lm import param_axes
@@ -147,7 +149,7 @@ def lm_params_from_numpy(tree, device=None, *, stacked: bool = False,
             raise ValueError("lm_params_from_numpy(mesh=) needs the model's "
                              "cfg")
         out = shard_tree(_tree_from_numpy(tree, torch.device("cpu")),
-                         param_axes(cfg), mesh)
+                         param_axes(cfg, mesh=mesh), mesh)
         return out if stacked else per_layer(out)
     out = _tree_from_numpy(tree, resolve_device(device))
     return out if stacked else per_layer(out)
@@ -174,7 +176,7 @@ def opt_state_from_numpy(state, device=None, *, mesh=None, cfg=None):
         if cfg is None:
             raise ValueError("opt_state_from_numpy(mesh=) needs the model's "
                              "cfg")
-        axes = param_axes(cfg)
+        axes = param_axes(cfg, mesh=mesh)
 
         def tree(t):
             return zip_map(lambda x, ax: zero_sharding(

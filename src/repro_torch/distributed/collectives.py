@@ -7,13 +7,23 @@ or with no mesh, it returns its input and issues nothing, so the
 one-card path runs as it did.
 
 :func:`all_reduce`, :func:`all_gather` and :func:`reduce_scatter` are
-out of place and carry no gradient.  The backend follows from the
-layout (``launch/mesh.py::collective_backend``): NCCL takes every
+out of place and carry no gradient (the autograd forms are below).
+The backend follows from the layout
+(``launch/mesh.py::collective_backend``): NCCL takes every
 collective on the card; gloo, which ranks sharing a card use, takes a
 CUDA tensor for ``all_reduce`` (and ``broadcast``) only, so
 :func:`all_gather` stages a CUDA tensor through the host there, and
 :func:`reduce_scatter` is built from ``all_reduce`` and this rank's
 slice (the same sum, twice the bytes on the wire).
+
+Two autograd layout changes carry gradients across a sharded dim:
+:func:`gather_from` (an all-gather along a dim, whose backward is the
+reduce-scatter of the gradient on that dim: each rank's use of the
+gathered tensor gives part of every slice's gradient) and
+:func:`scatter_to` (a reduce-scatter, whose backward all-gathers the
+gradient).  The head-dim-sharded attention gathers k and v with the
+first, and the RG-LRU's "lru"-parallel gate products scatter their
+partial sums with the second (``models/layers.py``, ``models/rglru.py``).
 
 The autograd pair (Megatron-LM's *f* and *g*) brackets a
 tensor-parallel product:
@@ -127,6 +137,50 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        return all_gather(x, axis, dim=dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g, ctx.axis, dim=ctx.dim, mesh=ctx.mesh),
+                None, None, None)
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        return reduce_scatter(x, axis, dim=dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g.contiguous(), ctx.axis, dim=ctx.dim,
+                           mesh=ctx.mesh), None, None, None)
+
+
+def gather_from(x: Tensor, axis: str = "model", dim: int = -1,
+                mesh=None) -> Tensor:
+    """The ranks' ``x`` along ``axis`` concatenated on ``dim`` (every rank
+    gets the whole), differentiable: the gradient is reduce-scattered
+    back on ``dim``.  ``x`` itself off a mesh."""
+    got = _axis(axis, mesh)
+    return x if got is None else _GatherFrom.apply(x, axis, dim % x.ndim,
+                                                   got[0])
+
+
+def scatter_to(x: Tensor, axis: str = "model", dim: int = -1,
+               mesh=None) -> Tensor:
+    """This rank's slice on ``dim`` of the sum of ``x`` over ``axis``,
+    differentiable: the gradient is all-gathered back on ``dim``.  ``x``
+    itself off a mesh."""
+    got = _axis(axis, mesh)
+    return x if got is None else _ScatterTo.apply(x, axis, dim % x.ndim,
+                                                  got[0])
 
 
 def copy_to(x: Tensor, axis: str = "model", mesh=None) -> Tensor:

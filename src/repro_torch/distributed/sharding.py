@@ -251,9 +251,10 @@ def gather_tree(tree, axes, mesh=None):
     """The inverse of :func:`shard_tree`: every rank's slices → the
     global tensors, on every rank (a collective).  An entry of ``axes``
     is a leaf's :class:`NamedSharding`, or its logical axes: then each
-    dim is taken to split over every candidate axis the mesh has, as it
-    does where the mesh divides the logical sizes (the LM's mesh path
-    requires that)."""
+    named dim is taken to split over every candidate axis the mesh has,
+    which holds for axes :func:`resolve_axes` gave (``lm.param_axes`` on
+    a mesh: a head dim sharded where kv_heads do not divide "model", an
+    "lru" dim)."""
     def one(x, ax):
         if isinstance(ax, NamedSharding):
             return ax.gather(x)
@@ -263,7 +264,7 @@ def gather_tree(tree, axes, mesh=None):
 
 def leaf_sharding(local_shape: Sequence[int], axes, mesh) -> NamedSharding:
     """The :class:`NamedSharding` of a local slice of ``local_shape``
-    with logical ``axes``, where the mesh divides the logical sizes."""
+    with logical ``axes`` (resolved for the mesh: :func:`resolve_axes`)."""
     return NamedSharding(mesh, pspec(global_shape(local_shape, axes, mesh),
                                      axes, mesh.axis_names, mesh.sizes))
 
@@ -273,6 +274,31 @@ def local_shardings(tree, axes, mesh):
     ``axes`` beside it): what a checkpoint of this rank's slices needs."""
     return zip_map(lambda x, ax: leaf_sharding(x.shape, ax, mesh), tree,
                    axes)
+
+
+def resolve_axes(shape: Sequence[int], axes, mesh) -> Tuple:
+    """``axes`` of a leaf of global ``shape`` with every logical name that
+    could take a mesh axis of ``mesh`` but that :func:`pspec` gives none
+    replaced by None: the same spec, and one that :func:`global_shape`
+    reads back exactly from a local shard.  (A local (d, 1, 128) of
+    ("embed", "kv_heads", "head") on a model axis of 2 is the shard of
+    (d, 2, 128) or of (d, 1, 256); once "kv_heads" is None where one kv
+    head does not split, only the second.)  A name that takes some of its
+    candidate axes but not all raises: no local shape could say which."""
+    spec = pspec(shape, axes, mesh.axis_names, mesh.sizes)
+    out = []
+    for name, entry in zip(axes, spec):
+        got = _entries(entry)
+        want = [a for a in AXIS_CANDIDATES.get(name, ())
+                if a in mesh.axis_names and mesh.axis_size(a) > 1]
+        if want and not got:
+            out.append(None)
+            continue
+        if set(got) != set(want):
+            raise ValueError(f"{name!r} of {tuple(shape)} takes {got} of "
+                             f"the mesh's {want}")
+        out.append(name)
+    return tuple(out)
 
 
 def global_shape(local: Sequence[int], axes, mesh) -> Tuple[int, ...]:

@@ -1,4 +1,4 @@
-"""What K6 and K7 must do: the bytes, operations and peak rate of a call.
+"""What K6–K9 must do: the bytes, operations and peak rate of a call.
 
 Each input is counted read once and each output written once, and the
 operations are those of the pairs a call's masks leave visible, 2·hd a
@@ -16,6 +16,13 @@ offset + i, key j at j, ``offset`` = Sk − Sq by default (the suffix
 alignment of the Pallas kernel; 0 for self-attention over a sequence,
 Sk − 1 for a decode step over a full cache), in closed form, so no S²
 mask is built (prefill_32k's would be 34 GB).
+
+:func:`decode_scores_cost` (K8) counts every slot, since K8 masks
+nothing: q and k read once, the float32 scores written once, 2·d
+operations a (query head, slot).  :func:`decode_pv_cost` (K9) counts
+what the positions leave visible: the visible scores read once, the V
+rows some head sees read once, the positions and the output; 2·d
+operations a visible (query head, key) pair.
 """
 from __future__ import annotations
 
@@ -124,3 +131,27 @@ def flash_bwd_cost(q: Tensor, k: Tensor, q_pos: Tensor, kv_pos: Tensor,
     b, sq, nh, hd = q.shape
     return _k7(q.dtype, b, sq, k.shape[1], nh, k.shape[2], hd,
                int(position_mask(q_pos, kv_pos, causal, window).sum()))
+
+
+def decode_scores_cost(q: Tensor, k: Tensor) -> Cost:
+    """(bytes, operations, peak rate) K8 needs on q (B, 1, NH, d) and k
+    (B, L, KH, d)."""
+    b, _, nh, d = q.shape
+    length = k.shape[1]
+    es = q.element_size()
+    nbytes = q.numel() * es + k.numel() * es + 4 * b * nh * length
+    return nbytes, 2 * b * nh * length * d, _rate(q.dtype)
+
+
+def decode_pv_cost(s: Tensor, v: Tensor, q_pos: Tensor, kv_pos: Tensor,
+                   causal: bool = True, window: Optional[int] = None
+                   ) -> Cost:
+    """The same for K9 on the summed scores s (B, NH, L) and v (B, L, KH,
+    d): the pairs and V rows these positions leave visible."""
+    b, nh, length = s.shape
+    kh, d = v.shape[2], v.shape[3]
+    seen = int(position_mask(q_pos, kv_pos, causal, window).sum())
+    es = v.element_size()
+    nbytes = (4 * nh * seen + seen * kh * d * es + 4 * b * (1 + length)
+              + b * nh * d * es)
+    return nbytes, 2 * nh * seen * d, _rate(v.dtype)

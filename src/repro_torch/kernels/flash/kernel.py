@@ -36,6 +36,13 @@ are built with the port's other kernels into one library at first use
   output and it; the backward is K7 on CUDA tensors and the plain
   backward on CPU tensors.  Serving (no gradient) writes no log-sum-exp.
   Its window follows the LM's ``attention_xla``: 0 means none.
+* :func:`flash_decode_scores` (K8) and :func:`flash_decode_pv` (K9) —
+  the split decode attention of a head-dim-sharded cache
+  (``csrc/flash_split.cu``; no TPU counterpart, see its header): one
+  rank's partial scores over its slice of the head dim, and the softmax
+  of the scores summed over "model" times its slice of V.  The plain
+  versions (``ref.py``) for CPU tensors, the kernels for CUDA tensors,
+  each with its own launch count.
 * :func:`flash_attention` and :func:`flash_attention_bhsd` — the JAX
   package's single-head and (B, H, S, D) entry points, with the Pallas
   kernel's suffix-aligned causal semantics, through the same kernel.  Their
@@ -54,7 +61,9 @@ from repro_torch.kernels._build import (check_launch, check_tensor, declare,
                                         on_cpu)
 from repro_torch.kernels._build import lib as _lib
 from repro_torch.kernels.flash.ref import (flash_attention_bwd_ref,
-                                           flash_attention_fwd_ref)
+                                           flash_attention_fwd_ref,
+                                           flash_decode_pv_ref,
+                                           flash_decode_scores_ref)
 
 Tensor = torch.Tensor
 
@@ -71,16 +80,23 @@ SPLITS = 8                       # splits a decode (row, KV head) aims at
 MMA_ROWS = 64                    # (query, group head) rows of one wgmma M
 MMA_HEAD_DIMS = (64, 128)
 
-# launches of K6 and K7; read and reset by callers that must show the main
-# path went through the kernels (chip_smoke.py, ServeEngine stats)
+SPLIT_KEYS = 64                  # cache slots of a K9 split block (kSplit)
+
+# launches of K6, K7, K8 and K9; read and reset by callers that must show
+# the main path went through the kernels (chip_smoke.py, ServeEngine stats)
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0,
+                            "flash_decode_scores": 0,
+                            "flash_decode_pv": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 declare("flash_attention_fwd",
         [_P] * 8 + [_I] * 10 + [ctypes.c_float, _I, _I, _P], _I)
 declare("flash_attention_bwd",
         [_P] * 12 + [_I] * 10 + [ctypes.c_float, _I, _P], _I)
+declare("flash_decode_scores", [_P] * 3 + [_I] * 6 + [_P], _I)
+declare("flash_decode_pv",
+        [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P], _I)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -286,6 +302,82 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     check_launch("flash_attention_bwd", err)
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
+
+
+def flash_decode_scores(q: Tensor, k: Tensor) -> Tensor:
+    """K8: q (B, 1, NH, d), k (B, L, KH, d) → s (B, NH, L) float32, query
+    head h's dot products with KV head h // (NH // KH) over these d
+    channels (one rank's slice of the head dim), unscaled and unmasked.
+    The plain version on CPU tensors; K8 on CUDA tensors (raises if the
+    launch fails)."""
+    if q.ndim != 4 or k.ndim != 4 or q.shape[1] != 1:
+        raise ValueError("flash_decode_scores takes q (B, 1, NH, d) and k "
+                         "(B, L, KH, d)")
+    b, _, nh, d = q.shape
+    length, kh = k.shape[1], k.shape[2]
+    if kh < 1 or nh % kh:
+        raise ValueError(f"{nh} query heads do not group over {kh} KV heads")
+    if on_cpu(q):
+        return flash_decode_scores_ref(q, k)
+    dev = q.device
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    check_tensor("q", q, (b, 1, nh, d), q.dtype, dev)
+    check_tensor("k", k, (b, length, kh, d), q.dtype, dev)
+    s = torch.empty((b, nh, length), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().flash_decode_scores(
+            q.data_ptr(), k.data_ptr(), s.data_ptr(), b, length, nh, kh, d,
+            _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("flash_decode_scores", err)
+    LAUNCHES["flash_decode_scores"] += 1
+    return s
+
+
+def flash_decode_pv(s: Tensor, v: Tensor, q_pos: Tensor, kv_pos: Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: float) -> Tensor:
+    """K9: the scores s (B, NH, L) float32 summed over the head dim's
+    ranks, this rank's v (B, L, KH, d), q_pos (B, 1) and kv_pos (B, L)
+    int32 → (B, 1, NH, d) in v's dtype: the float32 softmax of ``scale``·s
+    (the whole head dim's scale) over the visible keys, times v; 0 for a
+    row that sees none.  ``window`` follows K6's rule (None = none).  The
+    plain version on CPU tensors; K9 on CUDA tensors (a split and a merge
+    kernel in one C call; raises if the launch fails)."""
+    if s.ndim != 3 or v.ndim != 4:
+        raise ValueError("flash_decode_pv takes s (B, NH, L) and v (B, L, "
+                         "KH, d)")
+    b, nh, length = s.shape
+    kh, d = v.shape[2], v.shape[3]
+    if kh < 1 or nh % kh:
+        raise ValueError(f"{nh} query heads do not group over {kh} KV heads")
+    if on_cpu(s):
+        return flash_decode_pv_ref(s, v, q_pos, kv_pos, causal=causal,
+                                   window=window, scale=scale)
+    dev = s.device
+    if v.dtype not in _DTYPES:
+        raise TypeError(f"v must be float32 or bfloat16, got {v.dtype}")
+    for name, x, shape, dtype in (
+            ("s", s, (b, nh, length), torch.float32),
+            ("v", v, (b, length, kh, d), v.dtype),
+            ("q_pos", q_pos, (b, 1), torch.int32),
+            ("kv_pos", kv_pos, (b, length), torch.int32)):
+        check_tensor(name, x, shape, dtype, dev)
+    _check_window(window)
+    out = torch.empty((b, 1, nh, d), dtype=v.dtype, device=dev)
+    splits = -(-length // SPLIT_KEYS)
+    scratch = torch.empty(b * kh * splits * (nh // kh) * (d + 2),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().flash_decode_pv(
+            s.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), b, length, nh, kh, d,
+            _DTYPES[v.dtype], int(causal), int(window is not None),
+            int(window or 0), float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("flash_decode_pv", err)
+    LAUNCHES["flash_decode_pv"] += 1
+    return out
 
 
 class _FlashFn(torch.autograd.Function):

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the flash-attention kernels K6 and K7.
+"""Plain PyTorch versions of the flash-attention kernels K6 and K7, and of
+K8/K9, the split decode attention of a head-dim-sharded cache.
 
 The CPU path of the kernel wrappers, and what ``chip_smoke.py`` holds the
 kernels against on the card.  Masking is by position, as on the serving
@@ -13,6 +14,12 @@ forward's log-sum-exp and the same masking: with P = exp(S·scale − lse) on
 visible entries, D = rowsum(dO∘O) and dS = P∘(dO·Vᵀ − D), it returns
 dQ = scale·dS·K, dK = scale·dSᵀ·Q and dV = Pᵀ·dO, in float32 and cast to
 the inputs' dtypes.
+
+K8 (:func:`flash_decode_scores_ref`) is one rank's partial scores of a
+decode step, q·kᵀ over its slice of the head dim, unscaled and unmasked;
+K9 (:func:`flash_decode_pv_ref`) takes the scores summed over the ranks
+and this rank's slice of V: the masked float32 softmax of scale·s (the
+whole head dim's scale) times V, 0 for a row with no visible key.
 """
 from __future__ import annotations
 
@@ -93,3 +100,34 @@ def flash_attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
     return (dq.reshape(b, sq, nh, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def flash_decode_scores_ref(q: Tensor, k: Tensor) -> Tensor:
+    """K8: q (B, 1, NH, d), k (B, L, KH, d) → s (B, NH, L) float32, the
+    dot products over these d channels of query head h with KV head
+    h // (NH // KH); no scale, no mask."""
+    b, _, nh, d = q.shape
+    kh = k.shape[2]
+    qg = q.float().reshape(b, kh, nh // kh, d)
+    s = torch.einsum("bkgd,blkd->bkgl", qg, k.float())
+    return s.reshape(b, nh, k.shape[1])
+
+
+def flash_decode_pv_ref(s: Tensor, v: Tensor, q_pos: Tensor, kv_pos: Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: float) -> Tensor:
+    """K9: the summed scores s (B, NH, L) float32, v (B, L, KH, d), q_pos
+    (B, 1), kv_pos (B, L) → (B, 1, NH, d) in v's dtype: softmax over the
+    visible keys (:func:`position_mask`'s rule) of scale·s, times v, in
+    float32; 0 for a row that sees no key."""
+    b, nh, length = s.shape
+    kh, d = v.shape[2], v.shape[3]
+    mask = position_mask(q_pos, kv_pos, causal, window)[:, 0][:, None]
+    x = torch.where(mask, s * scale, NEG_INF)
+    m = x.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(x - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bkgl,blkd->bkgd", p.reshape(b, kh, nh // kh, length),
+                     v.float())
+    o = o / torch.where(l == 0.0, 1.0, l).reshape(b, kh, nh // kh, 1)
+    return o.reshape(b, 1, nh, d).to(v.dtype)

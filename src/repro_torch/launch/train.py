@@ -10,6 +10,7 @@ on the (2, 2) smoke mesh over two cards, or on the CPU:
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch llama3.2-3b --reduced --mesh smoke --device cpu --steps 4
+  (or --arch recurrentgemma-9b --reduced: the hybrid family)
 
 Counterpart of ``repro/launch/train.py``: runs on the card unless
 ``--device cpu`` is given (and fails without one).  The parameters
@@ -26,8 +27,10 @@ Fault-tolerance semantics, as the reference's:
     goes on; the run waits for the last one before it returns.
 
 ``--mesh smoke|single|multi`` (``launch/mesh.py``: (2, 2) over ("data",
-"model"), the reference's (16, 16) and (2, 16, 16)) runs the dense
-family's train step tensor- and data-parallel with ZeRO-1
+"model"), the reference's (16, 16) and (2, 16, 16)) runs the dense and
+hybrid families' train step (recurrentgemma-9b: the RG-LRU over "lru",
+attention by head dim where kv_heads do not divide "model")
+tensor- and data-parallel with ZeRO-1
 (``train/step.py``): the backend follows from the layout (NCCL with one
 rank a card, gloo where ranks share one, and on the CPU) and is logged;
 every rank draws the global parameters from the seed and keeps its

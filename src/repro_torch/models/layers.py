@@ -24,9 +24,24 @@ computes its slice of the logits).  Megatron's *f*
 (``collectives.copy_to``) sits at the input of each column-parallel
 product and *g* (``collectives.reduce_from``) after each row-parallel
 one and after the embedding lookup; without a mesh both are the
-identity and nothing is issued.  Where kv_heads do not divide "model"
-the reference shards the cache's head dim and partial-sums the scores;
-K6 takes no partial scores, so that raises (ROADMAP queue A item 9b).
+identity and nothing is issued.
+
+Where kv_heads do not divide "model" (:func:`head_dim_sharded`:
+recurrentgemma-9b's one kv head, chatglm3-6b's two on four ranks) ``wk``
+and ``wv`` split by head dim instead, as the reference's "head" fallback
+places them, and so does the decode cache (B, L, KH, hd/m).  q stays
+split by heads.  RoPE pairs channel i with i + rot/2, which a slice of
+the head dim would cut, so nothing is rotated before it is whole:
+without a cache k and v are gathered over "model" on the head dim
+(``collectives.gather_from``; the backward reduce-scatters), k is
+rotated, and K6 (K7 under autograd) runs this rank's heads against the
+one KV head they read.  In a decode step the new token's k is gathered,
+rotated and this rank's slice written (v's slice is written as it is);
+q, rotated whole, is gathered over heads and sliced to this rank's
+channels; K8 gives the partial scores, summed over "model", and K9 the
+softmax times this rank's slice of V (the reference's partial sum of the
+scores under GSPMD); the output is gathered over the head dim and this
+rank's heads go through the row-parallel ``wo``.
 """
 from __future__ import annotations
 
@@ -38,7 +53,8 @@ import torch.nn.functional as F
 
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import constrain, get_abstract_mesh
-from repro_torch.kernels.flash.kernel import attention
+from repro_torch.kernels.flash.kernel import (attention, flash_decode_pv,
+                                              flash_decode_scores)
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -210,59 +226,116 @@ def apply_attention(p: Params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     """
     b, s, _ = x.shape
     mesh = get_abstract_mesh()
-    if mesh is not None and cfg.n_kv_heads % mesh.axis_size("model"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_kv_heads} kv_heads do not divide the "
-            f"model axis ({mesh.axis_size('model')}); the head-dim-sharded "
-            f"cache this needs is ROADMAP queue A item 9b")
     x = C.copy_to(x, "model")
     q = constrain(_project(x, p["wq"]), "batch", None, "heads", None,
                   shape=(None, None, cfg.n_heads, cfg.head_dim))
-    k = constrain(_project(x, p["wk"]), "batch", None, "kv_heads", None,
+    k = constrain(_project(x, p["wk"]), "batch", None, "kv_heads", "head",
                   shape=(None, None, cfg.n_kv_heads, cfg.head_dim))
     v = _project(x, p["wv"])
-    if cfg.qk_norm:
-        q = _qk_normalize(q, p["q_norm"])
-        k = _qk_normalize(k, p["k_norm"])
     if tables is None:
         tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                              cfg.rope_fraction)
+    if cfg.qk_norm:
+        q = _qk_normalize(q, p["q_norm"])
     q = apply_rope(q, tables).contiguous()
-    k = apply_rope(k, tables).contiguous()
-    v = v.contiguous()
-
-    if cache is None:
-        out = attention(q, k, v, positions, positions, causal=causal,
-                        window=window)
+    if head_dim_sharded(cfg, mesh):
+        out, cache = _attend_by_head_dim(p, cfg, q, k, v, positions, tables,
+                                         window, cache, cache_index, causal,
+                                         mesh)
     else:
-        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-        length = ck.shape[1]
-        idx = cache_index
-        if not torch.is_tensor(idx) or idx.ndim == 0:
-            # uniform write index, clamped as lax.dynamic_update_slice does
-            slot = int(idx) % length if window else int(idx)
-            slot = min(max(slot, 0), length - s)
-            ck[:, slot:slot + s] = k.to(ck.dtype)
-            cv[:, slot:slot + s] = v.to(cv.dtype)
-            cpos[:, slot:slot + s] = positions
+        if cfg.qk_norm:
+            k = _qk_normalize(k, p["k_norm"])
+        k = apply_rope(k, tables).contiguous()
+        v = v.contiguous()
+        if cache is None:
+            out = attention(q, k, v, positions, positions, causal=causal,
+                            window=window)
         else:
-            if s != 1:
-                raise ValueError("a per-row cache_index needs single-token "
-                                 "steps")
-            slot = torch.where(idx >= 0, idx % length if window else idx,
-                               length - 1)
-            rows = torch.arange(b, device=x.device)
-            ck[rows, slot] = k[:, 0].to(ck.dtype)
-            cv[rows, slot] = v[:, 0].to(cv.dtype)
-            cpos[rows, slot] = positions[:, 0]
-        out = attention(q, ck, cv, positions, cpos, causal=causal,
-                        window=window)
-        out = _idle_rows_mean_v(out, cv, positions)
-        cache = {"k": ck, "v": cv, "pos": cpos}
+            _write_cache(cache, k, v, positions, cache_index, window)
+            out = attention(q, cache["k"], cache["v"], positions,
+                            cache["pos"], causal=causal, window=window)
+            out = _idle_rows_mean_v(out, cache["v"], positions)
 
     wo = p["wo"]
     y = out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
     return C.reduce_from(y, "model"), cache
+
+
+def head_dim_sharded(cfg: ModelConfig, mesh=None) -> bool:
+    """Whether attention splits by head dim on ``mesh`` (default: the
+    ambient one): kv_heads do not divide its "model" axis."""
+    mesh = get_abstract_mesh() if mesh is None else mesh
+    return mesh is not None and cfg.n_kv_heads % mesh.axis_size("model") != 0
+
+
+def _write_cache(cache: Params, k: Tensor, v: Tensor, positions: Tensor,
+                 cache_index, window: int) -> None:
+    """Write this step's k/v (B, S, KH, ·) and positions into the cache in
+    place: at a uniform ``cache_index`` (clamped as
+    ``lax.dynamic_update_slice`` clamps), or row by row at a (B,) one (S
+    must be 1; a row at index < 0 writes the trash slot L−1).  With a
+    window the cache is a ring: index i writes slot i mod L."""
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    b, s = k.shape[:2]
+    length = ck.shape[1]
+    idx = cache_index
+    if not torch.is_tensor(idx) or idx.ndim == 0:
+        slot = int(idx) % length if window else int(idx)
+        slot = min(max(slot, 0), length - s)
+        ck[:, slot:slot + s] = k.to(ck.dtype)
+        cv[:, slot:slot + s] = v.to(cv.dtype)
+        cpos[:, slot:slot + s] = positions
+        return
+    if s != 1:
+        raise ValueError("a per-row cache_index needs single-token steps")
+    slot = torch.where(idx >= 0, idx % length if window else idx, length - 1)
+    rows = torch.arange(b, device=k.device)
+    ck[rows, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    cpos[rows, slot] = positions[:, 0]
+
+
+def _whole_k(p: Params, cfg: ModelConfig, k: Tensor, tables: RopeTables
+             ) -> Tensor:
+    """This rank's head-dim slice of k (B, S, KH, hd/m) → the whole head
+    dim: gathered over "model" (the gradient is reduce-scattered back),
+    then k-normalized and rotated.  Never rotate a slice: RoPE pairs
+    channel i with i + rot/2, which lie on different ranks."""
+    k = C.gather_from(k, "model", dim=-1)
+    if cfg.qk_norm:
+        k = _qk_normalize(k, p["k_norm"])
+    return apply_rope(k, tables).contiguous()
+
+
+def _attend_by_head_dim(p: Params, cfg: ModelConfig, q: Tensor, k: Tensor,
+                        v: Tensor, positions: Tensor, tables: RopeTables,
+                        window: int, cache: Optional[Params], cache_index,
+                        causal: bool, mesh) -> Tuple[Tensor, Optional[Params]]:
+    """The attention of :func:`apply_attention` where the head dim splits
+    over "model" (see the module's docstring): q (B, S, NH/m, hd) rotated,
+    k/v this rank's head-dim slices (B, S, KH, hd/m) → (this rank's heads'
+    output (B, S, NH/m, hd), the cache)."""
+    m, r = mesh.axis_size("model"), mesh.coords["model"]
+    d, nh_l = cfg.head_dim // m, q.shape[2]
+    k = _whole_k(p, cfg, k, tables)
+    if cache is None:
+        v = C.gather_from(v, "model", dim=-1)
+        kv = r // (m // cfg.n_kv_heads)     # the KV head this rank's heads see
+        return attention(q, k[:, :, kv:kv + 1].contiguous(),
+                         v[:, :, kv:kv + 1].contiguous(), positions,
+                         positions, causal=causal, window=window), None
+    if q.shape[1] != 1:
+        raise ValueError("a head-dim-sharded cache takes single-token steps")
+    _write_cache(cache, k[..., r * d:(r + 1) * d], v, positions, cache_index,
+                 window)
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    q = C.gather_from(q, "model", dim=2)[..., r * d:(r + 1) * d].contiguous()
+    scores = C.reduce_from(flash_decode_scores(q, ck), "model")
+    out = flash_decode_pv(scores, cv, positions, cpos, causal=causal,
+                          window=window or None, scale=cfg.head_dim ** -0.5)
+    out = _idle_rows_mean_v(out, cv, positions)
+    out = C.gather_from(out, "model", dim=-1)[:, :, r * nh_l:(r + 1) * nh_l]
+    return out, cache
 
 
 def _attend_block(qg: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:

@@ -43,20 +43,26 @@ W) float32) and ``attn``, a ring of min(max_len, window) slots, and
 into it in place (JAX threads it through a scan carry that XLA aliases).
 
 On a ("data", "model") mesh (``launch/mesh.py::use_mesh``; the dense
-family) every rank holds its slice of each leaf, as
+and hybrid families) every rank holds its slice of each leaf, as
 :func:`param_axes`' logical axes place it (``distributed/sharding.py::
 shard_tree``), and its rows of every batch (the "batch" axis splits
 over "data"): ``forward`` runs the layers tensor-parallel over "model"
-(``models/layers.py``), :func:`cross_entropy` is the reference's
-vocab-sharded loss (the full logits are never gathered) and returns the
-global batch's mean on every rank, ``init_cache`` allocates this rank's
-rows and kv_heads, and ``decode_step`` returns its rows' logits over the
-whole vocabulary (gathered over "model").  Off a mesh nothing changes.
+(``models/layers.py``; the recurrent blocks over "lru",
+``models/rglru.py``; attention by head dim where kv_heads do not divide
+"model"), :func:`cross_entropy` is the reference's vocab-sharded loss
+(the full logits are never gathered) and returns the global batch's
+mean on every rank, ``init_cache`` allocates this rank's rows, kv_heads
+or head-dim slice and "lru" channels, and ``decode_step`` returns its
+rows' logits over the whole vocabulary (gathered over "model").  On the
+card a decode step of the head-dim path launches K8 and K9 once per
+attention layer in place of K6.  Off a mesh nothing changes.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import math
+import types
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
@@ -65,7 +71,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import data_axes, get_abstract_mesh
+from repro_torch.distributed.sharding import (data_axes, get_abstract_mesh,
+                                              resolve_axes)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
@@ -260,12 +267,48 @@ def _unlead(tree, count: int):
     return [tree[1:]] * count
 
 
-def param_axes(cfg: ModelConfig, stacked: bool = True) -> Dict[str, Any]:
+def param_axes(cfg: ModelConfig, stacked: bool = True, mesh=None
+               ) -> Dict[str, Any]:
     """The logical axes of every leaf of ``init_params(cfg, stacked=)``
     (whisper's for the encoder-decoder): the reference's ``box(...)``
     names, None for each stacked layer axis; stacked, the tree
     ``repro.distributed.sharding.boxed_axes`` gives of the reference's
-    parameters."""
+    parameters.
+
+    On a mesh (``mesh``, or the ambient one) each leaf's names are
+    resolved for it (``sharding.resolve_axes``): a name the mesh gives no
+    axis becomes None, so where kv_heads do not divide "model" ``wk`` and
+    ``wv`` read ("embed", None, "head").  The partition specs are the
+    same; a local shard's global shape (ZeRO layouts, gathers,
+    checkpoints) is then exact."""
+    mesh = get_abstract_mesh() if mesh is None else mesh
+    if mesh is None or cfg.family == "encdec":
+        return _param_axes(cfg, stacked)
+    names = tuple(mesh.axis_names)
+    return copy.deepcopy(_resolved_axes(
+        cfg, stacked, names, tuple(mesh.axis_size(a) for a in names)))
+
+
+@functools.lru_cache(maxsize=64)
+def _resolved_axes(cfg: ModelConfig, stacked: bool, names: Tuple[str, ...],
+                   sizes: Tuple[int, ...]) -> Dict[str, Any]:
+    """:func:`param_axes` resolved on a mesh of ``names`` and ``sizes``,
+    from the leaves' shapes in a meta draw."""
+    mesh = types.SimpleNamespace(axis_names=names,
+                                 sizes=dict(zip(names, sizes)))
+    mesh.axis_size = lambda a: mesh.sizes.get(a, 1)
+
+    def walk(ax, x):
+        if isinstance(ax, dict):
+            return {k: walk(v, x[k]) for k, v in ax.items()}
+        if isinstance(ax, list):
+            return [walk(v, xi) for v, xi in zip(ax, x)]
+        return resolve_axes(x.shape, ax, mesh)
+    return walk(_param_axes(cfg, stacked), init_params(
+        cfg, torch.Generator(), stacked=stacked, device="meta"))
+
+
+def _param_axes(cfg: ModelConfig, stacked: bool) -> Dict[str, Any]:
     emb = {"tok": ("vocab", "embed")}
     if not cfg.tie_embeddings:
         emb["head"] = ("embed", "vocab")
@@ -316,29 +359,46 @@ def param_axes(cfg: ModelConfig, stacked: bool = True) -> Dict[str, Any]:
 
 
 def mesh_for(cfg: ModelConfig):
-    """The ambient mesh, checked for ``cfg`` (None without one): only the
-    dense family runs on a mesh (the others wait for ROADMAP queue A item
-    9b), and heads, kv_heads, d_ff and the vocabulary must divide the
-    model axis (kv_heads that do not need the head-dim-sharded cache of
-    item 9b)."""
+    """The ambient mesh, checked for ``cfg`` (None without one): the dense
+    and hybrid families run on a mesh (ssm, encdec, moe and vlm wait for
+    ROADMAP queue A item 9b); heads, d_ff, the vocabulary and (hybrid)
+    lru_width must divide the model axis, and kv_heads divide it or, for
+    the head-dim-sharded attention (``layers.head_dim_sharded``), it must
+    be a multiple of kv_heads (so each rank's heads read one KV head) and
+    divide the head dim."""
     mesh = get_abstract_mesh()
     if mesh is None:
         return None
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family on a mesh waits for "
             f"ROADMAP queue A item 9b")
     m = mesh.axis_size("model")
-    if cfg.n_kv_heads % m:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_kv_heads} kv_heads do not divide the model "
-            f"axis ({m}); the head-dim-sharded cache this needs is ROADMAP "
-            f"queue A item 9b")
-    for name in ("n_heads", "d_ff", "vocab_size"):
+    names = ("n_heads", "d_ff", "vocab_size") + (
+        ("lru_width",) if cfg.family == "hybrid" else ())
+    for name in names:
         if getattr(cfg, name) % m:
             raise ValueError(f"{cfg.name}: {name}={getattr(cfg, name)} does "
                              f"not divide the model axis ({m})")
+    if cfg.n_kv_heads % m and (m % cfg.n_kv_heads or cfg.head_dim % m):
+        raise ValueError(f"{cfg.name}: {cfg.n_kv_heads} kv_heads do not "
+                         f"divide the model axis ({m}), and the head-dim "
+                         f"path needs it a multiple of them and a divisor "
+                         f"of head_dim={cfg.head_dim}")
     return mesh
+
+
+def local_cache_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
+    """``cfg`` with the widths of this rank's decode state on ``mesh``:
+    kv_heads over "model", or the head dim where they do not divide it,
+    and the hybrid's lru_width over "model"."""
+    m = mesh.axis_size("model")
+    local = (cfg.replace(n_kv_heads=cfg.n_kv_heads // m)
+             if cfg.n_kv_heads % m == 0
+             else cfg.replace(head_dim=cfg.head_dim // m))
+    if cfg.family == "hybrid":
+        local = local.replace(lru_width=cfg.lru_width // m)
+    return local
 
 
 def tensors(tree: Tree) -> Iterator[Tensor]:
@@ -636,8 +696,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None
     ``device="cpu"`` on the CPU.
 
     On a mesh ``batch`` is the global batch: the cache holds this rank's
-    rows (``batch`` over the "data" ranks) and kv_heads (over "model"),
-    on the mesh's device unless ``device`` says otherwise."""
+    rows (``batch`` over the "data" ranks), its kv_heads or, where they
+    do not divide "model", its slice of the head dim, and its "lru"
+    channels of the recurrent states (:func:`local_cache_cfg`), on the
+    mesh's device unless ``device`` says otherwise."""
     _require_served(cfg)
     mesh = mesh_for(cfg)
     dtype = torch_dtype(cfg)
@@ -647,11 +709,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None
             raise ValueError(f"a batch of {batch} does not split over "
                              f"{rows} data ranks")
         dev = mesh.device if device is None else resolve_device(device)
-        local = cfg.replace(n_kv_heads=cfg.n_kv_heads
-                            // mesh.axis_size("model"))
-        return L.init_attn_cache(local, batch // rows, max_len, dtype,
-                                 lead=(cfg.n_layers,), device=dev)
-    dev = resolve_device(device)
+        cfg, batch = local_cache_cfg(cfg, mesh), batch // rows
+    else:
+        dev = resolve_device(device)
     if cfg.family == "ssm":
         n_groups, n_m = ssm_layout(cfg)
         return {"groups": {

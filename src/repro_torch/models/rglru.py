@@ -12,6 +12,17 @@ the port runs the same recurrence as a sequential float32 loop over S
 expression).  The two sum in another order, so a prefill differs from the
 reference's by float32 rounding only.  ``lambda_param`` and the carried
 ``h`` are float32 in every model dtype.
+
+On a ("data", "model") mesh the block is tensor-parallel over "lru", as
+the reference's axes place it: ``w_gate_in`` and ``w_rec_in`` are
+column-parallel (*f*, ``collectives.copy_to``, at the block's input), the
+conv, its bias and Λ are channel-local, ``w_rec_gate`` and
+``w_input_gate`` hold this rank's rows ("lru", None), so its products are
+partial (B, S, W) sums, and one reduce-scatter of both over "model"
+(``collectives.scatter_to``) gives each rank its columns; the RG-LRU then
+runs on this rank's channels unchanged, and ``w_out`` is row-parallel,
+followed by *g* (``collectives.reduce_from``).  The decode state is this
+rank's channels, ``conv`` (B, K−1, W/m) and ``h`` (B, W/m).
 """
 from __future__ import annotations
 
@@ -20,6 +31,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dense_init, _gelu, draw_device
 
@@ -89,16 +102,24 @@ def apply_recurrent_block(p: Dict[str, Tensor], cfg: ModelConfig, x: Tensor,
                           ) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
     """x: (B, S, D) → (y, new_state).  ``state`` carries (``conv`` (B, K−1,
     W), ``h`` (B, W) float32) for decode; new_state is None without it.
-    Every row advances, whatever its token (the reference's semantics)."""
+    Every row advances, whatever its token (the reference's semantics).
+    On a mesh W is this rank's "lru" channels and y is summed over
+    "model"."""
+    x = C.copy_to(x, "model")
     gate = _gelu(x @ p["w_gate_in"])
-    rec = x @ p["w_rec_in"]
+    rec = constrain(x @ p["w_rec_in"], "batch", None, "lru",
+                    shape=(None, None, cfg.lru_width))
     conv_state = state["conv"] if state is not None else None
     rec, new_conv = _causal_conv(rec, p["conv_w"], p["conv_b"], conv_state)
-    r = rec @ p["w_rec_gate"]
-    i = rec @ p["w_input_gate"]
+    # w_rec_gate and w_input_gate hold this rank's rows ("lru", None): the
+    # products are partial sums over the whole width, reduce-scattered
+    # together (one collective) to this rank's columns
+    r, i = C.scatter_to(torch.stack([rec @ p["w_rec_gate"],
+                                     rec @ p["w_input_gate"]]), "model",
+                        dim=-1)
     h0 = state["h"] if state is not None else None
     h, h_last = _rg_lru(rec, r, i, p["lambda_param"], h0)
-    y = (h * gate) @ p["w_out"]
+    y = C.reduce_from((h * gate) @ p["w_out"], "model")
     new_state = None
     if state is not None:
         new_state = {"conv": new_conv, "h": h_last}

@@ -22,7 +22,9 @@ gradient is taken and ``cfg.remat`` is not "none", each encoder and
 decoder layer body runs under ``torch.utils.checkpoint`` ("dots" is plain
 checkpointing here, as in the reference), so its K6 calls run again in
 the backward.  The encoder-decoder does not run on a mesh yet: with an
-ambient one each entry point raises (ROADMAP queue A item 9b).
+ambient one each entry point raises (ROADMAP queue A item 9b, whose
+item 2 ports the ssm, encdec and moe families to the mesh after the
+dense and hybrid ones).
 """
 from __future__ import annotations
 

@@ -22,7 +22,10 @@ reference (whose schedule stays float32 under x64 too), computed on the
 host from a host step counter, so a step reads no device value.
 
 On a ("data", "model") mesh (the ambient one, ``launch/mesh.py::
-use_mesh``; ``axes`` gives the parameters' logical axes) the state is
+use_mesh``; ``axes`` gives the parameters' logical axes, resolved for the
+mesh as ``lm.param_axes`` gives them there, so that a local shard's
+global shape is exact: the dense and hybrid trees, hd- and "lru"-split
+leaves included) the state is
 ZeRO-1: each moment (and error-feedback residual) holds only this rank's
 "data" slice of its parameter's local shard, on the first dim that is
 not sharded and that "data" divides (:func:`zero1_pspec`; a leaf with no

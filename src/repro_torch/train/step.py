@@ -15,7 +15,8 @@ leaf to float32 in its turn: the reference's float32 tree has the same
 values.
 
 On a ("data", "model") mesh (``launch/mesh.py::use_mesh``; the dense
-family, stacked parameters as ``lm.param_axes`` places them) the batch
+and hybrid families, stacked parameters as ``lm.param_axes`` places
+them) the batch
 is the global batch, the same on every rank: each microbatch is the
 reference's (a reshape to (grad_accum, B/grad_accum)), and each "data"
 rank takes its rows of it.  The layers run tensor-parallel over "model"
@@ -92,7 +93,7 @@ def compute_grads(params, cfg: ModelConfig, batch, *, grad_accum: int = 1,
     mesh = get_abstract_mesh()
     if mesh is not None:
         mesh = lm.mesh_for(cfg)
-        if not isinstance(params.get("blocks"), dict):
+        if not any(isinstance(params.get(k), dict) for k in lm.STACKS):
             raise ValueError("on a mesh the train step takes stacked "
                              "parameters (lm.init_params(stacked=True))")
         axes = lm.param_axes(cfg)

@@ -1,4 +1,5 @@
-"""What each rank of a gloo CPU world runs for ``test_torch_lm_mesh.py``.
+"""What each rank of a gloo CPU world runs for ``test_torch_lm_mesh.py``
+and ``test_torch_hybrid_mesh.py``.
 
 The workers import torch and the port only (never JAX), so a spawned
 rank starts fast; each returns numpy arrays (rank 0's, or every rank's
@@ -52,10 +53,24 @@ def fake_world(rank, size):
 
 def llama_cfg(**kw):
     """The reduced llama3.2-3b in float32 at 2 layers, with 12 heads on 4
-    kv_heads (the full model's G = 3): the reduced config's one kv head
-    divides no model axis."""
+    kv_heads (the full model's G = 3), which divide the model axes of
+    ``test_torch_lm_mesh.py`` (the reduced config's one kv head would take
+    the head-dim path, ``dense_kv2_cfg``'s)."""
     return get_config("llama3.2-3b").reduced().replace(
         dtype="float32", n_heads=12, n_kv_heads=4, n_layers=2, **kw)
+
+
+def hybrid_cfg(**kw):
+    """The reduced recurrentgemma-9b in float32: one (rec, rec, attn)
+    triple, 4 heads on 1 kv_head, hd 32, lru 128, window 64."""
+    return get_config("recurrentgemma-9b").reduced().replace(
+        dtype="float32", **kw)
+
+
+def dense_kv2_cfg(**kw):
+    """The llama of ``llama_cfg`` on 2 kv_heads, which divide no model
+    axis of 4: its attention splits by head dim there."""
+    return llama_cfg(**kw).replace(n_kv_heads=2)
 
 
 def moe_cfg(**kw):
@@ -175,7 +190,8 @@ def mesh_world(rank, shape, params_np, batch_np, extra):
     """Every check of one mesh shape (``extra`` names the shape's own):
     loss and reduced gradients on batch 0's rows, 2 train steps with
     ``shard_grads`` True and False, the decode, and as asked the MoE, the
-    elastic save and resume, the compression spy and the raises."""
+    elastic save and resume, the compression spy and what is not ported
+    (the families that still raise on a mesh)."""
     cfg = llama_cfg()
     mesh = make_smoke_mesh(shape, device="cpu")
     out = {}
@@ -214,10 +230,19 @@ def mesh_world(rank, shape, params_np, batch_np, extra):
                 mesh, cfg, params_np, batch_np, 1,
                 grad_compression="int8_ef")[0]
             out["spy"] = spy_dtypes(mesh, cfg, params_np, batch_np)
-            kv1 = get_config("llama3.2-3b").reduced().replace(
-                dtype="float32")
-            out["kv_raise"] = raises(lm.lm_loss, None, kv1, b0)
+            out["not_ported"] = not_ported(b0)
     return out if rank == 0 else None
+
+
+def not_ported(batch):
+    """What still raises on a mesh: the ssm, moe and encdec families'
+    entry points, each (type, message)."""
+    from repro_torch.models import whisper as WH
+    out = {arch: raises(lm.lm_loss, None, get_config(arch).reduced(), batch)
+           for arch in ("xlstm-1.3b", "qwen3-moe-30b-a3b")}
+    out["whisper-base"] = raises(WH.encode, None,
+                                 get_config("whisper-base").reduced(), None)
+    return out
 
 
 def shardings(mesh, params, axes, oc):
@@ -274,10 +299,11 @@ def elastic_save(mesh, cfg, params_np, batch_np, directory):
                     optim.tree_leaves(local[0]), optim.tree_leaves(local[1])))}
 
 
-def restore_world(rank, shape, directory):
-    """The step-1 checkpoint restored on this mesh, gathered."""
-    cfg = llama_cfg()
-    mesh = make_smoke_mesh(shape, device="cpu")
+def restore_world(rank, shape, directory, cfg=None, mesh=None):
+    """The step-1 checkpoint restored on this mesh (made here unless
+    given, with ``cfg``: default the llama), gathered."""
+    cfg = llama_cfg() if cfg is None else cfg
+    mesh = make_smoke_mesh(shape, device="cpu") if mesh is None else mesh
     with use_mesh(mesh):
         axes = lm.param_axes(cfg)
         oc = optim.OptimConfig(**STEPS_OPT)
@@ -312,4 +338,122 @@ def launcher_world(rank, runs, drop):
         with contextlib.redirect_stdout(text):
             params = T.main(argv)
         out.append((np_tree(optim.tree_leaves(params)), text.getvalue()))
+    return out
+
+
+# ------------------------------------------------------------ the hybrid
+def schedule_decode(mesh, cfg, params, tokens_np, positions_np, max_len):
+    """Decode steps of this rank's rows at the given positions (one
+    (B,) row a step; −1 is an idle row): every step's logits, gathered
+    over "data"."""
+    cache = lm.init_cache(cfg, tokens_np.shape[0], max_len)
+    local = shard_tree({"t": torch.from_numpy(tokens_np),
+                        "p": torch.from_numpy(positions_np)},
+                       {"t": ("batch", None), "p": (None, "batch")}, mesh)
+    out = []
+    with torch.no_grad():
+        for i in range(positions_np.shape[0]):
+            logits, cache = lm.decode_step(params, cfg,
+                                           local["t"][:, i:i + 1], cache,
+                                           local["p"][i].contiguous())
+            out.append(collectives.all_gather(logits, "data").numpy())
+    return np.stack(out), cache
+
+
+def rope_on_a_slice(p, cfg, k, tables):
+    """A test double of ``layers._whole_k`` that rotates this rank's
+    head-dim slice with tables of the slice's width and then gathers: the
+    fault the head-dim path must not have."""
+    from repro_torch.models import layers as L
+    t = L.rope_tables(tables_positions[0], k.shape[-1], cfg.rope_theta,
+                      cfg.rope_fraction)
+    return collectives.gather_from(L.apply_rope(k, t), "model",
+                                   dim=-1).contiguous()
+
+
+tables_positions = [None]
+
+
+def decode_with_rope_on_a_slice(mesh, cfg, params, tokens_np, positions_np,
+                                max_len):
+    """:func:`schedule_decode` with ``rope_on_a_slice`` in place of the
+    layer's gather-then-rotate."""
+    from repro_torch.models import layers as L
+    whole, tables = L._whole_k, L.rope_tables
+
+    def spy(positions, *a, **k):
+        tables_positions[0] = positions
+        return tables(positions, *a, **k)
+    L._whole_k, L.rope_tables = rope_on_a_slice, spy
+    try:
+        return schedule_decode(mesh, cfg, params, tokens_np, positions_np,
+                               max_len)[0]
+    finally:
+        L._whole_k, L.rope_tables = whole, tables
+
+
+def hybrid_world(rank, shape, inputs, ckpt_dir):
+    """Every check of one mesh shape for the hybrid family (and, on a
+    model axis of 4, the dense head-dim path): loss and reduced gradients
+    on batch 0, 2 train steps (grad_accum 2, ZeRO-1), the decode schedule
+    with its cache's local shapes, and on (2, 2) an elastic save after
+    step 1, on (1, 4) that save restored, the dense kv_heads = 2 checks and
+    the decode with RoPE on a slice."""
+    cfg = hybrid_cfg()
+    mesh = make_smoke_mesh(shape, device="cpu")
+    out = {}
+    with use_mesh(mesh):
+        out.update(hybrid_checks(mesh, cfg, inputs["hybrid"]))
+        if shape == (2, 2):
+            steps, params, state, oc = train_steps(
+                mesh, cfg, inputs["hybrid"]["params"],
+                inputs["hybrid"]["batches"], 1)
+            axes = lm.param_axes(cfg)
+            CheckpointManager(ckpt_dir).save(1, {"params": params,
+                                                 "opt": state},
+                                             shardings=shardings(
+                                                 mesh, params, axes, oc))
+            out["saved"] = {k: steps[0][k] for k in ("params", "mu", "nu")}
+        else:
+            out["restored"] = restore_world(rank, shape, ckpt_dir,
+                                            cfg=cfg, mesh=mesh)
+            dense = inputs["dense"]
+            dcfg = dense_kv2_cfg()
+            params = lm_params_from_numpy(dense["params"], stacked=True,
+                                          mesh=mesh, cfg=dcfg)
+            b0 = {k: torch.from_numpy(v) for k, v in
+                  dense["batches"][0].items()}
+            loss, grads = value_and_grads(params, dcfg,
+                                          shard_tree(b0, BATCH_AXES, mesh))
+            out["dense"] = {
+                "loss": float(loss),
+                "grads": np_tree(gather_tree(optim.reduce_grads(grads),
+                                             lm.param_axes(dcfg), mesh)),
+                "decode": schedule_decode(mesh, dcfg, params, *dense[
+                    "decode"])[0]}
+            h = inputs["hybrid"]
+            params = lm_params_from_numpy(h["params"], stacked=True,
+                                          mesh=mesh, cfg=cfg)
+            out["rope_on_a_slice"] = decode_with_rope_on_a_slice(
+                mesh, cfg, params, *h["decode"])
+    return out if rank == 0 else None
+
+
+def hybrid_checks(mesh, cfg, h):
+    """The hybrid's loss, gradients, train steps, decode and cache
+    shapes on ``mesh``."""
+    axes = lm.param_axes(cfg)
+    params = lm_params_from_numpy(h["params"], stacked=True, mesh=mesh,
+                                  cfg=cfg)
+    b0 = {k: torch.from_numpy(v) for k, v in h["batches"][0].items()}
+    loss, grads = value_and_grads(params, cfg,
+                                  shard_tree(b0, BATCH_AXES, mesh))
+    out = {"loss": float(loss),
+           "grads": np_tree(gather_tree(optim.reduce_grads(grads), axes,
+                                        mesh)),
+           "steps": train_steps(mesh, cfg, h["params"], h["batches"], 2)[0]}
+    params = lm_params_from_numpy(h["params"], stacked=True, mesh=mesh,
+                                  cfg=cfg)
+    out["decode"], cache = schedule_decode(mesh, cfg, params, *h["decode"])
+    out["cache_shapes"] = optim.tree_map(lambda t: tuple(t.shape), cache)
     return out

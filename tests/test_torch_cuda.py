@@ -1,4 +1,4 @@
-"""Card-only tests of the CUDA kernels K1–K6, of the fused ask and of the
+"""Card-only tests of the CUDA kernels K1–K9, of the fused ask and of the
 serving engine on the card
 (no CPU mode exists for a CUDA kernel, so they skip without a card).  The file imports neither jax nor
 the JAX package, so it also runs where only PyTorch is installed:
@@ -706,8 +706,8 @@ def test_flash_kernel_matches_plain_version_on_card(cuda, b, sk, nh, kh, hd,
     ref = flash_attention_fwd_ref(*inputs)
     alone = FK.flash_attention_fwd(*(t[:1].contiguous() for t in inputs))
     torch.cuda.synchronize()
-    assert FK.launch_counts() == {"flash_attention_fwd": 2,
-                                  "flash_attention_bwd": 0}
+    assert FK.launch_counts() == {**dict.fromkeys(FK.LAUNCHES, 0),
+                                  "flash_attention_fwd": 2}
     seen = position_mask(inputs[3], inputs[4], True, None).any(-1)
     assert_flash_close(out[seen], ref[seen])
     assert not out[~seen].any()                       # no visible key → 0
@@ -1129,7 +1129,8 @@ def test_flash_backward_matches_plain_version_on_card(cuda, b, sq, sk, nh,
     out, lse = FK.flash_attention_fwd(q, k, v, qp, kp, return_lse=True,
                                       **kw)
     grads = FK.flash_attention_bwd(q, k, v, out, lse, do, qp, kp, **kw)
-    assert FK.launch_counts() == {"flash_attention_fwd": 1,
+    assert FK.launch_counts() == {**dict.fromkeys(FK.LAUNCHES, 0),
+                                  "flash_attention_fwd": 1,
                                   "flash_attention_bwd": 1}
     again = FK.flash_attention_bwd(q, k, v, out, lse, do, qp, kp, **kw)
     assert torch.equal(out, FK.flash_attention_fwd(q, k, v, qp, kp, **kw))
@@ -1199,7 +1200,39 @@ def test_reduced_train_step_card_matches_cpu(cuda):
                               for k, v in nb.items()}, cfg=cfg, opt_cfg=oc)
         out[name] = (float(m["loss"]), float(m["grad_norm"]))
         want = 4 if name == "cuda" else 0
-        assert FK.launch_counts() == {"flash_attention_fwd": 2 * want,
+        assert FK.launch_counts() == {**dict.fromkeys(FK.LAUNCHES, 0),
+                                      "flash_attention_fwd": 2 * want,
                                       "flash_attention_bwd": want}
     for a, b in zip(out["cuda"], out["cpu"]):
         assert abs(a - b) <= 1e-5 * abs(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length,nh,kh,d,dtype,window", [
+    (8, 2048, 16, 1, 128, torch.bfloat16, 2048),     # recurrentgemma on 2
+    (3, 100, 6, 2, 8, torch.float32, None),          # ragged L, G = 3
+    (2, 64, 12, 2, 64, torch.float32, 7),
+    (2, 130, 4, 1, 256, torch.bfloat16, None)])      # hd 256 on one rank
+def test_split_decode_kernels_match_plain_versions_on_card(
+        cuda, b, length, nh, kh, d, dtype, window):
+    """K8 and K9 against their plain versions: K8's float32 sums within
+    1e-5 of max |s|, K9 within the flash limit on live rows and 0 on the
+    idle row, one launch each a call."""
+    from repro_torch.kernels.flash.ref import (flash_decode_pv_ref,
+                                               flash_decode_scores_ref)
+    q, k, v, q_pos, kv_pos = serving_inputs(b, length, nh, kh, d, dtype,
+                                            cuda, seed=length)
+    FK.reset_launch_counts()
+    s = FK.flash_decode_scores(q, k)
+    kw = dict(causal=True, window=window, scale=(2 * d) ** -0.5)
+    out = FK.flash_decode_pv(s, v, q_pos, kv_pos, **kw)
+    torch.cuda.synchronize()
+    assert FK.launch_counts() == {**dict.fromkeys(FK.LAUNCHES, 0),
+                                  "flash_decode_scores": 1,
+                                  "flash_decode_pv": 1}
+    s_ref = flash_decode_scores_ref(q, k)
+    assert (s - s_ref).abs().max() <= 1e-5 * s_ref.abs().max()
+    ref = flash_decode_pv_ref(s, v, q_pos, kv_pos, **kw)
+    seen = position_mask(q_pos, kv_pos, True, window).any(-1)
+    assert_flash_close(out[seen], ref[seen])
+    assert not out[~seen].any()

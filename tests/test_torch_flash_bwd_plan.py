@@ -55,6 +55,7 @@ TRAIN_K7_PATHS = {
     "bf16 hd 64 no visible key: window 0, causal": "mma",
     "mesh (b): llama3.2-3b TP=2 B=4 S=512": "mma",
     "mesh (a): reduced llama f32 on (2, 2) B=1 S=16": "fma",
+    "mesh (c): recurrentgemma-9b TP=2 B=4 S=512": "fma",
 }
 
 

@@ -107,4 +107,31 @@ def test_walk_finds_the_kernel_modules():
             "repro_torch.launch.dryrun",
             "repro_torch.launch.hlo_cost",
             "repro_torch.launch.mesh",
-            "repro_torch.kernels.flash.cost"} <= names
+            "repro_torch.kernels.flash.cost",
+            "repro_torch.kernels.flash.ref",
+            "repro_torch.distributed.collectives",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.world"} <= names
+
+
+def test_the_split_decode_kernels_are_built_and_checked():
+    """K8/K9's source is among the files the build compiles and the
+    isolation check reads, and the mesh path's rank worker of the tests
+    imports no JAX either."""
+    from repro_torch.kernels import _build
+    src = os.path.join(PKG, "kernels", "flash", "csrc", "flash_split.cu")
+    assert src in _sources()
+    assert any(str(p) == src for p in _build.SOURCES)
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {os.path.join(REPO, "tests")!r})
+        import lm_mesh_ranks  # noqa: F401
+        print(sorted(m for m in sys.modules if m == "jax"
+                     or m.startswith("jax.") or m == "repro"
+                     or m.startswith("repro.")))
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "[]"
