@@ -302,6 +302,17 @@ Slice 14 adds, before the lm mesh phase and inside it:
               step; ms a step, tokens/s and each rank's peak for both;
               the "kernels" line adds K8 and K9, and K6/K7's launches in
               (c)
+Slice 15 redesigns K8 and K9 (kernels/flash/kernel.py::decode_plan:
+mma.sync for bf16 at d % 16 == 0, K9 one clustered launch; the FMA path
+for the rest):
+  - split decode  every SPLIT_DECODE_CASES entry (part (c)'s shape, the
+              head-dim shards of recurrentgemma-9b on 4, chatglm3-6b on
+              4, starcoder2-15b on 8, and (c)'s shape in float32 on the
+              FMA path) against the plain versions at the limits above,
+              each with its path and its kernels' µs; (c)'s shape timed
+              as before, with torch.softmax then torch.matmul beside K9;
+              the "kernels" line gives each path and case, and (c)'s
+              logits gap beside slice 14's
 Every timing line carries the card's name and power limit.
 Then it prints the card, a "kernels" JSON line (each "ms" with its
 source, "ms_from"; K6 at the serving step's shape), and the result line.
@@ -5058,6 +5069,9 @@ LM_MESH_HYBRID = dict(arch="recurrentgemma-9b", shape=(1, 2), slots=8,
 # and 1.0e-4 (at random weights the slice fault moves that loss by only
 # 6.4e-4, so the decode check is the one that sees it)
 LM_MESH_HYBRID_TOL = dict(decode=0.2, loss=2e-3, grad_norm=1e-2)
+# (c)'s logits gap with slice 14's K8/K9 (the same bits in every run),
+# printed beside each run's
+LM_MESH_HYBRID_GAP_SLICE14 = 7.08e-2
 # K8 against its plain version: float32 sums of the same products in
 # another order, |Δ| ≤ this · max |s|
 SPLIT_SCORES_TOL = 1e-5
@@ -5194,7 +5208,9 @@ def lm_mesh_hybrid_rank(rank, h, c):
     global tree and keeps its slice, leaf by leaf), ``decode`` steps with
     every count reset before them (wall ms a step, the peak, K6–K9
     launches, rank 0's logits) and ``fault_steps`` with RoPE on a slice;
-    then the 8-layer model's ``warm`` + ``timed`` train steps as (b)'s."""
+    on a card the sound decode again, rank 0's under a card_trace (K8/K9's
+    kernels in it); then the 8-layer model's ``warm`` + ``timed`` train
+    steps as (b)'s."""
     import gc
     import torch
     from repro_torch.kernels.flash import kernel as FK
@@ -5222,6 +5238,18 @@ def lm_mesh_hybrid_rank(rank, h, c):
         rank_log(rank, f"(c) decoded, {sum(wall) / 1e3:.1f} s")
         fault, _ = hybrid_mesh_decode(params, cfg, h, mesh, fault=True)
         rank_log(rank, "(c) fault decoded")
+        if mesh.device.type == "cuda":
+            # the sound decode again for K8/K9's device time in it, rank
+            # 0's under a card_trace (the timed decode above runs untraced)
+            FK.reset_launch_counts()
+            if rank == 0:
+                with card_trace() as prof:
+                    hybrid_mesh_decode(params, cfg, h, mesh)
+                out["decode_trace"] = split_decode_trace(prof)
+            else:
+                hybrid_mesh_decode(params, cfg, h, mesh)
+            out["traced_launches"] = FK.launch_counts()
+            rank_log(rank, "(c) traced decode")
         if rank == 0:
             out.update(logits=logits, fault_logits=fault)
         del params
@@ -5259,6 +5287,25 @@ def lm_mesh_hybrid_rank(rank, h, c):
         gc.collect()
         on_cuda(mesh.device, torch.cuda.empty_cache)
     return out
+
+
+def split_decode_trace(prof):
+    """K8's and K9's kernels in a card_trace of (c)'s decode:
+    ({"flash_decode_scores" | "flash_decode_pv": {kernel: [launches,
+    device µs]}}, whether the trace holds more spin kernels than one side
+    of its padding, i.e. lost no launch of its body)."""
+    avgs = prof.key_averages()
+    spins = sum(ev.count for ev in avgs
+                if PAD_KERNEL in ev.key and _timed_us(ev) > 0)
+    out = {"flash_decode_scores": {}, "flash_decode_pv": {}}
+    for ev in avgs:
+        m = re.search(r"flash_decode_(scores|pv)\w*", ev.key)
+        if m and _device_us(ev) > 0:
+            k = out[f"flash_decode_{m.group(1)}"].setdefault(m.group(0),
+                                                             [0, 0.0])
+            k[0] += ev.count
+            k[1] += _device_us(ev)
+    return out, spins > prof.pad_spins
 
 
 def lm_mesh_hybrid_row(h, backend, ranks, ref):
@@ -5314,6 +5361,26 @@ def lm_mesh_hybrid_row(h, backend, ranks, ref):
           f"gradient norm {ranks[0]['grad_norms'][0]} vs unsharded "
           f"{ref['grad_norm']} ({norm_gap:.3e} relative)")
     dec_ms = max(float(np.median(o["decode_ms"][1:])) for o in ranks)
+    # K8/K9's device time a step on rank 0, from the traced decode: µs a
+    # traced launch times the launches a step (the traced kernels' µs
+    # over the steps where the trace holds every launch)
+    split_dev = None
+    if "decode_trace" in ranks[0]:
+        by_name, whole = ranks[0]["decode_trace"]
+        for r, o in enumerate(ranks):
+            check(o["traced_launches"] == want_dec, f"lm mesh (c): rank {r} "
+                  f"traced decode launches {o['traced_launches']}, want "
+                  f"{want_dec}")
+        split_dev = {}
+        for name, kernels in by_name.items():
+            # each kernel of a path runs once a call
+            n = max((c for c, _ in kernels.values()), default=0)
+            us = sum(u for _, u in kernels.values())
+            per_step = want_dec[name] // h["decode"]
+            split_dev[name] = dict(
+                kernels=kernels, traced_launches=n, trace_complete=whole,
+                us_per_launch=us / n if n else None,
+                ms_per_step=us / n * per_step / 1e3 if n else None)
     step_ms = max(float(np.median(o["step_ms"][h["warm"]:])) for o in ranks)
     row = dict(
         shape=list(h["shape"]), backend=backend, arch=h["arch"],
@@ -5324,10 +5391,13 @@ def lm_mesh_hybrid_row(h, backend, ranks, ref):
                     tokens_per_s=h["slots"] / (dec_ms / 1e3),
                     unsharded_ms_per_step=float(np.median(
                         ref["decode_ms"][1:])),
-                    logits_gap=gap, argmax_agree=agree,
+                    logits_gap=gap,
+                    logits_gap_slice14=LM_MESH_HYBRID_GAP_SLICE14,
+                    argmax_agree=agree,
                     logits_rel_norm=float(np.linalg.norm(got - want)
                                           / np.linalg.norm(want)),
                     rope_fault_gap=fault_gap,
+                    split_device=split_dev,
                     param_gb=[o["param_gb"] for o in ranks],
                     peak_gb=[o["decode_peak_gb"] for o in ranks],
                     launches=[o["decode_launches"] for o in ranks]),
@@ -5346,22 +5416,48 @@ def lm_mesh_hybrid_row(h, backend, ranks, ref):
     return row
 
 
+# K8/K9's cases: (tag, B, L, NH, KH, d, ranks on "model", dtype, window,
+# kernel.py::decode_plan's path).  The first is part (c)'s decode shape
+# (the "kernels" line's, timed in full); the other head-dim shards of the
+# configs, a window of 7 (most MMA tiles unseen) and the FMA path in both
+# of its types are checked and traced by kernel.
+SPLIT_DECODE_CASES = [
+    ("(c): recurrentgemma-9b on 2", 8, 2048, 16, 1, 128, 2, "bfloat16",
+     2048, "mma"),
+    ("recurrentgemma-9b on 4", 8, 2048, 16, 1, 64, 4, "bfloat16", 2048,
+     "mma"),
+    ("chatglm3-6b on 4", 8, 512, 32, 2, 32, 4, "bfloat16", None, "mma"),
+    ("starcoder2-15b on 8", 8, 512, 48, 4, 16, 8, "bfloat16", None, "mma"),
+    ("recurrentgemma-9b on 4, window 7", 8, 2048, 16, 1, 64, 4, "bfloat16",
+     7, "mma"),
+    ("(c) in float32", 8, 2048, 16, 1, 128, 2, "float32", 2048, "fma"),
+    ("bfloat16 at d = 24", 8, 512, 16, 1, 24, 2, "bfloat16", None, "fma"),
+]
+
+
 def split_decode_inputs(dev, b=8, length=2048, nh=16, kh=1, d=128,
-                        dtype="bfloat16", seed=30):
-    """K8/K9's inputs at (c)'s decode shape: one rank's q slice (B, 1, NH,
-    d) and its cache slices over the window's ring (B, L, KH, d), summed
-    scores for K9; rows 0–3 past the window (a full ring: slot j holds
-    the newest position ≡ j mod L), rows 4–6 part way into their first
-    pass (slots past the position empty, −1), row 7 idle (−1)."""
+                        dtype="bfloat16", window=2048, seed=30):
+    """K8/K9's inputs at a decode shape: one rank's q slice (B, 1, NH,
+    d), its cache slices (B, L, KH, d), q_pos (B, 1), kv_pos (B, L).
+    With a window, the ring of (c)'s decode: rows 0–3 past the window (a
+    full ring: slot j holds the newest position ≡ j mod L), rows 4–6 part
+    way into their first pass (slots past the position empty, −1);
+    without one, a cache written from slot 0: rows 0–3 near its end,
+    rows 4–6 at a fifth, a half and three quarters of it.  The last row
+    is idle (−1)."""
     import numpy as np
     import torch
-    starts = [2048 + 37 * r for r in range(4)] + [100, 700, 1500]
+    if window:
+        starts = [length + 37 * r for r in range(4)] + [100, 700, 1500]
+    else:
+        starts = ([length - 1 - 37 * r for r in range(4)]
+                  + [length // 5, length // 2, 3 * length // 4])
     q_pos = np.full((b, 1), -1, np.int32)
     kv_pos = np.full((b, length), -1, np.int32)
+    j = np.arange(length)
     for r, p in enumerate(starts[:b - 1]):
         q_pos[r, 0] = p
-        j = np.arange(length)
-        newest = p - ((p - j) % length)
+        newest = p - ((p - j) % length) if window else np.where(j <= p, j, -1)
         kv_pos[r] = np.where(newest >= 0, newest, -1)
     g = torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, dtype)
@@ -5372,24 +5468,26 @@ def split_decode_inputs(dev, b=8, length=2048, nh=16, kh=1, d=128,
             torch.from_numpy(kv_pos).to(dev))
 
 
-def phase_split_decode_kernels(dev, err):
-    """K8 and K9 at (c)'s decode shape (B=8, NH=16, KH=1, d=128 of hd 256,
-    L=2048, bf16; causal, window 2048) against their plain versions:
-    K8 within SPLIT_SCORES_TOL·max|s|, K9 within flash_tol on live rows
-    and exactly 0 on the idle row, both bitwise from run to run; then
-    their device and call ms beside their plain versions', their bounds
-    and, for K8's product, torch.matmul's.  → the row."""
+def split_decode_case(dev, case):
+    """One SPLIT_DECODE_CASES entry against the plain versions: its path
+    as named, K8 within SPLIT_SCORES_TOL·max|s|, K9 (on the scores summed
+    over the ranks) within flash_tol on live rows and exactly 0 on the
+    idle row, both bitwise from run to run.  → (inputs, K9's keywords,
+    the summed scores, the row)."""
     import torch
     from repro_torch.kernels.flash import kernel as FK
     from repro_torch.kernels.flash.ref import (flash_decode_pv_ref,
                                                flash_decode_scores_ref,
                                                position_mask)
-    t0 = time.perf_counter()
-    q, k, v, qp, kp = split_decode_inputs(dev)
-    kw = dict(causal=True, window=2048, scale=256 ** -0.5)
+    tag, b, length, nh, kh, d, ranks, dtype, window, path = case
+    q, k, v, qp, kp = split_decode_inputs(dev, b, length, nh, kh, d, dtype,
+                                          window)
+    kw = dict(causal=True, window=window, scale=(d * ranks) ** -0.5)
+    got = FK.decode_plan(q.dtype, nh, kh, d)
+    check(got == path, f"{tag}: decode_plan gives {got}, want {path}")
     s = FK.flash_decode_scores(q, k)
     s_ref = flash_decode_scores_ref(q, k)
-    s2 = s_ref * 2.0              # the scores summed over the two ranks
+    s2 = s_ref * float(ranks)     # the scores summed over the ranks
     out = FK.flash_decode_pv(s2, v, qp, kp, **kw)
     ref = flash_decode_pv_ref(s2, v, qp, kp, **kw)
     again = (FK.flash_decode_scores(q, k), FK.flash_decode_pv(s2, v, qp, kp,
@@ -5397,35 +5495,76 @@ def phase_split_decode_kernels(dev, err):
     torch.cuda.synchronize()
     e_s = float((s - s_ref).abs().max())
     check(e_s <= SPLIT_SCORES_TOL * float(s_ref.abs().max()),
-          f"K8: |Δ| {e_s} over {SPLIT_SCORES_TOL}·max|s|")
-    seen = position_mask(qp, kp, True, 2048).any(-1)          # (B, 1)
+          f"K8 {tag}: |Δ| {e_s} over {SPLIT_SCORES_TOL}·max|s|")
+    seen = position_mask(qp, kp, True, window).any(-1)          # (B, 1)
     e_o, ok = flash_err(out, ref, seen)
-    check(ok, f"K9: |Δ| {e_o} over its limit")
-    check(not bool(out[~seen].any()), "K9: the idle row is not 0")
+    check(ok, f"K9 {tag}: |Δ| {e_o} over its limit")
+    check(not bool(out[~seen].any()), f"K9 {tag}: the idle row is not 0")
     check(torch.equal(s, again[0]) and torch.equal(out, again[1]),
-          "K8/K9 not bitwise from run to run")
-    check(bool(torch.isfinite(out.float()).all()), "K9 not finite")
-    err["decode_scores"], err["decode_pv"] = e_s, e_o
-    qg = q.view(q.shape[0], k.shape[2], -1, q.shape[-1])
+          f"K8/K9 {tag}: not bitwise from run to run")
+    check(bool(torch.isfinite(out.float()).all()), f"K9 {tag}: not finite")
+    row = dict(case=tag, path=got, scores_err=e_s, pv_err=e_o,
+               scores_err_rel=e_s / float(s_ref.abs().max()))
+    return (q, k, v, qp, kp), kw, s2, row
+
+
+def phase_split_decode_kernels(dev, err):
+    """K8 and K9 at every SPLIT_DECODE_CASES entry against their plain
+    versions (split_decode_case), each case's kernels' device µs from one
+    trace of both; then at (c)'s decode shape (B=8, NH=16, KH=1, d=128 of
+    hd 256, L=2048, bf16; causal, window 2048) their device and call ms
+    beside their plain versions', their bounds, torch.matmul's for K8's
+    product and torch.softmax then torch.matmul for K9's (both timed
+    only, never on a path).  → the row, (c)'s with a "cases" list."""
+    import torch
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash.ref import (flash_decode_pv_ref,
+                                               flash_decode_scores_ref,
+                                               position_mask)
+    t0 = time.perf_counter()
+    cases = []
+    for i, case in enumerate(SPLIT_DECODE_CASES):
+        (q, k, v, qp, kp), kw, s2, row = split_decode_case(dev, case)
+        row["kernels_us"] = kernel_us(
+            lambda: (FK.flash_decode_scores(q, k),
+                     FK.flash_decode_pv(s2, v, qp, kp, **kw)),
+            "flash_decode_")
+        log("[split decode] " + json.dumps(on_card(row)))
+        cases.append(row)
+        if i == 0:
+            c_inputs = (q, k, v, qp, kp), kw, s2
+    (q, k, v, qp, kp), kw, s2 = c_inputs
+    err["decode_scores"], err["decode_pv"] = (cases[0]["scores_err"],
+                                              cases[0]["pv_err"])
+    b, length, kh, d = k.shape[0], k.shape[1], k.shape[2], k.shape[3]
+    qg = q.view(b, kh, -1, d)
     kt = k.permute(0, 2, 3, 1)
+    x = torch.where(position_mask(qp, kp, True, kw["window"]),
+                    s2 * kw["scale"], float("-inf"))
+    vt = v.float().permute(0, 2, 1, 3)
     calls = {"scores": lambda: FK.flash_decode_scores(q, k),
              "scores_plain": lambda: flash_decode_scores_ref(q, k),
              "scores_matmul": lambda: torch.matmul(qg, kt),
              "pv": lambda: FK.flash_decode_pv(s2, v, qp, kp, **kw),
-             "pv_plain": lambda: flash_decode_pv_ref(s2, v, qp, kp, **kw)}
+             "pv_plain": lambda: flash_decode_pv_ref(s2, v, qp, kp, **kw),
+             "pv_softmax_matmul": lambda: torch.matmul(
+                 torch.softmax(x, -1).view(b, kh, -1, length), vt)}
     row = dict(shape="B=8 NH=16 KH=1 d=128 (hd 256 over 2) L=2048 bf16, "
-               "rows 0-3 full rings, 4-6 partial, 7 idle")
+               "rows 0-3 full rings, 4-6 partial, 7 idle",
+               path=cases[0]["path"])
     for key, fn in calls.items():
         row[f"{key}_ms"], row[f"{key}_ms_from"] = device_ms(fn, 20)
         row[f"{key}_call_ms"] = cuda_time_ms(fn, 20)
     row["scores_bound_ms"], row["scores_bound_by"] = flash_bound_ms(
         *decode_scores_cost(q, k))
     row["pv_bound_ms"], row["pv_bound_by"] = flash_bound_ms(
-        *decode_pv_cost(s2, v, qp, kp, causal=True, window=2048))
+        *decode_pv_cost(s2, v, qp, kp, causal=True, window=kw["window"]))
     row["scores_kernels"] = kernel_us(calls["scores"], "flash_decode_")
     row["pv_kernels"] = kernel_us(calls["pv"], "flash_decode_")
-    row.update(scores_err=e_s, pv_err=e_o)
-    log("[split decode] " + json.dumps(on_card(row)))
+    row.update(scores_err=cases[0]["scores_err"],
+               pv_err=cases[0]["pv_err"], cases=cases)
+    log("[split decode] " + json.dumps(on_card(
+        {k: v for k, v in row.items() if k != "cases"})))
     log(f"[time] split decode kernels: {time.perf_counter() - t0:.1f} s")
     return row
 
@@ -6112,7 +6251,10 @@ def main() -> int:
         "rg_mesh_timing": train_k["rg_mesh"]})
     # K8 and K9 replace no TPU kernel: the reference leaves the head-dim
     # sharded decode attention to XLA under GSPMD (attention_xla, whose
-    # scores it partial-sums over "model"); at (c)'s decode shape
+    # scores it partial-sums over "model"); at (c)'s decode shape, on
+    # decode_plan's path there (slice 15: "mma"), with K9's
+    # softmax-then-matmul pair as an informative yardstick, and each
+    # SPLIT_DECODE_CASES entry's path, error and kernels' µs
     for name, key, lib in (("flash_decode_scores", "scores",
                             "scores_matmul"),
                            ("flash_decode_pv", "pv", None)):
@@ -6132,7 +6274,21 @@ def main() -> int:
             "ms_from": split_t[f"{key}_ms_from"],
             "call_ms": split_t[f"{key}_call_ms"],
             "kernels_us": split_t[f"{key}_kernels"],
-            "shape": split_t["shape"],
+            "shape": split_t["shape"], "path": split_t["path"],
+            # (c)'s decode: this kernel's device ms a step on rank 0 and
+            # µs a launch, from a card_trace of that decode
+            "c_decode_ms_per_step": hybrid["decode"]["split_device"][name][
+                "ms_per_step"],
+            "c_decode_us_per_launch": hybrid["decode"]["split_device"][name][
+                "us_per_launch"],
+            **({"softmax_matmul_ms": split_t["pv_softmax_matmul_ms"]}
+               if key == "pv" else {}),
+            "cases": [{"case": c["case"], "path": c["path"],
+                       "max_abs_err": c[f"{key}_err"],
+                       "kernels_us": {
+                           n: us for n, us in c["kernels_us"].items()
+                           if n.startswith(name)}}
+                      for c in split_t["cases"]],
             "lm_mesh_launches": mesh_launches[name]})
     log("[trace] " + json.dumps(TRACE_STATS))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -23,6 +23,26 @@ with each of Megatron's *f* or *g* made the identity in one layer
 function (patched in the ranks, not in the code): the readings
 ``chip_smoke.LM_MESH_TOL``'s ``full_loss`` and ``full_grad_norm`` must
 lie between.
+
+    python3 lm_mesh_timing.py --gap [--steps N]
+
+Takes part (c)'s decode gap apart (``chip_smoke.py::phase_lm_mesh``:
+recurrentgemma-9b at full width and depth, bf16, 8 slots, on (1, 2) over
+gloo, ``chip_smoke.lm_mesh_hybrid_tokens``' first N steps, default 8).
+The unsharded card decode runs first, in bf16 and then on the same
+weights cast to float32; then a world of two decodes on the mesh, as the
+port is and with one stage at a time sent over a float32 wire (the
+RG-LRU's ``scatter_to`` of its gate products, *g* (``reduce_from``)
+after the row-parallel products, the k/q/out ``gather_from`` of the
+head-dim path, then all three): the ranks wrap those functions of
+``repro_torch.distributed.collectives`` (a bf16 input upcast, the
+collective run, the result rounded once), and the package keeps no
+switch for it; last the mesh in float32.  Each reading is the gap after
+every layer unit (max |Δ| of the residual stream over its max |x| in the
+reference, the worst step) and the logits' gap (max |Δ| over max
+|logit|, as the phase reads it), against the unsharded decode in the
+same dtype, plus the bf16 card decode against its float32 twin.  Prints
+one JSON line with the card's name and power limit.
 """
 import contextlib
 import json
@@ -172,6 +192,161 @@ def fault_rank(rank):
     return out
 
 
+# --gap's stages: the collectives a float32 wire replaces
+GAP_WIRES = {"sound": (),
+             "scatter_to f32": ("scatter_to",),
+             "reduce_from f32": ("reduce_from",),
+             "gather_from f32": ("gather_from",),
+             "all three f32": ("scatter_to", "reduce_from", "gather_from")}
+
+
+def f32_wire(fn):
+    """``fn`` (a collective) run on a bf16 input upcast to float32, its
+    result rounded to bf16 once."""
+    import torch
+
+    def wired(x, *a, **k):
+        if x.dtype != torch.bfloat16:
+            return fn(x, *a, **k)
+        return fn(x.float(), *a, **k).to(torch.bfloat16)
+    return wired
+
+
+def to_f32(tree):
+    """The tree with every tensor in float32, a leaf at a time (each bf16
+    leaf freed as its copy is made)."""
+    if isinstance(tree, dict):
+        for key in list(tree):
+            tree[key] = to_f32(tree[key])
+        return tree
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_f32(v) for v in tree)
+    return tree.float()
+
+
+def recorded_decode(params, cfg, h, device, steps):
+    """(logits (steps, B, V), residual stream after every layer unit
+    (steps, units, B, D)) of ``steps`` steps of (c)'s decode."""
+    from unittest import mock
+    import numpy as np
+    import chip_smoke as cs
+    from repro_torch.models import lm
+    units = []
+    inner = lm._rg_apply
+
+    def record(*a, **k):
+        x = inner(*a, **k)
+        units.append(x[:, 0].float().cpu().numpy())
+        return x
+    toks, pos = cs.lm_mesh_hybrid_tokens(h, cfg.vocab_size)
+    with mock.patch.object(lm, "_rg_apply", record):
+        logits, _ = cs.hybrid_decode(params, cfg, toks, pos, h["max_len"],
+                                     device, steps=steps)
+    return logits, np.stack(units).reshape(steps, -1, *units[0].shape)
+
+
+def gap(got, ref):
+    """(per layer unit: the worst step's max |Δ| over max |x|; the
+    logits' max |Δ| over max |logit|)."""
+    import numpy as np
+    lg, xs = got
+    lr, xr = ref
+    per = (np.abs(xs - xr).max(axis=(2, 3))
+           / np.abs(xr).max(axis=(2, 3))).max(axis=0)
+    return ([float(x) for x in per],
+            float(np.abs(lg - lr).max() / np.abs(lr).max()))
+
+
+def gap_rank(rank, steps, tmp):
+    """(c)'s decode on (1, 2) for every wire of GAP_WIRES, then in
+    float32; rank 0 saves its recordings in ``tmp`` (too large to send
+    back) and returns their files."""
+    import gc
+    from unittest import mock
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_smoke_mesh, use_mesh
+    from repro_torch.models import lm
+    h = cs.LM_MESH_HYBRID
+    mesh = make_smoke_mesh(h["shape"])
+    out = {}
+    with use_mesh(mesh):
+        cfg = cs.lm_mesh_hybrid_cfg(h)
+        params = cs.shard_dropping(lm.init_params(
+            cfg, torch.Generator(device=mesh.device).manual_seed(0),
+            stacked=True), lm.param_axes(cfg), mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, wires in GAP_WIRES.items():
+            with contextlib.ExitStack() as stack:
+                for w in wires:
+                    stack.enter_context(mock.patch.object(
+                        C, w, f32_wire(getattr(C, w))))
+                out[name] = recorded_decode(params, cfg, h, mesh.device,
+                                            steps)
+            cs.rank_log(rank, f"gap: {name} decoded")
+        params = to_f32(params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["f32 mesh"] = recorded_decode(
+            params, cfg.replace(dtype="float32"), h, mesh.device, steps)
+    if rank != 0:
+        return None
+    files = {}
+    for i, (name, (logits, units)) in enumerate(out.items()):
+        files[name] = os.path.join(tmp, f"gap{i}.npz")
+        np.savez(files[name], logits=logits, units=units)
+    return files
+
+
+def gap_main(name: str, dev) -> int:
+    """--gap: the unsharded references in this process on ``dev``, then
+    the world."""
+    import gc
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.distributed.world import run_world
+    from repro_torch.models import lm
+    argv = sys.argv[1:]
+    steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv else 8
+    h = cs.LM_MESH_HYBRID
+    t = time.time()
+    cfg = cs.lm_mesh_hybrid_cfg(h)
+    full = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          stacked=True)
+    ref = {"bf16": recorded_decode(full, cfg, h, dev, steps)}
+    full = to_f32(full)
+    ref["f32"] = recorded_decode(full, cfg.replace(dtype="float32"), h, dev,
+                                 steps)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    unsharded_s = time.time() - t
+    t = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = run_world(gap_rank, 2, (steps, tmp),
+                          timeout=cs.LM_MESH_TIMEOUT)[0]
+        mesh = {}
+        for key, f in files.items():
+            with np.load(f) as z:
+                mesh[key] = (z["logits"], z["units"])
+    rows = {}
+    for key, got in mesh.items():
+        units, logits = gap(got, ref["f32" if key == "f32 mesh" else "bf16"])
+        rows[key] = dict(logits_gap=logits, unit_gap=units)
+    units, logits = gap(ref["bf16"], ref["f32"])
+    rows["unsharded bf16 vs f32"] = dict(logits_gap=logits, unit_gap=units)
+    units, logits = gap(mesh["sound"], ref["f32"])
+    rows["sound vs unsharded f32"] = dict(logits_gap=logits, unit_gap=units)
+    print(json.dumps({"gap": rows, "steps": steps,
+                      "unsharded_s": unsharded_s, "world_s": time.time() - t,
+                      "card": name}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -181,6 +356,8 @@ def main() -> int:
     from repro_torch.distributed.world import run_world
     cs.phase_build()
     name = card()
+    if "--gap" in sys.argv[1:]:
+        return gap_main(name, torch.device("cuda"))
     if "--faults" in sys.argv[1:]:
         t = time.time()
         ranks = run_world(fault_rank, 2, (), timeout=cs.LM_MESH_TIMEOUT)

@@ -3,7 +3,8 @@
 // pieces of their MMA paths (operand descriptors of 128-byte-swizzled
 // tiles, fences, the m64n64k16 products with A from registers or from
 // shared memory).  One definition each, so the two kernels mask and
-// multiply alike.
+// multiply alike.  K8/K9 (flash_split.cu) take the position mask, the
+// cp.async copies and ex2.approx from here too.
 #pragma once
 
 #include <cuda_runtime.h>

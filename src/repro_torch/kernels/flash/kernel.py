@@ -36,13 +36,17 @@ are built with the port's other kernels into one library at first use
   output and it; the backward is K7 on CUDA tensors and the plain
   backward on CPU tensors.  Serving (no gradient) writes no log-sum-exp.
   Its window follows the LM's ``attention_xla``: 0 means none.
+* :func:`decode_plan` — K8's and K9's path from the shapes alone:
+  ``"mma"`` (``mma.sync`` on the tensor cores; K9 one clustered launch)
+  for bfloat16 with d a multiple of 16, ``"fma"`` (float32 FMAs; K9 a
+  split and a merge kernel) otherwise.
 * :func:`flash_decode_scores` (K8) and :func:`flash_decode_pv` (K9) —
   the split decode attention of a head-dim-sharded cache
   (``csrc/flash_split.cu``; no TPU counterpart, see its header): one
   rank's partial scores over its slice of the head dim, and the softmax
   of the scores summed over "model" times its slice of V.  The plain
-  versions (``ref.py``) for CPU tensors, the kernels for CUDA tensors,
-  each with its own launch count.
+  versions (``ref.py``) for CPU tensors, the kernels for CUDA tensors
+  on :func:`decode_plan`'s path, each with its own launch count.
 * :func:`flash_attention` and :func:`flash_attention_bhsd` — the JAX
   package's single-head and (B, H, S, D) entry points, with the Pallas
   kernel's suffix-aligned causal semantics, through the same kernel.  Their
@@ -70,7 +74,7 @@ Tensor = torch.Tensor
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"split": 0, "mma": 1}
-_BWD_PATHS = {"fma": 0, "mma": 1}
+_FMA_MMA = {"fma": 0, "mma": 1}      # K7's, K8's and K9's paths
 
 TILE_KEYS = 32                   # keys of a split-path tile
 SPLIT_ROWS = 16                  # (query, group head) rows of a split block
@@ -81,6 +85,9 @@ MMA_ROWS = 64                    # (query, group head) rows of one wgmma M
 MMA_HEAD_DIMS = (64, 128)
 
 SPLIT_KEYS = 64                  # cache slots of a K9 split block (kSplit)
+DECODE_CLUSTER = 16              # most blocks of a K9 MMA cluster (or 8)
+DECODE_ROUND = 128               # cache slots a K9 MMA block takes at once
+DECODE_TILE = 16                 # keys of a K9 MMA k-step, unread if unseen
 
 # launches of K6, K7, K8 and K9; read and reset by callers that must show
 # the main path went through the kernels (chip_smoke.py, ServeEngine stats)
@@ -94,9 +101,10 @@ declare("flash_attention_fwd",
         [_P] * 8 + [_I] * 10 + [ctypes.c_float, _I, _I, _P], _I)
 declare("flash_attention_bwd",
         [_P] * 12 + [_I] * 10 + [ctypes.c_float, _I, _P], _I)
-declare("flash_decode_scores", [_P] * 3 + [_I] * 6 + [_P], _I)
+declare("flash_decode_scores", [_P] * 3 + [_I] * 7 + [_P], _I)
 declare("flash_decode_pv",
-        [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P], _I)
+        [_P] * 6 + [_I] * 9 + [ctypes.c_float, _I, _I, _P], _I)
+declare("flash_decode_pv_cluster_max", [], _I)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -134,6 +142,38 @@ def bwd_plan(dtype: torch.dtype, sq: int, nh: int, kh: int, hd: int,
     never B or the positions; any Sq, Sk, NH and KH (ragged tiles are
     masked), which it takes only so that it reads as :func:`plan`."""
     return "mma" if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS else "fma"
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_plan(dtype: torch.dtype, nh: int, kh: int, d: int) -> str:
+    """K8's and K9's path: ``"mma"`` (``mma.sync.m16n8k16``, bf16 in and
+    float32 sums: K8 a block per 128 keys and KV head; K9 a cluster of
+    blocks per batch row and KV head, P as bf16 hi + lo, no merge kernel
+    and no scratch) for bfloat16 with d a multiple of 16, which every
+    head-dim shard of the port's configs is; ``"fma"`` (the first, float32
+    kernels) for float32 and any other d.  It reads its arguments only,
+    never B, L or the positions; any NH and KH (the C entry pads the G =
+    NH / KH heads of a KV head to row tiles of 16)."""
+    return "mma" if dtype == torch.bfloat16 and d % 16 == 0 else "fma"
+
+
+def decode_cluster(length: int, most: int = DECODE_CLUSTER) -> int:
+    """Blocks of a K9 MMA cluster (one cluster a batch row and KV head)
+    over a cache of ``length`` slots: the largest power of two that leaves
+    each block at least DECODE_ROUND slots, from 1 to ``most`` (16, or 8
+    on a card that refuses clusters of 16): 16 at (c)'s 2048, 4 at 512.
+    Block r owns slots [r·kpb, (r+1)·kpb), kpb = ⌈⌈L / cluster⌉ / 16⌉ · 16,
+    in rounds of DECODE_ROUND; the partials add in rank order, so the bits
+    follow the length and never B or the positions."""
+    n = 1
+    while n < most and length >= 2 * n * DECODE_ROUND:
+        n *= 2
+    return n
+
+
+@functools.lru_cache(maxsize=1)
+def _pv_cluster_max() -> int:
+    return int(_lib().flash_decode_pv_cluster_max())
 
 
 def bwd_plan_of(q: Tensor, k: Tensor) -> str:
@@ -212,6 +252,13 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                       causal, window, scale, *plan_of(q, k), lse=lse)
     LAUNCHES["flash_attention_fwd"] += 1
     return (out, lse) if return_lse else out
+
+
+def _check_aligned(**tensors: Tensor) -> None:
+    """The MMA decode paths copy 16-byte pieces of their inputs."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _check_window(window: Optional[int]) -> None:
@@ -298,7 +345,7 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
             kv_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dsum.data_ptr(), b, sq, sk, nh, kh, hd, _DTYPES[q.dtype],
             int(causal), int(window is not None), int(window or 0), scale,
-            _BWD_PATHS[path], torch.cuda.current_stream(dev).cuda_stream)
+            _FMA_MMA[path], torch.cuda.current_stream(dev).cuda_stream)
     check_launch("flash_attention_bwd", err)
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
@@ -308,8 +355,8 @@ def flash_decode_scores(q: Tensor, k: Tensor) -> Tensor:
     """K8: q (B, 1, NH, d), k (B, L, KH, d) → s (B, NH, L) float32, query
     head h's dot products with KV head h // (NH // KH) over these d
     channels (one rank's slice of the head dim), unscaled and unmasked.
-    The plain version on CPU tensors; K8 on CUDA tensors (raises if the
-    launch fails)."""
+    The plain version on CPU tensors; K8 on CUDA tensors, on
+    :func:`decode_plan`'s path (raises if the launch fails)."""
     if q.ndim != 4 or k.ndim != 4 or q.shape[1] != 1:
         raise ValueError("flash_decode_scores takes q (B, 1, NH, d) and k "
                          "(B, L, KH, d)")
@@ -324,11 +371,15 @@ def flash_decode_scores(q: Tensor, k: Tensor) -> Tensor:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     check_tensor("q", q, (b, 1, nh, d), q.dtype, dev)
     check_tensor("k", k, (b, length, kh, d), q.dtype, dev)
+    path = decode_plan(q.dtype, nh, kh, d)
+    if path == "mma":
+        _check_aligned(q=q, k=k)
     s = torch.empty((b, nh, length), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().flash_decode_scores(
             q.data_ptr(), k.data_ptr(), s.data_ptr(), b, length, nh, kh, d,
-            _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+            _DTYPES[q.dtype], _FMA_MMA[path],
+            torch.cuda.current_stream(dev).cuda_stream)
     check_launch("flash_decode_scores", err)
     LAUNCHES["flash_decode_scores"] += 1
     return s
@@ -342,8 +393,10 @@ def flash_decode_pv(s: Tensor, v: Tensor, q_pos: Tensor, kv_pos: Tensor, *,
     int32 → (B, 1, NH, d) in v's dtype: the float32 softmax of ``scale``·s
     (the whole head dim's scale) over the visible keys, times v; 0 for a
     row that sees none.  ``window`` follows K6's rule (None = none).  The
-    plain version on CPU tensors; K9 on CUDA tensors (a split and a merge
-    kernel in one C call; raises if the launch fails)."""
+    plain version on CPU tensors; K9 on CUDA tensors, on
+    :func:`decode_plan`'s path (one clustered kernel, or a split and a
+    merge kernel with a scratch of B·KH·⌈L/64⌉·G·(d+2) floats; one C call;
+    raises if the launch fails)."""
     if s.ndim != 3 or v.ndim != 4:
         raise ValueError("flash_decode_pv takes s (B, NH, L) and v (B, L, "
                          "KH, d)")
@@ -365,15 +418,22 @@ def flash_decode_pv(s: Tensor, v: Tensor, q_pos: Tensor, kv_pos: Tensor, *,
         check_tensor(name, x, shape, dtype, dev)
     _check_window(window)
     out = torch.empty((b, 1, nh, d), dtype=v.dtype, device=dev)
-    splits = -(-length // SPLIT_KEYS)
-    scratch = torch.empty(b * kh * splits * (nh // kh) * (d + 2),
-                          dtype=torch.float32, device=dev)
+    path = decode_plan(v.dtype, nh, kh, d)
+    scratch, cluster = None, 0
+    if path == "mma":
+        _check_aligned(s=s, v=v)
+        cluster = decode_cluster(length, _pv_cluster_max())
+    else:
+        splits = -(-length // SPLIT_KEYS)
+        scratch = torch.empty(b * kh * splits * (nh // kh) * (d + 2),
+                              dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().flash_decode_pv(
             s.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), b, length, nh, kh, d,
-            _DTYPES[v.dtype], int(causal), int(window is not None),
-            int(window or 0), float(scale),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            b, length, nh, kh, d, _DTYPES[v.dtype], int(causal),
+            int(window is not None), int(window or 0), float(scale),
+            _FMA_MMA[path], cluster,
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch("flash_decode_pv", err)
     LAUNCHES["flash_decode_pv"] += 1

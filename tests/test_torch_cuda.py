@@ -1212,16 +1212,26 @@ def test_reduced_train_step_card_matches_cpu(cuda):
     (8, 2048, 16, 1, 128, torch.bfloat16, 2048),     # recurrentgemma on 2
     (3, 100, 6, 2, 8, torch.float32, None),          # ragged L, G = 3
     (2, 64, 12, 2, 64, torch.float32, 7),
-    (2, 130, 4, 1, 256, torch.bfloat16, None)])      # hd 256 on one rank
+    (2, 130, 4, 1, 256, torch.bfloat16, None),       # hd 256 on one rank
+    (8, 2048, 16, 1, 64, torch.bfloat16, 2048),      # recurrentgemma on 4
+    (8, 512, 32, 2, 32, torch.bfloat16, None),       # chatglm3-6b on 4
+    (8, 512, 48, 4, 16, torch.bfloat16, None),       # starcoder2-15b on 8
+    (8, 2048, 16, 1, 128, torch.float32, 2048),      # (c) on the FMA path
+    (3, 100, 6, 2, 24, torch.bfloat16, None),        # bf16 on the FMA path
+    (2, 2048, 16, 1, 64, torch.bfloat16, 7),         # most MMA tiles unseen
+    (2, 4100, 8, 2, 64, torch.bfloat16, None)])      # K9 blocks of 3 rounds
 def test_split_decode_kernels_match_plain_versions_on_card(
         cuda, b, length, nh, kh, d, dtype, window):
-    """K8 and K9 against their plain versions: K8's float32 sums within
-    1e-5 of max |s|, K9 within the flash limit on live rows and 0 on the
-    idle row, one launch each a call."""
+    """K8 and K9 against their plain versions on decode_plan's path (MMA
+    for bf16 at d % 16 == 0): K8's float32 sums within 1e-5 of max |s|,
+    K9 within the flash limit on live rows and 0 on the idle row, both
+    bitwise from run to run, one launch each a call."""
     from repro_torch.kernels.flash.ref import (flash_decode_pv_ref,
                                                flash_decode_scores_ref)
     q, k, v, q_pos, kv_pos = serving_inputs(b, length, nh, kh, d, dtype,
                                             cuda, seed=length)
+    assert FK.decode_plan(dtype, nh, kh, d) == (
+        "mma" if dtype == torch.bfloat16 and d % 16 == 0 else "fma")
     FK.reset_launch_counts()
     s = FK.flash_decode_scores(q, k)
     kw = dict(causal=True, window=window, scale=(2 * d) ** -0.5)
@@ -1236,3 +1246,5 @@ def test_split_decode_kernels_match_plain_versions_on_card(
     seen = position_mask(q_pos, kv_pos, True, window).any(-1)
     assert_flash_close(out[seen], ref[seen])
     assert not out[~seen].any()
+    assert torch.equal(s, FK.flash_decode_scores(q, k))
+    assert torch.equal(out, FK.flash_decode_pv(s, v, q_pos, kv_pos, **kw))
